@@ -1,0 +1,213 @@
+"""Single-device training engine and end-to-end ``run`` (port of
+``recsys_tpu/engine/trainer.py``).
+
+Routes, chosen by ``choose_path`` in the JAX engine's decision order:
+
+* ``host``   -- the native serial engine (``rs_serial_gd``) plus the
+  numpy top-1, for problems too small for any device (reused as is).
+* ``pallas`` -- the route key is kept so ``RunConfig`` stays shared; here
+  it is the fused dense CUDA kernel (``ops/dense_fused.resident_train_top1``),
+  or its plain torch twin on a CPU device.
+* ``dense``, ``bell``, ``coo`` and any mesh raise ``NotImplementedError``
+  naming the ROADMAP item that ports them.  Nothing falls back to
+  another route.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from recsys_tpu.config import ProblemSpec, RunConfig
+from recsys_tpu.models.mf import MFState, init_factors
+from recsys_tpu_torch.ops import dense_fused
+from recsys_tpu_torch.ops.bell_host import bell_slot_ratio
+from recsys_tpu_torch.utils.timing import phase
+
+# Decision constants, unchanged from the JAX engine (trainer.py:62-94).
+DENSE_BUDGET_BYTES = 2 << 30
+DENSE_BELL_CROSSOVER = 32
+DENSE_BELL_CROSSOVER_F64 = 2
+DENSE_A_TRANSFER_BUDGET = 256 << 20
+HOST_SERIAL_WORK = 50_000_000
+HOST_SERIAL_TOP1_FLOPS = 200_000_000
+
+# Device memory the fused dense route may take: half of an 80 GB H100,
+# leaving the rest to the caller and to the plain twin it is checked
+# against.  See ``dense_plan`` for what is counted.
+DEVICE_BUDGET_BYTES = 40 << 30
+
+_ITEMSIZE = {"float32": 4, "float64": 8, "bfloat16": 2}
+
+# Where each route that is not ported yet is queued.
+_NOT_PORTED = {
+    "dense": "A4 (ops/dense.py, exact f64)",
+    "bell": "A4 (ops/bell.py, exact f64)",
+    "coo": "A7 (ops/coo.py)",
+}
+
+
+def _host_serial_ok(spec: ProblemSpec) -> bool:
+    """trainer.py:97."""
+    from recsys_tpu.io import _native
+
+    return (
+        spec.iters * spec.nnz * spec.features <= HOST_SERIAL_WORK
+        and spec.users * spec.items * spec.features <= HOST_SERIAL_TOP1_FLOPS
+        and _native.available()
+    )
+
+
+def mxu_precision(cfg: RunConfig) -> str:
+    """Matmul precision of the f32 dense kernel (trainer.py:107): "auto"
+    is true f32 for float32 and one bf16 pass for bfloat16."""
+    if cfg.precision != "auto":
+        return cfg.precision
+    return "default" if cfg.dtype == "bfloat16" else "highest"
+
+
+def choose_path(spec: ProblemSpec, cfg: RunConfig, device, n_devices: int = 1, allow_host: bool = True) -> str:
+    """The JAX engine's path selection (trainer.py:120), with each
+    ``jax.default_backend() == "tpu"`` gate read as ``device.type == "cuda"``."""
+    if cfg.path != "auto":
+        return cfg.path
+    if allow_host and n_devices == 1 and _host_serial_ok(spec):
+        return "host"
+    on_card = torch.device(device).type == "cuda"
+    dense_fits = 2 * spec.users * spec.items * _ITEMSIZE[cfg.dtype] <= DENSE_BUDGET_BYTES * n_devices
+    if spec.nnz == 0:
+        return "dense" if dense_fits else "coo"
+    cells = spec.users * spec.items
+    slots = 2.0 * spec.nnz * bell_slot_ratio(spec)
+    crossover = DENSE_BELL_CROSSOVER_F64 if cfg.dtype == "float64" else DENSE_BELL_CROSSOVER
+    if cells > crossover * slots or not dense_fits:
+        return "bell"
+    if cfg.dtype != "float64" and on_card and cells * 4 > DENSE_A_TRANSFER_BUDGET and cells > 4 * slots:
+        return "bell"
+    if cfg.dtype in ("float32", "bfloat16") and on_card and dense_fused.mask_is_implicit(spec):
+        return "pallas"
+    return "dense"
+
+
+def _factorize_host_serial(spec: ProblemSpec, state: MFState | None = None) -> MFState:
+    """The native sequential trajectory (trainer.py:336): exact f64,
+    bit-identical to the reference binary."""
+    from recsys_tpu.io import _native
+
+    if state is None:
+        state = init_factors(spec.users, spec.items, spec.features)
+    out = _native.serial_gd(
+        spec,
+        np.array(state.L, np.float64, order="C"),
+        np.array(state.R, np.float64, order="C"),
+    )
+    if out is None:  # no native toolchain: the numpy oracle is the same math
+        from recsys_tpu.engine.oracle import factorize_numpy
+
+        return factorize_numpy(spec, state=state)[0]
+    return MFState(L=out[0], R=out[1])
+
+
+def _a_storage(spec: ProblemSpec) -> tuple[torch.dtype, int]:
+    """(dtype, bytes) of the most compact EXACT A storage (trainer.py:423):
+    int8 at 2x the rating, else bf16, else f32.  Every choice gives the
+    kernel the same f32 values."""
+    if dense_fused.vals_int8_exact(spec):
+        return torch.int8, 1
+    if dense_fused.vals_bf16_exact(spec):
+        return torch.bfloat16, 2
+    return torch.float32, 4
+
+
+@dataclasses.dataclass(frozen=True)
+class DensePlan:
+    """The fused dense route's layout: A storage, padded dims, and the
+    device bytes it needs at most."""
+
+    a_dtype: torch.dtype
+    U: int
+    I: int
+    K: int
+    device_bytes: int
+
+
+def dense_plan(spec: ProblemSpec) -> DensePlan:
+    """Hopper plan in place of the TPU's ``_pallas_plan`` (trainer.py:482).
+
+    VMEM strips and budgets are TPU facts and have no counterpart: the
+    whole problem lives in device memory and the kernel tiles it itself.
+    The plan picks the A storage and pads U, I to 128 and K to 8.  Its
+    byte count is dense A^T, the six factor tables (input, output and
+    ping-pong for each side), and the kernel's partial sums at their
+    largest (one chunk per 32 reduction columns); above
+    ``DEVICE_BUDGET_BYTES`` it raises.
+    """
+    a_dtype, a_bytes = _a_storage(spec)
+    U = dense_fused.round_up(spec.users, 128)
+    I = dense_fused.round_up(spec.items, 128)
+    K = dense_fused.round_up(spec.features, 8)
+    if K > dense_fused.MAX_K:
+        raise NotImplementedError(
+            f"k={spec.features} exceeds the fused kernel's K <= {dense_fused.MAX_K}; "
+            "wider factors wait for the tiled plan (ROADMAP A6)"
+        )
+    need = a_bytes * U * I + 4 * 3 * K * (U + I) + 4 * 2 * K * U * I // 32 + 8 * U * I // 32
+    if need > DEVICE_BUDGET_BYTES:
+        raise NotImplementedError(
+            f"dense A^T plus factors need {need} B > DEVICE_BUDGET_BYTES; "
+            "the streamed and tiled plans are ROADMAP A5/A6"
+        )
+    return DensePlan(a_dtype=a_dtype, U=U, I=I, K=K, device_bytes=need)
+
+
+def _pallas_fused_top1(spec: ProblemSpec, precision: str, device) -> np.ndarray:
+    """Whole problem in one kernel call: training loop + masked top-1
+    (trainer.py:683)."""
+    plan = dense_plan(spec)
+    with phase("prep"):
+        Lt, Rt, (U, I, _) = dense_fused.pad_factors_for_pallas(spec)
+    with phase("upload") as psync:
+        A = dense_fused.device_dense_AT(spec, U, I, plan.a_dtype, device)
+        Lt = torch.from_numpy(Lt).to(device)
+        Rt = torch.from_numpy(Rt).to(device)
+        psync((A, Lt, Rt))
+    with phase("train") as psync:
+        _, _, top1 = dense_fused.resident_train_top1(
+            Lt, Rt, A, iters=spec.iters, alpha2=2.0 * spec.alpha,
+            precision=precision, items_true=spec.items,
+        )
+        psync(top1)
+    with phase("top1"):
+        return top1.cpu().numpy()[0, : spec.users]
+
+
+def run(spec: ProblemSpec, cfg: RunConfig, device) -> tuple[str, np.ndarray]:
+    """Factorize + recommend on ``device``; returns (stdout payload, top1)."""
+    from recsys_tpu.io.writers import format_recommendations
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
+    if cfg.mesh_shape is not None:
+        raise NotImplementedError("the sharded engine (--mesh) is not ported yet (ROADMAP A9)")
+    path = choose_path(spec, cfg, device)
+    if path == "host":
+        from recsys_tpu.engine.oracle import top1_numpy
+
+        with phase("train"):
+            state = _factorize_host_serial(spec)
+        with phase("top1"):
+            top1 = top1_numpy(np.asarray(state.L), np.asarray(state.R), spec)
+        return format_recommendations(top1, spec.rated_counts(), spec.items), top1
+    if path == "pallas":
+        if cfg.dtype == "float64":
+            raise ValueError("the fused dense route computes in float32; exact float64 is the BELL route (ROADMAP A4)")
+        if not dense_fused.mask_is_implicit(spec):
+            raise ValueError("pallas path requires all ratings non-zero (implicit mask)")
+        top1 = _pallas_fused_top1(spec, mxu_precision(cfg), device)
+        return format_recommendations(top1, spec.rated_counts(), spec.items), top1
+    if path in _NOT_PORTED:
+        raise NotImplementedError(f"path {path!r} is not ported yet (ROADMAP {_NOT_PORTED[path]})")
+    raise ValueError(f"unknown path {path!r}")
