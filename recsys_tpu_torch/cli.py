@@ -2,12 +2,15 @@
 ``recsys_tpu/cli.py``, :47-236):
 
     python -m recsys_tpu_torch.cli run <file.in> [--device cuda] [--dtype ...] [--precision ...]
+    python -m recsys_tpu_torch.cli run <file.in> --checkpoint ck.npz [--checkpoint-every 500]
 
 It prints the reference binaries' stdout contract: one top-1 item index
 per user, then ``time : <seconds>`` (``matFact.c:127,134``).  Flags keep
-the JAX CLI's names; values the port does not have yet (``--path``
-dense/bell/coo, ``--mesh``, ``--checkpoint``, ``--checkpoint-every``,
-``--block-items``) raise.
+the JAX CLI's names.  ``--checkpoint`` trains in chunks of
+``--checkpoint-every`` iterations through ``trainer.factorize``, resuming
+from the file if it exists, and then runs ``trainer.recommend`` with
+``--block-items`` (``recsys_tpu/cli.py:155-163``).  Values the port does
+not have yet (``--path`` dense/bell/coo, ``--mesh``) raise.
 """
 
 from __future__ import annotations
@@ -29,33 +32,30 @@ def main(argv=None) -> int:
     p.add_argument("--path", default="auto", choices=["auto", "dense", "bell", "coo", "pallas"])
     p.add_argument("--precision", default="auto", choices=["auto", "highest", "bf16x3", "default"])
     p.add_argument("--mesh", default=None, help="RxC mesh (not ported yet: raises)")
-    p.add_argument("--block-items", type=int, default=None, help="not ported yet (dense route's top-1): raises")
+    p.add_argument("--block-items", type=int, default=4096, help="item-block size of recommend()'s top-1 (--checkpoint)")
     p.add_argument("--no-time", action="store_true", help="suppress the trailing time line")
     p.add_argument("--strict", action="store_true", help="refuse bfloat16 (the port has no measured bf16 policy)")
-    p.add_argument("--checkpoint", metavar="PATH", default=None, help="not ported yet: raises")
-    p.add_argument("--checkpoint-every", type=int, default=None, metavar="N", help="not ported yet: raises")
+    p.add_argument("--checkpoint", metavar="PATH", default=None, help="snapshot/resume file")
+    p.add_argument("--checkpoint-every", type=int, default=500, metavar="N", help="iterations between snapshots")
     p.add_argument("--profile", metavar="DIR", default=None, help="write a torch.profiler chrome trace here")
     args = ap.parse_args(argv)
 
     import torch
 
-    from recsys_tpu.config import RunConfig
-    from recsys_tpu.io.parser import load_problem
+    from recsys_tpu_torch.config import RunConfig
+    from recsys_tpu_torch.io.parser import load_problem
     from recsys_tpu_torch.engine import trainer
     from recsys_tpu_torch.utils.timing import Timer
 
     device = torch.device(args.device)
     if args.dtype is None:
         args.dtype = "float64" if device.type == "cpu" else "float32"
-    if args.checkpoint or args.checkpoint_every is not None:
-        raise NotImplementedError("--checkpoint is not ported yet (ROADMAP B2: resident_train)")
-    if args.block_items is not None:
-        raise NotImplementedError("--block-items is not ported yet (ROADMAP A4: the dense route's blocked top-1)")
     mesh_shape = None
     if args.mesh:
         r, c = args.mesh.lower().split("x")
         mesh_shape = (int(r), int(c))
-    cfg = RunConfig(dtype=args.dtype, path=args.path, mesh_shape=mesh_shape, precision=args.precision)
+    cfg = RunConfig(dtype=args.dtype, path=args.path, mesh_shape=mesh_shape, precision=args.precision,
+                    block_items=args.block_items)
     if cfg.dtype == "bfloat16":
         print("warning: bfloat16 is a lossy speed mode judged by argmax agreement "
               "(floor 98%); --dtype float32 --precision bf16x3 is the accurate fast tier",
@@ -79,7 +79,15 @@ def main(argv=None) -> int:
                 f"path={trainer.choose_path(spec, cfg, device)} device={device}",
                 file=sys.stderr,
             )
-        out, _ = trainer.run(spec, cfg, device)
+        if args.checkpoint:
+            from recsys_tpu_torch.io.writers import format_recommendations
+            from recsys_tpu_torch.utils.checkpoint import run_with_checkpoints
+
+            state = run_with_checkpoints(spec, cfg, args.checkpoint, args.checkpoint_every, device)
+            top1 = trainer.recommend(state, spec, cfg, device)
+            out = format_recommendations(top1, spec.rated_counts(), spec.items)
+        else:
+            out, _ = trainer.run(spec, cfg, device)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))

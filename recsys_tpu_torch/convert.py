@@ -2,9 +2,9 @@
 
 The JAX fused kernels take K-major numpy f32 tables Lt (K, U) / Rt (K, I);
 ``factorize`` returns an ``MFState`` of (users, k) / (items, k) arrays.
-These helpers move either form onto a device as the port's padded
-K-major f32 tensors and back, so a test can hand the same factors to
-both packages.
+These helpers move either form, or a checkpoint file of either package,
+onto a device as the port's padded K-major f32 tensors and back, so a
+test can hand the same factors to both packages.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from recsys_tpu.models.mf import MFState
+from recsys_tpu_torch.models.mf import MFState
 from recsys_tpu_torch.ops.dense_fused import pad_factors_for_pallas
 
 
@@ -39,3 +39,12 @@ def to_state(Lt: torch.Tensor, Rt: torch.Tensor, spec) -> MFState:
     L = Lt[:k, : spec.users].T.cpu().numpy()
     R = Rt[:k, : spec.items].T.cpu().numpy()
     return MFState(L=np.ascontiguousarray(L), R=np.ascontiguousarray(R))
+
+
+def from_checkpoint(path: str, spec, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A checkpoint ``.npz`` that either package wrote (keys ``L``, ``R``,
+    ``completed_iters``) -> zero-padded K-major f32 (Lt, Rt) on ``device``,
+    ready for the port's kernels."""
+    from recsys_tpu_torch.utils.checkpoint import load
+
+    return from_state(load(path).state, spec, device)

@@ -4,7 +4,10 @@
 // (:662; bodies _resident_top1_kernel :620 and _resident_kernel :172): all
 // `iters` stable-snapshot GD steps on K-major factors, then the masked top-1,
 // from ONE host call (rs_resident_train_top1) that runs the iteration loop in
-// C on the caller's stream.  Per step, with A^T (I, U) and the implicit mask
+// C on the caller's stream.  Two more entries share its kernels:
+// rs_resident_train (B2, pallas_dense.py:238 resident_train) runs the steps
+// alone, and rs_stream_top1 (B4, pallas_dense.py:473 stream_top1) the top-1
+// alone, from factors the stream kernel (dense_stream.cu) trained.  Per step, with A^T (I, U) and the implicit mask
 // a != 0 (pallas_dense.py module docstring):
 //
 //     pred^T = Rt^T . Lt                     (I, U), contracting K
@@ -340,20 +343,23 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int P>
-int run(const Args& a) {
-  const T* At = static_cast<const T*>(a.At);
+int log2_lanes(int G) {
   int lg = 0;
-  while ((1 << lg) < a.G) ++lg;
+  while ((1 << lg) < G) ++lg;
+  return lg;
+}
+
+// `iters` GD steps from (Lt_in, Rt_in); the last step lands in (Lt_out,
+// Rt_out).  iters == 0 copies the inputs there.
+template <typename T, int P>
+int train(const Args& a) {
+  const T* At = static_cast<const T*>(a.At);
+  const int lg = log2_lanes(a.G);
   const size_t smem = smem_bytes(lg, P);
   cudaError_t err = cudaFuncSetAttribute(grad_pass<T, P>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(top1_pass<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-
   const size_t nl = static_cast<size_t>(a.K) * a.U, nr = static_cast<size_t>(a.K) * a.I;
   const int apply_grid = static_cast<int>(std::min<size_t>((nl + nr + 255) / 256, 4096));
   const float* lc = a.Lt_in;
@@ -381,8 +387,21 @@ int run(const Args& a) {
                           a.stream);
     if (err != cudaSuccess) return err;
   }
-  // The top-1 walks the items in the same chunks as the dl side.
-  Side st{a.Lt_out, a.Rt_out, a.U, a.I, 0, a.chunk_l, a.s_l, nullptr};
+  return cudaSuccess;
+}
+
+// The masked top-1 from the factors (Lt, Rt), walking the items in the dl
+// side's chunks (chunk_l, s_l).
+template <typename T, int P>
+int top1(const Args& a, const float* Lt, const float* Rt) {
+  const T* At = static_cast<const T*>(a.At);
+  const int lg = log2_lanes(a.G);
+  const size_t smem = smem_bytes(lg, P);
+  cudaError_t err = cudaFuncSetAttribute(top1_pass<T, P>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  Side st{Lt, Rt, a.U, a.I, 0, a.chunk_l, a.s_l, nullptr};
   top1_pass<T, P><<<side_blocks(st, lg), BLOCK, smem, a.stream>>>(
       At, st, a.K, lg, a.items_true, a.top_val, a.top_idx);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -390,12 +409,33 @@ int run(const Args& a) {
   return cudaGetLastError();
 }
 
+enum Job { TRAIN_TOP1 = 0, TRAIN = 1, TOP1 = 2 };
+
+template <typename T, int P>
+int run(const Args& a, int job) {
+  if (job != TOP1) {
+    const int err = train<T, P>(a);
+    if (err != cudaSuccess || job == TRAIN) return err;
+    return top1<T, P>(a, a.Lt_out, a.Rt_out);
+  }
+  return top1<T, P>(a, a.Lt_in, a.Rt_in);
+}
+
 template <typename T>
-int run_prec(const Args& a, int precision) {
+int run_prec(const Args& a, int precision, int job) {
   switch (precision) {
-    case HIGHEST: return run<T, HIGHEST>(a);
-    case BF16X3: return run<T, BF16X3>(a);
-    case DEFAULT: return run<T, DEFAULT>(a);
+    case HIGHEST: return run<T, HIGHEST>(a, job);
+    case BF16X3: return run<T, BF16X3>(a, job);
+    case DEFAULT: return run<T, DEFAULT>(a, job);
+  }
+  return cudaErrorInvalidValue;
+}
+
+int dispatch(const Args& a, int a_kind, int precision, int job) {
+  switch (a_kind) {
+    case 0: return run_prec<int8_t>(a, precision, job);
+    case 1: return run_prec<__nv_bfloat16>(a, precision, job);
+    case 2: return run_prec<float>(a, precision, job);
   }
   return cudaErrorInvalidValue;
 }
@@ -403,9 +443,12 @@ int run_prec(const Args& a, int precision) {
 }  // namespace
 
 // a_kind: 0 int8 (2x rating), 1 bf16, 2 f32.  precision: 0 highest,
-// 1 bf16x3, 2 default.  Returns the first non-zero cudaError_t, else 0.
-// The caller (ops/dense_fused.py) checks shapes: U, I multiples of 128,
-// K <= 32*G, G in {1, 2, 4, 8}, chunks multiples of 32.
+// 1 bf16x3, 2 default.  Each entry returns the first non-zero cudaError_t,
+// else 0.  The callers (ops/dense_fused.py, ops/dense_stream.py) check
+// shapes: U, I multiples of 128, K <= 32*G, G in {1, 2, 4, 8}, chunks
+// multiples of 32.
+
+// B1: `iters` GD steps, then the masked top-1 (pallas_dense.py:662).
 extern "C" int rs_resident_train_top1(
     const void* At, int a_kind, const float* Lt_in, const float* Rt_in, float* Lt_out,
     float* Rt_out, float* Lt_tmp, float* Rt_tmp, float* part_l, float* part_r, float* top_val,
@@ -414,10 +457,32 @@ extern "C" int rs_resident_train_top1(
   const Args a{At, Lt_in, Rt_in, Lt_out, Rt_out, Lt_tmp, Rt_tmp, part_l, part_r, top_val,
                top_idx, top1, K, U, I, G, iters, items_true, alpha2, chunk_l, s_l, chunk_r,
                s_r, static_cast<cudaStream_t>(stream)};
-  switch (a_kind) {
-    case 0: return run_prec<int8_t>(a, precision);
-    case 1: return run_prec<__nv_bfloat16>(a, precision);
-    case 2: return run_prec<float>(a, precision);
-  }
-  return cudaErrorInvalidValue;
+  return dispatch(a, a_kind, precision, TRAIN_TOP1);
+}
+
+// B2: the same steps without the top-1 (pallas_dense.py:238 resident_train).
+// Same kernels, same order: its factors are B1's, bit for bit.
+extern "C" int rs_resident_train(const void* At, int a_kind, const float* Lt_in,
+                                 const float* Rt_in, float* Lt_out, float* Rt_out,
+                                 float* Lt_tmp, float* Rt_tmp, float* part_l, float* part_r,
+                                 int K, int U, int I, int G, int iters, float alpha2,
+                                 int precision, int chunk_l, int s_l, int chunk_r, int s_r,
+                                 void* stream) {
+  const Args a{At, Lt_in, Rt_in, Lt_out, Rt_out, Lt_tmp, Rt_tmp, part_l, part_r, nullptr,
+               nullptr, nullptr, K, U, I, G, iters, 0, alpha2, chunk_l, s_l, chunk_r,
+               s_r, static_cast<cudaStream_t>(stream)};
+  return dispatch(a, a_kind, precision, TRAIN);
+}
+
+// B4: the masked top-1 alone, from final factors (pallas_dense.py:473
+// stream_top1).  top1_pass reads each A^T cell once; with the same factors
+// it is B1's top-1, bit for bit.
+extern "C" int rs_stream_top1(const void* At, int a_kind, const float* Lt, const float* Rt,
+                              float* top_val, int* top_idx, int* top1, int K, int U, int I,
+                              int G, int precision, int items_true, int chunk, int S,
+                              void* stream) {
+  const Args a{At, Lt, Rt, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, top_val,
+               top_idx, top1, K, U, I, G, 0, items_true, 0.f, chunk, S, 0, 0,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(a, a_kind, precision, TOP1);
 }

@@ -4,10 +4,15 @@
 Routes, chosen by ``choose_path`` in the JAX engine's decision order:
 
 * ``host``   -- the native serial engine (``rs_serial_gd``) plus the
-  numpy top-1, for problems too small for any device (reused as is).
+  numpy top-1, for problems too small for any device (the port's own
+  copy of the native library).
 * ``pallas`` -- the route key is kept so ``RunConfig`` stays shared; here
-  it is the fused dense CUDA kernel (``ops/dense_fused.resident_train_top1``),
-  or its plain torch twin on a CPU device.
+  it is the dense CUDA kernels, or their plain torch twins on a CPU
+  device, on the plan ``dense_plan`` picks: ``resident`` (B1
+  ``dense_fused.resident_train_top1`` for ``run``, B2
+  ``dense_fused.resident_train`` for ``factorize``) or ``stream`` (B3
+  ``dense_stream.stream_train``, then B4 ``dense_stream.stream_top1`` in
+  ``run``).
 * ``dense``, ``bell``, ``coo`` and any mesh raise ``NotImplementedError``
   naming the ROADMAP item that ports them.  Nothing falls back to
   another route.
@@ -20,9 +25,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from recsys_tpu.config import ProblemSpec, RunConfig
-from recsys_tpu.models.mf import MFState, init_factors
-from recsys_tpu_torch.ops import dense_fused
+from recsys_tpu_torch import convert
+from recsys_tpu_torch.config import ProblemSpec, RunConfig
+from recsys_tpu_torch.models.mf import MFState, init_factors
+from recsys_tpu_torch.ops import dense_fused, dense_stream, topk
 from recsys_tpu_torch.ops.bell_host import bell_slot_ratio
 from recsys_tpu_torch.utils.timing import phase
 
@@ -39,6 +45,15 @@ HOST_SERIAL_TOP1_FLOPS = 200_000_000
 # against.  See ``dense_plan`` for what is counted.
 DEVICE_BUDGET_BYTES = 40 << 30
 
+# Largest A^T, in its storage dtype, that the dense route keeps on the
+# resident kernels; above it the stream kernel reads A^T once per step.
+# On an H100 at 4.6-4.7% density, whole runs in highest and default
+# are faster resident at 3.0 MB of A^T and faster streamed at 5.5 MB and
+# above (PERF.md, RESIDENT_A_MAX_BYTES): instML100k (1.8 MB int8) stays
+# resident and gen-instML1M (24.4 MB) streams, as the JAX package's
+# routes do.
+RESIDENT_A_MAX_BYTES = 4 << 20
+
 _ITEMSIZE = {"float32": 4, "float64": 8, "bfloat16": 2}
 
 # Where each route that is not ported yet is queued.
@@ -51,7 +66,7 @@ _NOT_PORTED = {
 
 def _host_serial_ok(spec: ProblemSpec) -> bool:
     """trainer.py:97."""
-    from recsys_tpu.io import _native
+    from recsys_tpu_torch.io import _native
 
     return (
         spec.iters * spec.nnz * spec.features <= HOST_SERIAL_WORK
@@ -94,7 +109,7 @@ def choose_path(spec: ProblemSpec, cfg: RunConfig, device, n_devices: int = 1, a
 def _factorize_host_serial(spec: ProblemSpec, state: MFState | None = None) -> MFState:
     """The native sequential trajectory (trainer.py:336): exact f64,
     bit-identical to the reference binary."""
-    from recsys_tpu.io import _native
+    from recsys_tpu_torch.io import _native
 
     if state is None:
         state = init_factors(spec.users, spec.items, spec.features)
@@ -104,7 +119,7 @@ def _factorize_host_serial(spec: ProblemSpec, state: MFState | None = None) -> M
         np.array(state.R, np.float64, order="C"),
     )
     if out is None:  # no native toolchain: the numpy oracle is the same math
-        from recsys_tpu.engine.oracle import factorize_numpy
+        from recsys_tpu_torch.engine.oracle import factorize_numpy
 
         return factorize_numpy(spec, state=state)[0]
     return MFState(L=out[0], R=out[1])
@@ -123,9 +138,10 @@ def _a_storage(spec: ProblemSpec) -> tuple[torch.dtype, int]:
 
 @dataclasses.dataclass(frozen=True)
 class DensePlan:
-    """The fused dense route's layout: A storage, padded dims, and the
-    device bytes it needs at most."""
+    """The dense route's layout: kernel kind (``resident`` or ``stream``),
+    A storage, padded dims, and the device bytes it needs at most."""
 
+    kind: str
     a_dtype: torch.dtype
     U: int
     I: int
@@ -133,16 +149,21 @@ class DensePlan:
     device_bytes: int
 
 
-def dense_plan(spec: ProblemSpec) -> DensePlan:
-    """Hopper plan in place of the TPU's ``_pallas_plan`` (trainer.py:482).
+def dense_plan(spec: ProblemSpec, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES) -> DensePlan:
+    """Hopper plan in place of the TPU's ``_pallas_plan`` (trainer.py:482)
+    and ``stream_vmem_bytes`` (pallas_dense.py:507).
 
     VMEM strips and budgets are TPU facts and have no counterpart: the
-    whole problem lives in device memory and the kernel tiles it itself.
-    The plan picks the A storage and pads U, I to 128 and K to 8.  Its
-    byte count is dense A^T, the six factor tables (input, output and
-    ping-pong for each side), and the kernel's partial sums at their
-    largest (one chunk per 32 reduction columns); above
-    ``DEVICE_BUDGET_BYTES`` it raises.
+    whole problem lives in device memory and the kernels tile it
+    themselves.  The plan picks the A storage, pads U, I to 128 and K to
+    8, and picks the kind: ``resident`` when A^T in its storage dtype
+    takes at most ``a_max_bytes``, else ``stream``.  Its byte count is
+    dense A^T, the six factor tables (input, output and ping-pong for each
+    side), the training kernel's partial sums (for ``resident`` at their
+    largest, one chunk per 32 reduction columns; for ``stream`` as
+    ``dense_stream.stream_partial_bytes`` counts them on an H100) and the
+    top-1's; above ``DEVICE_BUDGET_BYTES`` it raises.  It does not depend
+    on the device, so CPU runs take the card's routes.
     """
     a_dtype, a_bytes = _a_storage(spec)
     U = dense_fused.round_up(spec.users, 128)
@@ -150,64 +171,147 @@ def dense_plan(spec: ProblemSpec) -> DensePlan:
     K = dense_fused.round_up(spec.features, 8)
     if K > dense_fused.MAX_K:
         raise NotImplementedError(
-            f"k={spec.features} exceeds the fused kernel's K <= {dense_fused.MAX_K}; "
+            f"k={spec.features} exceeds the dense kernels' K <= {dense_fused.MAX_K}; "
             "wider factors wait for the tiled plan (ROADMAP A6)"
         )
-    need = a_bytes * U * I + 4 * 3 * K * (U + I) + 4 * 2 * K * U * I // 32 + 8 * U * I // 32
+    kind = "resident" if a_bytes * U * I <= a_max_bytes else "stream"
+    partials = (4 * 2 * K * U * I // 32 if kind == "resident"
+                else dense_stream.stream_partial_bytes(K, U, I))
+    need = a_bytes * U * I + 4 * 3 * K * (U + I) + partials + 8 * U * I // 32
     if need > DEVICE_BUDGET_BYTES:
         raise NotImplementedError(
             f"dense A^T plus factors need {need} B > DEVICE_BUDGET_BYTES; "
-            "the streamed and tiled plans are ROADMAP A5/A6"
+            "the tiled plan is ROADMAP A6"
         )
-    return DensePlan(a_dtype=a_dtype, U=U, I=I, K=K, device_bytes=need)
+    return DensePlan(kind=kind, a_dtype=a_dtype, U=U, I=I, K=K, device_bytes=need)
 
 
-def _pallas_fused_top1(spec: ProblemSpec, precision: str, device) -> np.ndarray:
-    """Whole problem in one kernel call: training loop + masked top-1
-    (trainer.py:683)."""
-    plan = dense_plan(spec)
+def _dense_inputs(spec: ProblemSpec, plan: DensePlan, device, state: MFState | None = None):
+    """(Lt, Rt, A^T) on ``device`` in the plan's layout, timed as the
+    ``prep`` and ``upload`` phases."""
     with phase("prep"):
-        Lt, Rt, (U, I, _) = dense_fused.pad_factors_for_pallas(spec)
+        Lt, Rt, _ = dense_fused.pad_factors_for_pallas(spec, state=state)
     with phase("upload") as psync:
-        A = dense_fused.device_dense_AT(spec, U, I, plan.a_dtype, device)
+        A = dense_fused.device_dense_AT(spec, plan.U, plan.I, plan.a_dtype, device)
         Lt = torch.from_numpy(Lt).to(device)
         Rt = torch.from_numpy(Rt).to(device)
         psync((A, Lt, Rt))
+    return Lt, Rt, A
+
+
+def _pallas_fused_top1(spec: ProblemSpec, precision: str, device, *,
+                       a_max_bytes: int = RESIDENT_A_MAX_BYTES) -> np.ndarray:
+    """Training loop + masked top-1 on the plan's kernels (trainer.py:683):
+    one B1 call on ``resident``; on ``stream``, B3 in the ``train`` phase
+    and then B4 in the ``top1`` phase, as the JAX code splits them."""
+    plan = dense_plan(spec, a_max_bytes=a_max_bytes)
+    Lt, Rt, A = _dense_inputs(spec, plan, device)
+    kw = dict(alpha2=2.0 * spec.alpha, precision=precision)
+    if plan.kind == "stream":
+        with phase("train") as psync:
+            Lt, Rt = dense_stream.stream_train(Lt, Rt, A, iters=spec.iters, **kw)
+            psync((Lt, Rt))
+        with phase("top1"):
+            top1 = dense_stream.stream_top1(Lt, Rt, A, precision=precision, items_true=spec.items)
+            return top1.cpu().numpy()[0, : spec.users]
     with phase("train") as psync:
-        _, _, top1 = dense_fused.resident_train_top1(
-            Lt, Rt, A, iters=spec.iters, alpha2=2.0 * spec.alpha,
-            precision=precision, items_true=spec.items,
-        )
+        _, _, top1 = dense_fused.resident_train_top1(Lt, Rt, A, iters=spec.iters, items_true=spec.items, **kw)
         psync(top1)
     with phase("top1"):
         return top1.cpu().numpy()[0, : spec.users]
 
 
-def run(spec: ProblemSpec, cfg: RunConfig, device) -> tuple[str, np.ndarray]:
-    """Factorize + recommend on ``device``; returns (stdout payload, top1)."""
-    from recsys_tpu.io.writers import format_recommendations
-
+def _check_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
+    return device
+
+
+def _dense_route_ok(spec: ProblemSpec, cfg: RunConfig) -> None:
+    if cfg.dtype == "float64":
+        raise ValueError("the fused dense route computes in float32; exact float64 is the BELL route (ROADMAP A4)")
+    if not dense_fused.mask_is_implicit(spec):
+        raise ValueError("pallas path requires all ratings non-zero (implicit mask)")
+
+
+def _refuse(path: str) -> None:
+    if path in _NOT_PORTED:
+        raise NotImplementedError(f"path {path!r} is not ported yet (ROADMAP {_NOT_PORTED[path]})")
+    raise ValueError(f"unknown path {path!r}")
+
+
+def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", state: MFState | None = None, *,
+              a_max_bytes: int = RESIDENT_A_MAX_BYTES) -> MFState:
+    """The full GD loop on ``device`` from ``state`` (default: the glibc
+    initial factors); returns host factors (trainer.py:268, :518-542).
+
+    The ``host`` route runs the native f64 trajectory; the ``pallas`` route
+    runs the plan's training kernel, B2 ``resident_train`` or B3
+    ``stream_train``, and returns f32 factors at their true shapes.  The
+    other routes raise ``NotImplementedError`` naming their ROADMAP item.
+    """
+    device = _check_device(device)
     if cfg.mesh_shape is not None:
         raise NotImplementedError("the sharded engine (--mesh) is not ported yet (ROADMAP A9)")
     path = choose_path(spec, cfg, device)
     if path == "host":
-        from recsys_tpu.engine.oracle import top1_numpy
+        return _factorize_host_serial(spec, state)
+    if path != "pallas":
+        _refuse(path)
+    _dense_route_ok(spec, cfg)
+    plan = dense_plan(spec, a_max_bytes=a_max_bytes)
+    Lt, Rt, A = _dense_inputs(spec, plan, device, state)
+    train = dense_fused.resident_train if plan.kind == "resident" else dense_stream.stream_train
+    with phase("train") as psync:
+        Lt, Rt = train(Lt, Rt, A, iters=spec.iters, alpha2=2.0 * spec.alpha, precision=mxu_precision(cfg))
+        psync((Lt, Rt))
+    return convert.to_state(Lt, Rt, spec)
+
+
+def recommend(state: MFState, spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda") -> np.ndarray:
+    """Top-1 unrated item per user (int32 (users,)), computed blockwise on
+    ``device`` from host factors (trainer.py:645), with the JAX engine's
+    block and cap rule (:658-660): the rated-items table masks unless some
+    user rated most of the item space."""
+    device = _check_device(device)
+    cap = (16_000_000 // max(spec.users, 1)) // 128 * 128
+    block = min(cfg.block_items, -(-spec.items // 128) * 128, max(cap, 128))
+    block = max(block, 128)
+    items_pad = -(-spec.items // block) * block
+    L = torch.from_numpy(np.ascontiguousarray(state.L)).to(device)
+    R = torch.from_numpy(np.ascontiguousarray(state.R)).to(device)
+    R_pad = torch.nn.functional.pad(R, (0, 0, 0, items_pad - spec.items))
+    max_rated = int(np.bincount(spec.rows, minlength=spec.users).max()) if spec.nnz else 0
+    if max_rated <= max(spec.items // 8, 128):
+        rated = torch.from_numpy(topk.make_rated_table(spec)).to(device)
+        top1 = topk.top1_rated_blocked(L, R_pad, rated, block, spec.items)
+    else:
+        mask_blocks = torch.from_numpy(topk.make_mask_blocks(spec, block)).to(device)
+        top1 = topk.top1_blocked(L, R_pad, mask_blocks, block)
+    return top1.cpu().numpy()
+
+
+def run(spec: ProblemSpec, cfg: RunConfig, device, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES) -> tuple[str, np.ndarray]:
+    """Factorize + recommend on ``device``; returns (stdout payload, top1).
+    ``a_max_bytes`` moves the plan's resident/stream line (tests and
+    ``chip_smoke.py`` force each kind with it)."""
+    from recsys_tpu_torch.io.writers import format_recommendations
+
+    device = _check_device(device)
+    if cfg.mesh_shape is not None:
+        raise NotImplementedError("the sharded engine (--mesh) is not ported yet (ROADMAP A9)")
+    path = choose_path(spec, cfg, device)
+    if path == "host":
+        from recsys_tpu_torch.engine.oracle import top1_numpy
 
         with phase("train"):
             state = _factorize_host_serial(spec)
         with phase("top1"):
             top1 = top1_numpy(np.asarray(state.L), np.asarray(state.R), spec)
         return format_recommendations(top1, spec.rated_counts(), spec.items), top1
-    if path == "pallas":
-        if cfg.dtype == "float64":
-            raise ValueError("the fused dense route computes in float32; exact float64 is the BELL route (ROADMAP A4)")
-        if not dense_fused.mask_is_implicit(spec):
-            raise ValueError("pallas path requires all ratings non-zero (implicit mask)")
-        top1 = _pallas_fused_top1(spec, mxu_precision(cfg), device)
-        return format_recommendations(top1, spec.rated_counts(), spec.items), top1
-    if path in _NOT_PORTED:
-        raise NotImplementedError(f"path {path!r} is not ported yet (ROADMAP {_NOT_PORTED[path]})")
-    raise ValueError(f"unknown path {path!r}")
+    if path != "pallas":
+        _refuse(path)
+    _dense_route_ok(spec, cfg)
+    top1 = _pallas_fused_top1(spec, mxu_precision(cfg), device, a_max_bytes=a_max_bytes)
+    return format_recommendations(top1, spec.rated_counts(), spec.items), top1

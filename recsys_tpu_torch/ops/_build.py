@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (nvcc -> .so -> ctypes).
 
 ``csrc/*.cu`` compile at first use into ``build/recsys_tpu_torch/`` at
-the repository root, as one shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds).  The library's name
+the repository root, one nvcc process per source, all started together,
+and link into one shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds).  The library's name
 carries a hash of the sources and flags, so an edited source rebuilds
 and an unchanged one is reused.  A failed build raises: nothing falls
 back to the plain torch path.
@@ -21,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "recsys_tpu_torch")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *ARCH_FLAGS]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *ARCH_FLAGS]
 
 _lock = threading.Lock()
 _lib = None
@@ -56,14 +57,54 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *FLAGS, "-o", tmp, *srcs]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
-    os.replace(tmp, so)
+    tag = f"{so}.{os.getpid()}"
+    objs = [f"{tag}.{os.path.basename(src)}.o" for src in srcs]
+    procs = [
+        subprocess.Popen([nvcc_path(), *FLAGS, "-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)
+    ]
+    logs, failed = [], False
+    for proc in procs:
+        out, _ = proc.communicate(timeout=900)
+        logs.append(out)
+        failed |= proc.returncode != 0
+    if not failed:
+        r = subprocess.run([nvcc_path(), *ARCH_FLAGS, "-shared", "-o", f"{tag}.tmp", *objs],
+                           capture_output=True, text=True, timeout=300)
+        logs.append(r.stdout + r.stderr)
+        failed = r.returncode != 0
+    build_log = "".join(logs)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{build_log}")
+    os.replace(f"{tag}.tmp", so)
     return so
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Each C entry point's arguments (csrc/*.cu); pointers and the stream are
+# c_void_p, or ctypes would pass them as 32-bit ints.
+SIGNATURES = {
+    # At, a_kind, Lt_in .. top1 (11 pointers), K, U, I, G, iters, alpha2,
+    # precision, items_true, chunk_l, s_l, chunk_r, s_r, stream
+    "rs_resident_train_top1": [_P, _I, *[_P] * 11, *[_I] * 5, _F, _I, _I, *[_I] * 4, _P],
+    # At, a_kind, Lt_in .. part_r (8 pointers), K, U, I, G, iters, alpha2,
+    # precision, chunk_l, s_l, chunk_r, s_r, stream
+    "rs_resident_train": [_P, _I, *[_P] * 8, *[_I] * 5, _F, _I, *[_I] * 4, _P],
+    # At, a_kind, Lt, Rt, top_val, top_idx, top1, K, U, I, G, precision,
+    # items_true, chunk, S, stream
+    "rs_stream_top1": [_P, _I, *[_P] * 5, *[_I] * 8, _P],
+    # At, a_kind, Lt_in .. part_r (8 pointers), K, U, I, G, C, iters, alpha2,
+    # precision, chunk, S, stream
+    "rs_stream_train": [_P, _I, *[_P] * 8, *[_I] * 6, _F, *[_I] * 3, _P],
+    # At, a_kind, Lt_in .. part_r, top_val, top_idx, top1 (11 pointers), K,
+    # U, I, G, C, iters, alpha2, precision, items_true, chunk, S, top_chunk,
+    # top_S, stream
+    "rs_stream_train_top1": [_P, _I, *[_P] * 11, *[_I] * 6, _F, *[_I] * 6, _P],
+}
 
 
 def load() -> ctypes.CDLL:
@@ -72,16 +113,9 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            fn = lib.rs_resident_train_top1
-            fn.restype = ctypes.c_int
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_int,          # At, a_kind
-                *([ctypes.c_void_p] * 11),              # Lt_in .. top1
-                *([ctypes.c_int] * 5),                  # K, U, I, G, iters
-                ctypes.c_float,                         # alpha2
-                ctypes.c_int, ctypes.c_int,             # precision, items_true
-                *([ctypes.c_int] * 4),                  # chunk_l, s_l, chunk_r, s_r
-                ctypes.c_void_p,                        # stream
-            ]
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             _lib = lib
     return _lib

@@ -1,14 +1,15 @@
-"""Fused dense full-batch GD + masked top-1: the port of ``recsys_tpu/ops/pallas_dense.py``.
+"""Fused dense full-batch GD + masked top-1: the port of ``recsys_tpu/ops/pallas_dense.py``'s
+resident kernels.
 
 The JAX module's resident kernel ``resident_train_top1`` (:662) runs
 every GD iteration and the masked top-1 in one Pallas call, with A
-stored TRANSPOSED (items x users) and K-major factors Lt (K, U), Rt (K, I).
-Here the same function is a hand-written CUDA kernel
-(``csrc/dense_fused.cu``) behind ``resident_train_top1``, with a plain
-torch twin ``resident_train_top1_plain`` of the same math.  The wrapper
-picks by the tensors' device: the plain twin for CPU tensors, the
-kernel for CUDA tensors, and an error for anything the kernel does not
-take -- never a fallback.
+stored TRANSPOSED (items x users) and K-major factors Lt (K, U), Rt (K, I);
+``resident_train`` (:238) is the same loop without the top-1.  Here both
+are hand-written CUDA (``csrc/dense_fused.cu``) behind
+``resident_train_top1`` (B1) and ``resident_train`` (B2), with plain torch
+twins of the same math.  The wrappers pick by the tensors' device: the
+plain twin for CPU tensors, the kernel for CUDA tensors, and an error for
+anything the kernel does not take -- never a fallback.
 
 Also here, ported from the same JAX module: the host helpers that build
 the kernel's inputs (``round_up`` :52, ``pad_factors_for_pallas`` :751,
@@ -24,6 +25,7 @@ Gradient math (stable-snapshot semantics of ``matFact.c:38-39``)::
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -53,8 +55,8 @@ def pad_factors_for_pallas(spec, state=None, *, u_mult: int = 128, i_mult: int =
     host: U and I rounded up to the kernel's 128-column blocks, K to 8.
     ``state`` defaults to the glibc initial factors (``init_factors``).
     Padding is self-masking: A is 0 there, so those entries stay 0."""
-    from recsys_tpu.models.mf import init_factors
-    from recsys_tpu.utils.hostmem import hugepage_zeros
+    from recsys_tpu_torch.models.mf import init_factors
+    from recsys_tpu_torch.utils.hostmem import hugepage_zeros
 
     U = round_up(spec.users, u_mult)
     I = round_up(spec.items, i_mult)
@@ -95,7 +97,7 @@ def device_dense_AT(spec, U: int, I: int, dtype: torch.dtype, device) -> torch.T
     """Zero-padded TRANSPOSED dense A (I, U) in its storage dtype, built
     on the host and moved to ``device`` in one copy.  int8 holds 2x the
     rating (see ``vals_int8_exact``)."""
-    from recsys_tpu.utils.hostmem import hugepage_zeros
+    from recsys_tpu_torch.utils.hostmem import hugepage_zeros
 
     if dtype == torch.int8:
         a = hugepage_zeros((I, U), np.int8)
@@ -116,22 +118,40 @@ def load_at(At: torch.Tensor) -> torch.Tensor:
     return a
 
 
-def resident_train_top1_plain(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest", items_true: int):
-    """Plain torch twin of the kernel: ``iters`` GD steps, then the masked
-    top-1.  Returns (Lt', Rt', top1 (1, U) int32).  On CUDA tensors the
-    matmuls run with TF32 off ("highest" is true f32), and the
-    process-wide flag is restored after."""
-    if Lt.device.type != "cuda":
-        return _plain(Lt, Rt, At, iters, alpha2, precision, items_true)
+@contextlib.contextmanager
+def exact_f32(device):
+    """True f32 matmuls for the plain twins: on a CUDA device TF32 is off
+    for the block and the process-wide flag is restored after."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return _plain(Lt, Rt, At, iters, alpha2, precision, items_true)
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def _plain(Lt, Rt, At, iters, alpha2, precision, items_true):
+def resident_train_top1_plain(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest", items_true: int):
+    """Plain torch twin of the kernel: ``iters`` GD steps, then the masked
+    top-1.  Returns (Lt', Rt', top1 (1, U) int32).  On CUDA tensors the
+    matmuls run with TF32 off ("highest" is true f32)."""
+    with exact_f32(Lt.device):
+        Lt, Rt = plain_train(Lt, Rt, At, iters, alpha2, precision)
+        return Lt, Rt, plain_top1(Lt, Rt, At, precision, items_true)
+
+
+def resident_train_plain(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest"):
+    """Plain torch twin of ``resident_train``: the steps of
+    ``resident_train_top1_plain`` without the top-1.  Returns (Lt', Rt')."""
+    with exact_f32(Lt.device):
+        return plain_train(Lt, Rt, At, iters, alpha2, precision)
+
+
+def plain_train(Lt, Rt, At, iters, alpha2, precision):
+    """``iters`` stable-snapshot GD steps in plain torch, the function every
+    training kernel of the port computes (B1, B2, B3)."""
     a = load_at(At)
     rated = a != 0
     for _ in range(iters):
@@ -143,12 +163,19 @@ def _plain(Lt, Rt, At, iters, alpha2, precision, items_true):
         dRt = dot(lt, transpose(e), precision)  # (K, I)
         Lt = Lt + alpha2 * dLt
         Rt = Rt + alpha2 * dRt
+    return Lt, Rt
+
+
+def plain_top1(Lt, Rt, At, precision, items_true):
+    """The masked top-1 from final factors in plain torch (B1's last pass,
+    B4): (1, U) int32, rated cells and items at or past ``items_true`` at
+    -inf, lowest index on ties."""
+    a = load_at(At)
     b = dot(Rt.T, Lt, precision)
     item = torch.arange(b.shape[0], device=b.device)[:, None]
-    b = torch.where(rated | (item >= items_true), -torch.inf, b)
+    b = torch.where((a != 0) | (item >= items_true), -torch.inf, b)
     # argmax returns the first maximum: the lowest-index tie-break.
-    top1 = torch.argmax(b, dim=0).to(torch.int32)[None, :]
-    return Lt, Rt, top1
+    return torch.argmax(b, dim=0).to(torch.int32)[None, :]
 
 
 def _lanes_per_column(K: int) -> int:
@@ -188,6 +215,32 @@ def _check(Lt, Rt, At, precision):
     return K, U, I
 
 
+def _resident_buffers(K, U, I, dev):
+    """((chunk_l, s_l, chunk_r, s_r), (Lt_out, Rt_out, Lt_tmp, Rt_tmp,
+    part_l, part_r)) of B1 and B2: each gradient side's reduction split so
+    its pass has about two blocks per SM."""
+    G = _lanes_per_column(K)
+    target = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk_l, s_l = _split(U, I, G, target)
+    chunk_r, s_r = _split(I, U, G, target)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    bufs = (f32(K, U), f32(K, I), f32(K, U), f32(K, I), f32(s_l, K, U), f32(s_r, K, I))
+    return (chunk_l, s_l, chunk_r, s_r), bufs
+
+
+def _ptrs(*tensors):
+    return [ctypes.c_void_p(t.data_ptr()) for t in tensors]
+
+
+def _kernel_device(Lt):
+    if Lt.device.type != "cuda":
+        raise ValueError(f"no kernel for device {Lt.device}")
+    return Lt.device
+
+
 def resident_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest", items_true: int):
     """``iters`` stable-snapshot GD steps plus the masked top-1 (port of
     ``pallas_dense.resident_train_top1`` :662, minus the TPU-only
@@ -204,37 +257,52 @@ def resident_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str
         return resident_train_top1_plain(
             Lt, Rt, At, iters=iters, alpha2=alpha2, precision=precision, items_true=items_true
         )
-    if Lt.device.type != "cuda":
-        raise ValueError(f"no kernel for device {Lt.device}")
+    dev = _kernel_device(Lt)
     lib = _build.load()
-    dev = Lt.device
-    G = _lanes_per_column(K)
-    target = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk_l, s_l = _split(U, I, G, target)
-    chunk_r, s_r = _split(I, U, G, target)
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    Lt_out, Lt_tmp, Rt_out, Rt_tmp = f32(K, U), f32(K, U), f32(K, I), f32(K, I)
+    split, bufs = _resident_buffers(K, U, I, dev)
     # The top-1 pass walks the items in the dl side's chunks.
-    part_l, part_r, top_val = f32(s_l, K, U), f32(s_r, K, I), f32(s_l, U)
-    top_idx = torch.empty((s_l, U), dtype=torch.int32, device=dev)
+    top_val = torch.empty((split[1], U), dtype=torch.float32, device=dev)
+    top_idx = torch.empty((split[1], U), dtype=torch.int32, device=dev)
     top1 = torch.empty((1, U), dtype=torch.int32, device=dev)
-    ptr = ctypes.c_void_p
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rs_resident_train_top1(
-            ptr(At.data_ptr()), _A_KIND[At.dtype],
-            *(ptr(t.data_ptr()) for t in (Lt, Rt, Lt_out, Rt_out, Lt_tmp, Rt_tmp, part_l, part_r, top_val, top_idx, top1)),
-            K, U, I, G, iters, float(alpha2), _PRECISION_CODE[precision], items_true,
-            chunk_l, s_l, chunk_r, s_r,
-            ptr(stream),
+            ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *bufs, top_val, top_idx, top1),
+            K, U, I, _lanes_per_column(K), iters, float(alpha2), _PRECISION_CODE[precision], items_true,
+            *split, ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(f"rs_resident_train_top1 failed: CUDA error {rc}")
     resident_train_top1.launches += 1
-    return Lt_out, Rt_out, top1
+    return bufs[0], bufs[1], top1
 
 
 resident_train_top1.launches = 0
+
+
+def resident_train(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest"):
+    """``iters`` stable-snapshot GD steps (port of ``pallas_dense.resident_train``
+    :238): B1's kernels without the top-1, so its factors are B1's bit for
+    bit.  Same inputs as ``resident_train_top1``; returns (Lt', Rt').  CPU
+    tensors go to the plain twin; CUDA tensors to the kernel, which counts
+    each launch in ``.launches``."""
+    K, U, I = _check(Lt, Rt, At, precision)
+    if Lt.device.type == "cpu":
+        return resident_train_plain(Lt, Rt, At, iters=iters, alpha2=alpha2, precision=precision)
+    dev = _kernel_device(Lt)
+    lib = _build.load()
+    split, bufs = _resident_buffers(K, U, I, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.rs_resident_train(
+            ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *bufs),
+            K, U, I, _lanes_per_column(K), iters, float(alpha2), _PRECISION_CODE[precision],
+            *split, ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"rs_resident_train failed: CUDA error {rc}")
+    resident_train.launches += 1
+    return bufs[0], bufs[1]
+
+
+resident_train.launches = 0

@@ -81,3 +81,17 @@ def phase(name: str):
         yield device_sync
     finally:
         collector[name] = collector.get(name, 0.0) + time.perf_counter() - t0
+
+
+def cuda_event_ms(fn, reps: int = 1) -> float:
+    """Mean milliseconds of ``fn()`` on the current CUDA stream over
+    ``reps`` calls after one warm-up call, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

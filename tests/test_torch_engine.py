@@ -62,7 +62,7 @@ def test_choose_path_matches_jax(name, dtype):
 def test_dense_plan_instml100k():
     spec = load_problem(str(FIXTURES / "instML100k.in"))
     plan = trainer.dense_plan(spec)
-    assert (plan.a_dtype, plan.U, plan.I, plan.K) == (torch.int8, 1024, 1792, 32)
+    assert (plan.kind, plan.a_dtype, plan.U, plan.I, plan.K) == ("resident", torch.int8, 1024, 1792, 32)
     assert plan.device_bytes <= trainer.DEVICE_BUDGET_BYTES
 
 
@@ -110,9 +110,28 @@ def test_cli_run_matches_oracle(spec20, tmp_path):
     assert "".join(lines[:-1]) == run_oracle(load_problem(str(path)))
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint", "ck.npz"], ["--checkpoint-every", "10"],
-                                  ["--block-items", "256"], ["--path", "bell"]])
+@pytest.mark.parametrize("flag", [["--path", "bell"]])
 def test_cli_refuses_what_is_not_ported(flag):
     # A flag the port cannot honour raises; it is never accepted and ignored.
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(["run", str(FIXTURES / "inst0.in"), "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("entry", ["factorize", "recommend"])
+def test_factorize_and_recommend_refuse_cuda_without_a_card(spec20, entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    cfg = RunConfig(dtype="float32", path="pallas")
+    with pytest.raises(RuntimeError, match="cuda"):
+        if entry == "factorize":
+            trainer.factorize(spec20, cfg, "cuda")
+        else:
+            trainer.recommend(init_factors(spec20.users, spec20.items, spec20.features), spec20, cfg, "cuda")
+
+
+def test_factorize_refuses_unported_routes():
+    spec = generate_instance(200, 2000, 10, 2, 5, iters=100_000, alpha=1e-4, seed=1)
+    with pytest.raises(NotImplementedError, match="A4"):
+        trainer.factorize(spec, RunConfig(dtype="float64"), "cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        trainer.factorize(spec, RunConfig(dtype="float32", mesh_shape=(2, 2)), "cpu")

@@ -1,6 +1,7 @@
-"""The port stands alone and never swaps a device: it runs with jax never
-imported, a CUDA request without a card raises, and ``chip_smoke.py``
-fails fast where there is no card or no checkout around it."""
+"""The port stands alone and never swaps a device: it runs with neither
+jax nor the JAX package ever imported, a CUDA request without a card
+raises, and ``chip_smoke.py`` fails fast where there is no card or no
+checkout around it."""
 
 import os
 import pathlib
@@ -19,18 +20,34 @@ from recsys_tpu_torch.engine import trainer
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 _NO_JAX = r"""
-import sys
+import contextlib, io, os, sys, tempfile
+import chip_smoke
 import recsys_tpu_torch, recsys_tpu_torch.cli, recsys_tpu_torch.convert
+from recsys_tpu_torch.config import RunConfig
 from recsys_tpu_torch.engine import trainer
-from recsys_tpu.config import RunConfig
-from recsys_tpu.io.generator import generate_instance
-from recsys_tpu.io.parser import load_problem
+from recsys_tpu_torch.io.generator import generate_instance
+from recsys_tpu_torch.io.parser import load_problem, save_problem
+from recsys_tpu_torch.utils import checkpoint
 spec = generate_instance(32, 40, 10, 2, 8, iters=20, alpha=0.01, seed=11)
 out, _ = trainer.run(spec, RunConfig(dtype="float32", path="pallas"), "cpu")
 assert out.count("\n") == 32
+out2, _ = trainer.run(spec, RunConfig(dtype="float32", path="pallas"), "cpu", a_max_bytes=0)
+assert out2 == out
+state = trainer.factorize(spec, RunConfig(dtype="float32", path="pallas"), "cpu")
+trainer.recommend(state, spec, RunConfig(), "cpu")
 out, _ = trainer.run(load_problem(sys.argv[1]), RunConfig(dtype="float64"), "cpu")
 assert out == open(sys.argv[2]).read()
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+with tempfile.TemporaryDirectory() as tmp:
+    save_problem(spec, os.path.join(tmp, "s.in"))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        recsys_tpu_torch.cli.main(["run", os.path.join(tmp, "s.in"), "--device", "cpu", "--dtype", "float32",
+                                   "--path", "pallas", "--checkpoint", os.path.join(tmp, "ck.npz"),
+                                   "--checkpoint-every", "7"])
+    assert checkpoint.load(os.path.join(tmp, "ck.npz")).completed_iters == 20
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                or m == "recsys_tpu" or m.startswith("recsys_tpu."))
+assert not leaked, leaked
 print("no-jax ok")
 """
 
