@@ -21,14 +21,25 @@ each printed as it runs:
    controls at gen-instML1M's shape, and the identities B2 = B1's factors,
    B4 = B1's top-1 and B6 = B3 then B4, bit for bit; B3 within the factor
    limit of B2; the tie case for B4 and B6.
-5. main path, instML100k: ``trainer.run`` in highest, bf16x3 and default on
+5. B5 vs its twin, every precision x A storage, on the small instance and
+   at the gen-instML1M and gen-inst1e6-100-700-1-3 shapes (20 steps): the
+   same readings, two runs bit for bit, the controls at both large shapes,
+   and B5's training within the factor limit of B3's at gen-instML1M's.
+6. main path, instML100k: ``trainer.run`` in highest, bf16x3 and default on
    the auto plan (resident) and with the stream kind forced, held against
    the golden ``.out`` with launch counts, phase times, the slope and the
    plain twin's train time.
-6. main path, gen-instML1M (built in memory from ``GEN_SPECS``): the same on
-   the auto plan (stream: B3 then B4) and with the resident kind forced.
-7. main path, ``--checkpoint``: the CLI on instML100k in chunks of 1000
+7. main path, gen-instML1M (built in memory from ``GEN_SPECS``): the same on
+   the auto plan (stream: B3 then B4) and with the resident and tiled
+   kinds forced.
+8. main path, ``--checkpoint``: the CLI on instML100k in chunks of 1000
    iterations (B2) against an unchunked ``factorize`` + ``recommend``.
+9. main path, gen-inst1e6-100-700-1-3 (k = 700, built in memory): ``run``
+   with ``path="pallas"`` in every mode on the auto plan (tiled: B5 once
+   per step, then ``recommend`` on the factors left on the card) against
+   the golden ``.out``, with launch counts and phase times; then one
+   tiled step's device time by kernel (``torch.profiler``) at its shape
+   and at gen-instML1M's.
 
 Every main path runs with the launch counts set to 0 just before it and
 read just after.  The last two lines are a JSON object of the kernels'
@@ -52,6 +63,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ML100K = os.path.join(ROOT, "tests", "fixtures", "instML100k")
 ML1M_OUT = os.path.join(ROOT, "tests", "fixtures", "gen-instML1M.out")
+INST1E6 = "gen-inst1e6-100-700-1-3"
+INST1E6_OUT = os.path.join(ROOT, "tests", "fixtures", INST1E6 + ".out")
 MODES = ("highest", "bf16x3", "default")
 STORAGES = ("int8", "bfloat16", "float32")
 # Argmax agreement floors against the f64 golden: the f32 tiers match it
@@ -61,6 +74,9 @@ STORAGES = ("int8", "bfloat16", "float32")
 # (bench_results.jsonl).
 AGREEMENT_FLOOR = {"highest": 0.99, "bf16x3": 0.99, "default": 0.98}
 ML1M_FLOOR = {"highest": 0.99, "bf16x3": 0.99, "default": 0.95}
+# gen-inst1e6's f32 run reads 0.9938 in the JAX package's tiled route
+# (bench_results.jsonl); `default` runs as `highest` on the tiled route.
+INST1E6_FLOOR = {"highest": 0.99, "bf16x3": 0.98, "default": 0.99}
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): f32 on the CUDA
 # cores, bf16 on the tensor cores, HBM bandwidth.
 F32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 989e12, 3.35e12
@@ -72,6 +88,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "stream_train": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:420"),
     "stream_top1": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:473"),
     "stream_train_top1": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:433"),
+    "tiled_deltas": ("recsys_tpu_torch/csrc/dense_tiled.cu", "recsys_tpu/ops/pallas_dense.py:566"),
 }
 
 
@@ -80,7 +97,7 @@ def log(msg: str) -> None:
 
 
 def _wrappers():
-    from recsys_tpu_torch.ops import dense_fused, dense_stream
+    from recsys_tpu_torch.ops import dense_fused, dense_stream, dense_tiled
 
     return {
         "resident_train_top1": dense_fused.resident_train_top1,
@@ -88,6 +105,7 @@ def _wrappers():
         "stream_train": dense_stream.stream_train,
         "stream_top1": dense_stream.stream_top1,
         "stream_train_top1": dense_stream.stream_train_top1,
+        "tiled_deltas": dense_tiled.tiled_deltas,
     }
 
 
@@ -146,6 +164,26 @@ def _ml1m_spec():
     from recsys_tpu_torch.io.generator import GEN_SPECS, generate_instance
 
     return generate_instance(**GEN_SPECS["gen-instML1M"])
+
+
+def _inst1e6_spec():
+    from recsys_tpu_torch.io.generator import GEN_SPECS, generate_instance
+
+    t0 = time.perf_counter()
+    spec = generate_instance(**GEN_SPECS[INST1E6])
+    log(f"[main] {INST1E6} generated in memory in {time.perf_counter() - t0!r} s: {spec.users}x{spec.items} "
+        f"k={spec.features} nnz={spec.nnz} iters={spec.iters}")
+    return spec
+
+
+def _tiled_inputs(spec, a_dtype, dev, torch, factors):
+    """(L, R, A) on ``dev`` in the tiled layout, from the host tables
+    ``factors`` of ``dense_tiled.pad_factors_lane_major``."""
+    from recsys_tpu_torch.ops import dense_tiled
+
+    L, R, (U, I, _) = factors
+    A = dense_tiled.device_dense_A(spec, U, I, a_dtype, dev)
+    return torch.from_numpy(L).to(dev), torch.from_numpy(R).to(dev), A
 
 
 def kernel_vs_plain_phase(torch, dev):
@@ -332,6 +370,86 @@ def stream_kernels_phase(torch, dev):
     return worst
 
 
+def tiled_kernel_phase(torch, dev, big):
+    """B5 against its twin, every precision x A storage, on the small
+    instance and at the gen-instML1M and gen-inst1e6 (``big``) shapes, 20
+    steps: the factor and probe-update readings, two runs bit for bit, the
+    controls at both large shapes, and B5's training against B3's at
+    gen-instML1M's shape.  Returns B5's max abs error in highest at
+    gen-inst1e6's shape."""
+    from recsys_tpu_torch import testing as checks
+    from recsys_tpu_torch.ops import dense_fused as df
+    from recsys_tpu_torch.ops import dense_stream as ds
+    from recsys_tpu_torch.ops import dense_tiled as dt
+
+    def readings(spec, L, R, A, probe, precision, twin_precision):
+        kw = dict(iters=spec.iters, alpha2=2.0 * spec.alpha)
+        got = dt.tiled_train(L, R, A, precision=precision, **kw)
+        twin = dt.tiled_train_plain(L, R, A, precision=twin_precision, **kw)
+        pL, pR, pA = probe
+        upd = checks.update_rel(dt.tiled_gd_step(pL, pR, pA, alpha2=checks.PROBE_ALPHA2, precision=precision),
+                                dt.tiled_train_plain(pL, pR, pA, iters=1, alpha2=checks.PROBE_ALPHA2,
+                                                     precision=twin_precision), pL, pR)
+        return got, twin, checks.factor_rel(got, twin), upd
+
+    small = _small_spec(checks.FACTOR_ITERS)
+    ml1m = dataclasses.replace(_ml1m_spec(), iters=checks.FACTOR_ITERS)
+    big = dataclasses.replace(big, iters=checks.FACTOR_ITERS)
+    worst, failed = 0.0, []
+    for name, spec in (("small 200x300 k10", small), ("gen-instML1M shape", ml1m), ("gen-inst1e6 shape", big)):
+        t0 = time.perf_counter()
+        factors = dt.pad_factors_lane_major(spec)
+        probe8 = checks.tiled_probe(spec, torch.int8, dev)
+        for storage in STORAGES:
+            a_dtype = getattr(torch, storage)
+            L, R, A = _tiled_inputs(spec, a_dtype, dev, torch, factors)
+            probe = (*probe8[:2], df.load_at(probe8[2]).to(a_dtype) if storage != "int8" else probe8[2])
+            for precision in MODES:
+                got, twin, rel, upd = readings(spec, L, R, A, probe, precision, precision)
+                again = dt.tiled_train(L, R, A, iters=spec.iters, alpha2=2.0 * spec.alpha, precision=precision)
+                torch.cuda.synchronize()
+                err = max(float((k - p).abs().max()) for k, p in zip(got, twin))
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                finite = all(bool(torch.isfinite(x).all()) for x in got)
+                ok = (finite and same and rel <= checks.TILED_FACTOR_RTOL[precision]
+                      and upd <= checks.TILED_UPDATE_RTOL[precision])
+                log(f"[kernel] B5 {name} {precision:7s} A={storage:8s} max_abs_err={err!r} factor_rel={rel!r} "
+                    f"(limit {checks.TILED_FACTOR_RTOL[precision]}) probe update_rel={upd!r} "
+                    f"(limit {checks.TILED_UPDATE_RTOL[precision]}) two runs same bits {same} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failed.append(f"B5 {name} {precision} {storage}")
+                if spec is big and precision == "highest":
+                    worst = max(worst, err)
+                del got, twin, again
+        if spec is ml1m:  # B5's training against B3's, same inputs
+            L, R, A = _tiled_inputs(spec, torch.int8, dev, torch, factors)
+            Lt, Rt, At = _inputs(spec, torch.int8, dev, torch)
+            k, u, i = spec.features, spec.users, spec.items
+            for precision in MODES:
+                kw = dict(iters=spec.iters, alpha2=2.0 * spec.alpha, precision=precision)
+                L5, R5 = dt.tiled_train(L, R, A, **kw)
+                L3, R3 = ds.stream_train(Lt, Rt, At, **kw)
+                rel = checks.factor_rel((L5[:u, :k], R5[:i, :k]), (L3[:k, :u].T, R3[:k, :i].T))
+                ok = rel <= checks.TILED_FACTOR_RTOL[precision]
+                log(f"[kernel] B5 vs B3 {name} {precision:7s} factor_rel={rel!r} "
+                    f"(limit {checks.TILED_FACTOR_RTOL[precision]}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failed.append(f"B5 vs B3 {name} {precision}")
+        if spec is not small:
+            L, R, A = _tiled_inputs(spec, torch.int8, dev, torch, factors)
+            controls = [("factor", kp, tp, readings(spec, L, R, A, probe8, kp, tp)[2],
+                         checks.TILED_FACTOR_RTOL[tp]) for kp, tp in checks.FACTOR_CONTROLS]
+            controls += [("probe update", kp, tp, readings(spec, L, R, A, probe8, kp, tp)[3],
+                          checks.TILED_UPDATE_RTOL[tp]) for kp, tp in checks.UPDATE_CONTROLS]
+            failed += _report_controls(f"B5 {name}", controls)
+        del factors, probe8, L, R, A
+        torch.cuda.empty_cache()
+        log(f"[kernel] B5 {name}: {time.perf_counter() - t0!r} s")
+    if failed:
+        raise AssertionError(f"B5 vs its twin failed: {failed}")
+    return worst
+
+
 def _run(spec, precision, dev, torch, path="auto", **plan):
     from recsys_tpu_torch.config import RunConfig
     from recsys_tpu_torch.engine import trainer
@@ -440,7 +558,7 @@ def ml100k_phase(torch, dev, launches):
 
 def ml1m_phase(torch, dev, launches):
     """gen-instML1M through ``run()``: the auto plan (stream: B3 then B4)
-    and the resident kind forced; the plain twin's train time."""
+    and the resident and tiled kinds forced; the plain twin's train time."""
     from recsys_tpu_torch.config import RunConfig
     from recsys_tpu_torch.engine import trainer
     from recsys_tpu_torch.ops import dense_stream
@@ -455,10 +573,13 @@ def ml1m_phase(torch, dev, launches):
     if path != "pallas" or plan.kind != "stream":
         raise AssertionError(f"gen-instML1M must take the stream dense route, got {path!r} {plan.kind!r}")
     train = main_path_runs("gen-instML1M", spec, golden, ML1M_FLOOR, dev, torch, launches,
-                           {"auto": {}, "resident forced": {"a_max_bytes": FORCE_RESIDENT}})
+                           {"auto": {}, "resident forced": {"a_max_bytes": FORCE_RESIDENT},
+                            "tiled forced": {"tiled": True}})
     counts = launches["gen-instML1M", "auto"]
     if counts["stream_train"] <= 0 or counts["stream_top1"] <= 0:
         raise AssertionError(f"the gen-instML1M main path did not launch B3 and B4: {counts}")
+    if launches["gen-instML1M", "tiled forced"]["tiled_deltas"] <= 0:
+        raise AssertionError("gen-instML1M with the tiled kind forced did not launch B5")
 
     Lt, Rt, A = _inputs(spec, plan.a_dtype, dev, torch)
     want = golden.splitlines()
@@ -473,7 +594,8 @@ def ml1m_phase(torch, dev, launches):
         agree = sum(str(int(i)) == w for i, w in zip(idx[keep], want)) / len(want)
         plain[precision] = plain_s
         log(f"[main] gen-instML1M plain twin {precision}: train {plain_s!r} s vs kernel "
-            f"{train['auto', precision]!r} s (resident forced {train['resident forced', precision]!r} s)"
+            f"{train['auto', precision]!r} s (resident forced {train['resident forced', precision]!r} s, "
+            f"tiled forced {train['tiled forced', precision]!r} s)"
             f" | plain agreement {agree!r}")
     return spec, train, plain
 
@@ -505,6 +627,75 @@ def checkpoint_phase(torch, dev, launches):
         raise AssertionError("the checkpoint route differs from the unchunked run or did not launch B2")
 
 
+def inst1e6_phase(torch, dev, launches, spec):
+    """gen-inst1e6-100-700-1-3 through ``run()`` with ``path="pallas"`` in
+    every mode: the auto plan is tiled (B5 once per step, then
+    ``recommend`` on the factors left on the card)."""
+    from recsys_tpu_torch.config import RunConfig
+    from recsys_tpu_torch.engine import trainer
+
+    with open(INST1E6_OUT) as f:
+        want = f.read().splitlines()
+    plan = trainer.dense_plan(spec)
+    log(f"[main] {INST1E6}: path={trainer.choose_path(spec, RunConfig(dtype='float32', path='pallas'), dev)} "
+        f"plan={plan}")
+    if plan.kind != "tiled":
+        raise AssertionError(f"{INST1E6} must take the tiled plan, got {plan.kind!r}")
+    counts = {}
+    with counted(counts):
+        for precision in MODES:
+            torch.cuda.reset_peak_memory_stats(dev)
+            out, wall, ph = _run(spec, precision, dev, torch, path="pallas")
+            agree, lines = _agreement(out, want)
+            log(f"[main] {INST1E6} auto plan=tiled {precision}: agreement {agree!r} lines {lines} | wall {wall!r} s "
+                f"prep {ph['prep']!r} upload {ph['upload']!r} train {ph['train']!r} top1 {ph['top1']!r} "
+                f"| peak device memory {torch.cuda.max_memory_allocated(dev)!r} B")
+            if lines != len(want) or agree < INST1E6_FLOOR[precision]:
+                raise AssertionError(f"{INST1E6} {precision}: agreement {agree} below {INST1E6_FLOOR[precision]}")
+    log(f"[main] {INST1E6} auto launches in the main-path runs: {counts}")
+    launches[INST1E6, "auto"] = counts
+    if counts["tiled_deltas"] != len(MODES) * spec.iters:
+        raise AssertionError(f"{INST1E6} must launch B5 {spec.iters} times per run: {counts}")
+
+
+def _timing_inputs(spec, dev, torch):
+    """(L, R, A, At) of the tiled plan at ``spec``'s shape, for timing:
+    ``spec``'s ratings and random factors (the time does not depend on
+    their values)."""
+    from recsys_tpu_torch.engine import trainer
+    from recsys_tpu_torch.ops import dense_tiled
+
+    plan = trainer.dense_plan(spec, tiled=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    L = torch.rand((plan.U, plan.K), generator=g, device=dev) / spec.features
+    R = torch.rand((plan.I, plan.K), generator=g, device=dev) / spec.features
+    A = dense_tiled.device_dense_A(spec, plan.U, plan.I, plan.a_dtype, dev)
+    return L, R, A, A.t().contiguous()
+
+
+def tiled_step_profile(torch, dev, spec, name):
+    """Device time by kernel of one ``tiled_gd_step`` at ``spec``'s shape
+    (tiled plan, `highest`), from ``torch.profiler`` over 5 steps: B5's
+    passes beside the torch update.  Logged only."""
+    from recsys_tpu_torch.ops import dense_tiled as dt
+
+    L, R, A, At = _timing_inputs(spec, dev, torch)
+    step = dict(alpha2=2.0 * spec.alpha, At=At)
+    dt.tiled_gd_step(L, R, A, **step)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            dt.tiled_gd_step(L, R, A, **step)
+        torch.cuda.synchronize()
+    rows = [(getattr(e, "device_time_total", 0.0) / 5, e.key) for e in prof.key_averages()]
+    rows = sorted((t, k) for t, k in rows if t > 0)[::-1]
+    if not rows:
+        log(f"[profile] B5 step at {name}: the profiler saw no device time")
+    for t, key in rows:
+        log(f"[profile] B5 step at {name}: {t!r} us per step {key[:90]}")
+    del L, R, A, At
+
+
 def _bound(flops, nbytes):
     """(bound_ms, bound_by) in `highest`: f32 operations on the CUDA cores
     against bytes over HBM, whichever takes longer."""
@@ -512,14 +703,16 @@ def _bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def kernel_records(torch, dev, ml100k, ml1m, launches, errs, times):
+def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times):
     """The kernels line: every number measured in this run, in `highest`.
     The train kernels' bound counts 6*k FLOP per rated cell and step, the
     top-1's 2*k per (user, item); bytes count each input tensor read once
-    and each output written once."""
+    and each output written once.  B5's numbers are one launch, one step's
+    deltas, at gen-inst1e6's shape (``big``)."""
     from recsys_tpu_torch.engine import trainer
     from recsys_tpu_torch.ops import dense_fused as df
     from recsys_tpu_torch.ops import dense_stream as ds
+    from recsys_tpu_torch.ops import dense_tiled as dt
     from recsys_tpu_torch.utils.timing import cuda_event_ms
 
     def shapes(spec):
@@ -563,6 +756,16 @@ def kernel_records(torch, dev, ml100k, ml1m, launches, errs, times):
     b6_plain = cuda_event_ms(lambda: ds.stream_train_top1_plain(Lt, Rt, A, items_true=ml1m.items, **kw))
     add("stream_train_top1", counts["stream_train_top1"], errs["stream_train_top1"], b6_ms, b6_plain,
         tr + tp, a_b + 2 * f_b + 4 * plan.U)
+
+    plan, a_b, f_b, _, _ = shapes(big)
+    L, R, A, At = _timing_inputs(big, dev, torch)
+    b5_ms = cuda_event_ms(lambda: dt.tiled_deltas(L, R, A, At=At), 10)
+    b5_plain = cuda_event_ms(lambda: dt.tiled_deltas_plain(L, R, A), 5)
+    add("tiled_deltas", launches[INST1E6, "auto"]["tiled_deltas"], errs["tiled_deltas"], b5_ms, b5_plain,
+        6.0 * big.nnz * big.features, a_b + 2 * f_b)
+    log(f"[kernels] tiled_deltas dense count at {INST1E6}: 8*U*I*K = {8.0 * plan.U * plan.I * plan.K!r} FLOP, "
+        f"{_bound(8.0 * plan.U * plan.I * plan.K, a_b + 2 * f_b)[0]!r} ms at the f32 peak")
+    del L, R, A, At
     for rec in out:
         log(f"[kernels] {rec['name']}: {rec['ms']!r} ms vs bound {rec['bound_ms']!r} ms "
             f"({rec['bound_by']}), plain {rec['plain_ms']!r} ms, launches {rec['launches']}")
@@ -591,13 +794,18 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         errs = {"B1": kernel_vs_plain_phase(torch, dev)["highest"]}
         errs.update(stream_kernels_phase(torch, dev))
+        big = _inst1e6_spec()
+        errs["tiled_deltas"] = tiled_kernel_phase(torch, dev, big)
         launches = {}
         ml100k, train1, plain1 = ml100k_phase(torch, dev, launches)
         ml1m, train2, plain2 = ml1m_phase(torch, dev, launches)
         checkpoint_phase(torch, dev, launches)
+        inst1e6_phase(torch, dev, launches, big)
+        tiled_step_profile(torch, dev, big, INST1E6)
+        tiled_step_profile(torch, dev, ml1m, "gen-instML1M")
         times = {"B1": (train1["auto", "highest"], plain1["highest"]),
                  "B3": (train2["auto", "highest"], plain2["highest"])}
-        kernels = kernel_records(torch, dev, ml100k, ml1m, launches, errs, times)
+        kernels = kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times)
     except Exception as e:  # noqa: BLE001 - report any failed phase, exit non-zero
         import traceback
 

@@ -10,9 +10,10 @@ Routes, chosen by ``choose_path`` in the JAX engine's decision order:
   it is the dense CUDA kernels, or their plain torch twins on a CPU
   device, on the plan ``dense_plan`` picks: ``resident`` (B1
   ``dense_fused.resident_train_top1`` for ``run``, B2
-  ``dense_fused.resident_train`` for ``factorize``) or ``stream`` (B3
+  ``dense_fused.resident_train`` for ``factorize``), ``stream`` (B3
   ``dense_stream.stream_train``, then B4 ``dense_stream.stream_top1`` in
-  ``run``).
+  ``run``) or ``tiled`` (B5 ``dense_tiled.tiled_deltas`` once per step,
+  then ``recommend`` on the factors left on the device in ``run``).
 * ``dense``, ``bell``, ``coo`` and any mesh raise ``NotImplementedError``
   naming the ROADMAP item that ports them.  Nothing falls back to
   another route.
@@ -28,7 +29,7 @@ import torch
 from recsys_tpu_torch import convert
 from recsys_tpu_torch.config import ProblemSpec, RunConfig
 from recsys_tpu_torch.models.mf import MFState, init_factors
-from recsys_tpu_torch.ops import dense_fused, dense_stream, topk
+from recsys_tpu_torch.ops import dense_fused, dense_stream, dense_tiled, topk
 from recsys_tpu_torch.ops.bell_host import bell_slot_ratio
 from recsys_tpu_torch.utils.timing import phase
 
@@ -138,8 +139,9 @@ def _a_storage(spec: ProblemSpec) -> tuple[torch.dtype, int]:
 
 @dataclasses.dataclass(frozen=True)
 class DensePlan:
-    """The dense route's layout: kernel kind (``resident`` or ``stream``),
-    A storage, padded dims, and the device bytes it needs at most."""
+    """The dense route's layout: kernel kind (``resident``, ``stream`` or
+    ``tiled``), A storage, padded dims, and the device bytes it needs at
+    most."""
 
     kind: str
     a_dtype: torch.dtype
@@ -149,41 +151,59 @@ class DensePlan:
     device_bytes: int
 
 
-def dense_plan(spec: ProblemSpec, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES) -> DensePlan:
+def _top1_block(spec: ProblemSpec, block_items: int) -> int:
+    """Items per block of ``recommend``'s top-1, the JAX engine's block and
+    cap rule (trainer.py:658-660): at most 16M (user, item) cells a tile."""
+    cap = (16_000_000 // max(spec.users, 1)) // 128 * 128
+    return max(min(block_items, -(-spec.items // 128) * 128, max(cap, 128)), 128)
+
+
+def dense_plan(spec: ProblemSpec, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES, tiled: bool = False) -> DensePlan:
     """Hopper plan in place of the TPU's ``_pallas_plan`` (trainer.py:482)
     and ``stream_vmem_bytes`` (pallas_dense.py:507).
 
     VMEM strips and budgets are TPU facts and have no counterpart: the
     whole problem lives in device memory and the kernels tile it
-    themselves.  The plan picks the A storage, pads U, I to 128 and K to
-    8, and picks the kind: ``resident`` when A^T in its storage dtype
-    takes at most ``a_max_bytes``, else ``stream``.  Its byte count is
-    dense A^T, the six factor tables (input, output and ping-pong for each
-    side), the training kernel's partial sums (for ``resident`` at their
-    largest, one chunk per 32 reduction columns; for ``stream`` as
-    ``dense_stream.stream_partial_bytes`` counts them on an H100) and the
-    top-1's; above ``DEVICE_BUDGET_BYTES`` it raises.  It does not depend
-    on the device, so CPU runs take the card's routes.
+    themselves.  The plan picks the A storage, pads U and I to 128, and
+    picks the kind:
+
+    * K (k padded to 8) up to ``dense_fused.MAX_K``: ``resident`` when A^T
+      in its storage dtype takes at most ``a_max_bytes``, else ``stream``.
+      Bytes: dense A^T, the six factor tables (input, output and ping-pong
+      for each side), the training kernel's partial sums (for ``resident``
+      at their largest, one chunk per 32 reduction columns; for ``stream``
+      as ``dense_stream.stream_partial_bytes`` counts them on an H100) and
+      the top-1's.
+    * ``tiled`` for wider factors (K padded to 32, up to
+      ``dense_tiled.MAX_K``), when the other kinds need more than
+      ``DEVICE_BUDGET_BYTES``, or when ``tiled`` forces it.  Bytes: A and
+      its transpose, L and R as input, current and next step with the
+      deltas beside them, the dR partial sums as ``dense_tiled`` counts them
+      on an H100, and ``recommend``'s (users, block) f32 tile with its
+      masked copy.
+
+    A plan above ``DEVICE_BUDGET_BYTES`` raises.  It does not depend on the
+    device, so CPU runs take the card's routes.
     """
     a_dtype, a_bytes = _a_storage(spec)
     U = dense_fused.round_up(spec.users, 128)
     I = dense_fused.round_up(spec.items, 128)
     K = dense_fused.round_up(spec.features, 8)
-    if K > dense_fused.MAX_K:
-        raise NotImplementedError(
-            f"k={spec.features} exceeds the dense kernels' K <= {dense_fused.MAX_K}; "
-            "wider factors wait for the tiled plan (ROADMAP A6)"
-        )
-    kind = "resident" if a_bytes * U * I <= a_max_bytes else "stream"
-    partials = (4 * 2 * K * U * I // 32 if kind == "resident"
-                else dense_stream.stream_partial_bytes(K, U, I))
-    need = a_bytes * U * I + 4 * 3 * K * (U + I) + partials + 8 * U * I // 32
+    if not tiled and K <= dense_fused.MAX_K:
+        kind = "resident" if a_bytes * U * I <= a_max_bytes else "stream"
+        partials = (4 * 2 * K * U * I // 32 if kind == "resident"
+                    else dense_stream.stream_partial_bytes(K, U, I))
+        need = a_bytes * U * I + 4 * 3 * K * (U + I) + partials + 8 * U * I // 32
+        if need <= DEVICE_BUDGET_BYTES:
+            return DensePlan(kind=kind, a_dtype=a_dtype, U=U, I=I, K=K, device_bytes=need)
+    K = dense_fused.round_up(spec.features, dense_tiled.K_ALIGN)
+    if K > dense_tiled.MAX_K:
+        raise NotImplementedError(f"k={spec.features} exceeds the tiled kernel's K <= {dense_tiled.MAX_K}")
+    need = (2 * a_bytes * U * I + 4 * 4 * K * (U + I) + dense_tiled.partial_bytes(U, I, K)
+            + 8 * spec.users * _top1_block(spec, RunConfig.block_items))
     if need > DEVICE_BUDGET_BYTES:
-        raise NotImplementedError(
-            f"dense A^T plus factors need {need} B > DEVICE_BUDGET_BYTES; "
-            "the tiled plan is ROADMAP A6"
-        )
-    return DensePlan(kind=kind, a_dtype=a_dtype, U=U, I=I, K=K, device_bytes=need)
+        raise NotImplementedError(f"the tiled plan needs {need} B > DEVICE_BUDGET_BYTES; no dense plan fits")
+    return DensePlan(kind="tiled", a_dtype=a_dtype, U=U, I=I, K=K, device_bytes=need)
 
 
 def _dense_inputs(spec: ProblemSpec, plan: DensePlan, device, state: MFState | None = None):
@@ -199,12 +219,10 @@ def _dense_inputs(spec: ProblemSpec, plan: DensePlan, device, state: MFState | N
     return Lt, Rt, A
 
 
-def _pallas_fused_top1(spec: ProblemSpec, precision: str, device, *,
-                       a_max_bytes: int = RESIDENT_A_MAX_BYTES) -> np.ndarray:
+def _pallas_fused_top1(spec: ProblemSpec, plan: DensePlan, precision: str, device) -> np.ndarray:
     """Training loop + masked top-1 on the plan's kernels (trainer.py:683):
     one B1 call on ``resident``; on ``stream``, B3 in the ``train`` phase
     and then B4 in the ``top1`` phase, as the JAX code splits them."""
-    plan = dense_plan(spec, a_max_bytes=a_max_bytes)
     Lt, Rt, A = _dense_inputs(spec, plan, device)
     kw = dict(alpha2=2.0 * spec.alpha, precision=precision)
     if plan.kind == "stream":
@@ -219,6 +237,26 @@ def _pallas_fused_top1(spec: ProblemSpec, precision: str, device, *,
         psync(top1)
     with phase("top1"):
         return top1.cpu().numpy()[0, : spec.users]
+
+
+def _tiled_train(spec: ProblemSpec, plan: DensePlan, precision: str, device, state: MFState | None = None):
+    """The tiled route's ``prep``, ``upload`` and ``train`` phases
+    (trainer.py:543-562): lane-major factors and A on ``device``, then
+    ``dense_tiled.tiled_train``.  ``default`` runs as ``highest`` here, as
+    the JAX engine does (:550-559); an explicit ``bf16x3`` is honoured.
+    Returns the padded (L, R) on ``device``."""
+    with phase("prep"):
+        L, R, _ = dense_tiled.pad_factors_lane_major(spec, state=state)
+    with phase("upload") as psync:
+        A = dense_tiled.device_dense_A(spec, plan.U, plan.I, plan.a_dtype, device)
+        L = torch.from_numpy(L).to(device)
+        R = torch.from_numpy(R).to(device)
+        psync((A, L, R))
+    with phase("train") as psync:
+        L, R = dense_tiled.tiled_train(L, R, A, iters=spec.iters, alpha2=2.0 * spec.alpha,
+                                       precision="highest" if precision == "default" else precision)
+        psync((L, R))
+    return L, R
 
 
 def _check_device(device) -> torch.device:
@@ -242,14 +280,16 @@ def _refuse(path: str) -> None:
 
 
 def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", state: MFState | None = None, *,
-              a_max_bytes: int = RESIDENT_A_MAX_BYTES) -> MFState:
+              a_max_bytes: int = RESIDENT_A_MAX_BYTES, tiled: bool = False) -> MFState:
     """The full GD loop on ``device`` from ``state`` (default: the glibc
-    initial factors); returns host factors (trainer.py:268, :518-542).
+    initial factors); returns host factors (trainer.py:268, :518-562).
 
     The ``host`` route runs the native f64 trajectory; the ``pallas`` route
-    runs the plan's training kernel, B2 ``resident_train`` or B3
-    ``stream_train``, and returns f32 factors at their true shapes.  The
-    other routes raise ``NotImplementedError`` naming their ROADMAP item.
+    runs the plan's training kernel, B2 ``resident_train``, B3
+    ``stream_train`` or B5 ``tiled_deltas``, and returns f32 factors at
+    their true shapes.  The other routes raise ``NotImplementedError``
+    naming their ROADMAP item.  ``a_max_bytes`` and ``tiled`` force a plan
+    kind, as in ``run``.
     """
     device = _check_device(device)
     if cfg.mesh_shape is not None:
@@ -260,7 +300,9 @@ def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", st
     if path != "pallas":
         _refuse(path)
     _dense_route_ok(spec, cfg)
-    plan = dense_plan(spec, a_max_bytes=a_max_bytes)
+    plan = dense_plan(spec, a_max_bytes=a_max_bytes, tiled=tiled)
+    if plan.kind == "tiled":
+        return convert.tiled_to_state(*_tiled_train(spec, plan, mxu_precision(cfg), device, state), spec)
     Lt, Rt, A = _dense_inputs(spec, plan, device, state)
     train = dense_fused.resident_train if plan.kind == "resident" else dense_stream.stream_train
     with phase("train") as psync:
@@ -269,18 +311,25 @@ def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", st
     return convert.to_state(Lt, Rt, spec)
 
 
+def _on(device, x) -> torch.Tensor:
+    """A factor table as a contiguous tensor on ``device``: a tensor moves
+    there (no copy through the host when it is there already), a host
+    array is copied up."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
 def recommend(state: MFState, spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda") -> np.ndarray:
     """Top-1 unrated item per user (int32 (users,)), computed blockwise on
-    ``device`` from host factors (trainer.py:645), with the JAX engine's
-    block and cap rule (:658-660): the rated-items table masks unless some
-    user rated most of the item space."""
+    ``device`` (trainer.py:645) from host factors or from tensors, which
+    stay on the device (:661-668), with the JAX engine's block and cap rule
+    (:658-660): the rated-items table masks unless some user rated most of
+    the item space."""
     device = _check_device(device)
-    cap = (16_000_000 // max(spec.users, 1)) // 128 * 128
-    block = min(cfg.block_items, -(-spec.items // 128) * 128, max(cap, 128))
-    block = max(block, 128)
+    block = _top1_block(spec, cfg.block_items)
     items_pad = -(-spec.items // block) * block
-    L = torch.from_numpy(np.ascontiguousarray(state.L)).to(device)
-    R = torch.from_numpy(np.ascontiguousarray(state.R)).to(device)
+    L, R = _on(device, state.L), _on(device, state.R)
     R_pad = torch.nn.functional.pad(R, (0, 0, 0, items_pad - spec.items))
     max_rated = int(np.bincount(spec.rows, minlength=spec.users).max()) if spec.nnz else 0
     if max_rated <= max(spec.items // 8, 128):
@@ -292,10 +341,13 @@ def recommend(state: MFState, spec: ProblemSpec, cfg: RunConfig = RunConfig(), d
     return top1.cpu().numpy()
 
 
-def run(spec: ProblemSpec, cfg: RunConfig, device, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES) -> tuple[str, np.ndarray]:
+def run(spec: ProblemSpec, cfg: RunConfig, device, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES,
+        tiled: bool = False) -> tuple[str, np.ndarray]:
     """Factorize + recommend on ``device``; returns (stdout payload, top1).
-    ``a_max_bytes`` moves the plan's resident/stream line (tests and
-    ``chip_smoke.py`` force each kind with it)."""
+    ``a_max_bytes`` moves the plan's resident/stream line and ``tiled``
+    forces the tiled kind (tests and ``chip_smoke.py`` force each kind with
+    them).  On the tiled kind the trained factors stay on the device for
+    ``recommend`` (trainer.py:765-767)."""
     from recsys_tpu_torch.io.writers import format_recommendations
 
     device = _check_device(device)
@@ -313,5 +365,11 @@ def run(spec: ProblemSpec, cfg: RunConfig, device, *, a_max_bytes: int = RESIDEN
     if path != "pallas":
         _refuse(path)
     _dense_route_ok(spec, cfg)
-    top1 = _pallas_fused_top1(spec, mxu_precision(cfg), device, a_max_bytes=a_max_bytes)
+    plan = dense_plan(spec, a_max_bytes=a_max_bytes, tiled=tiled)
+    if plan.kind == "tiled":
+        L, R = _tiled_train(spec, plan, mxu_precision(cfg), device)
+        with phase("top1"):
+            top1 = recommend(convert.tiled_views(L, R, spec), spec, cfg, device)
+    else:
+        top1 = _pallas_fused_top1(spec, plan, mxu_precision(cfg), device)
     return format_recommendations(top1, spec.rated_counts(), spec.items), top1

@@ -104,6 +104,8 @@ SIGNATURES = {
     # U, I, G, C, iters, alpha2, precision, items_true, chunk, S, top_chunk,
     # top_S, stream
     "rs_stream_train_top1": [_P, _I, *[_P] * 11, *[_I] * 6, _F, *[_I] * 6, _P],
+    # A, At, a_kind, L, R, dL, dR, part, U, I, K, precision, chunk, S, stream
+    "rs_tiled_deltas": [_P, _P, _I, *[_P] * 5, *[_I] * 6, _P],
 }
 
 

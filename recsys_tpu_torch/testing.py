@@ -1,9 +1,11 @@
-"""How the fused dense kernel is held against its plain twin: the two
+"""How the dense kernels are held against their plain twins: the two
 readings, their limits and the controls the limits must reject.  Shared
 by ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` on the card, and
-checked on the CPU by ``tests/test_torch_dense_fused.py``.
+checked on the CPU by ``tests/test_torch_dense_fused.py`` and
+``tests/test_torch_tiled.py``.
 
-Each reading is max |kernel - twin| over max |twin|, across Lt and Rt:
+Each reading is max |kernel - twin| over max |twin|, across the two
+factor tables:
 
 ``factor_rel``
     The factors after 20 GD steps on real ratings.  Kernel and twin sum
@@ -31,7 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from recsys_tpu_torch.ops import dense_fused
+from recsys_tpu_torch.ops import dense_fused, dense_tiled
 
 # Set from H100 readings at the instML100k shape (PERF.md, "Tolerances
 # from readings"): each limit is 4x or more above the sound readings and
@@ -40,6 +42,15 @@ from recsys_tpu_torch.ops import dense_fused
 # moves one cell's e by 2^-8).
 FACTOR_RTOL = {"highest": 1e-6, "bf16x3": 1e-6, "default": 1.5e-5}
 UPDATE_RTOL = {"highest": 3e-5, "bf16x3": 5e-6, "default": 5e-3}
+# B5's limits, set from H100 readings at the gen-instML1M and
+# gen-inst1e6-100-700-1-3 shapes (PERF.md, "Findings"), where its sums over
+# K = 704 and over up to 20,000 users per item read larger than the
+# limits above allow with 4x room: factor_rel up to 3.9e-7 / 3.9e-7 /
+# 6.3e-6 and update_rel up to 8.6e-6 / 6.8e-7 / 1.4e-6 (highest / bf16x3
+# / default).  Each limit is 4x or more above those and 4x or more below
+# the controls there (factor 1.7e-4; update 0.15, 2.1e-4, 2.1e-4).
+TILED_FACTOR_RTOL = {"highest": 2e-6, "bf16x3": 2e-6, "default": 3e-5}
+TILED_UPDATE_RTOL = {"highest": 4e-5, "bf16x3": 5e-6, "default": 5e-3}
 # (kernel precision, twin precision): readings that must exceed the twin
 # precision's limit.
 FACTOR_CONTROLS = (("highest", "default"),)
@@ -76,3 +87,14 @@ def precision_probe(spec, a_dtype: torch.dtype, device, *, seed: int = 0, spread
     Lt[:k, : spec.users] = s * (1 + spread * torch.randn((k, spec.users), generator=g))
     Rt[:k, : spec.items] = s * (1 + spread * torch.randn((k, spec.items), generator=g))
     return Lt.to(device), Rt.to(device), At
+
+
+def tiled_probe(spec, a_dtype: torch.dtype, device, *, seed: int = 0, spread: float = 1e-2):
+    """``precision_probe``'s inputs in the tiled kernel's layout: (L (U,
+    K), R (I, K), A (U, I)) on ``device``, K padded to 32."""
+    Lt, Rt, At = precision_probe(spec, a_dtype, "cpu", seed=seed, spread=spread)
+    K = dense_fused.round_up(spec.features, dense_tiled.K_ALIGN)
+    L, R = torch.zeros((Lt.shape[1], K)), torch.zeros((Rt.shape[1], K))
+    L[:, : Lt.shape[0]] = Lt.T
+    R[:, : Rt.shape[0]] = Rt.T
+    return L.to(device), R.to(device), At.T.contiguous().to(device)

@@ -19,7 +19,7 @@ from recsys_tpu_torch.config import RunConfig
 from recsys_tpu_torch.engine import trainer
 from recsys_tpu_torch.io.generator import generate_instance
 from recsys_tpu_torch.io.parser import load_problem
-from recsys_tpu_torch.ops import dense_fused, dense_stream
+from recsys_tpu_torch.ops import dense_fused, dense_stream, dense_tiled
 
 FIXTURES = pathlib.Path(__file__).parent / "fixtures"
 # The readings and their limits are in recsys_tpu_torch/testing.py.
@@ -178,3 +178,74 @@ def test_wide_factors_match_twins(k):
         assert checks.factor_rel(got, twin) <= checks.FACTOR_RTOL["highest"]
     top = dense_stream.stream_top1(*twin, A, items_true=spec.items)
     assert torch.equal(top, dense_stream.stream_top1_plain(*twin, A, items_true=spec.items))
+
+
+# k = 300 > 256: the tiled plan's own shape.
+_K300 = dict(users=500, items=300, features=300, min_nz_row=2, max_nz_row=30, iters=checks.FACTOR_ITERS,
+             alpha=1e-3, seed=5)
+
+
+def _tiled_inputs(dev, spec, a_dtype=torch.int8):
+    L, R, (U, I, K) = dense_tiled.pad_factors_lane_major(spec)
+    A = dense_tiled.device_dense_A(spec, U, I, a_dtype, dev)
+    return torch.from_numpy(L).to(dev), torch.from_numpy(R).to(dev), A
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
+def test_tiled_kernel_matches_twin(precision, a_dtype):
+    dev = _cuda()
+    spec = generate_instance(**_K300)
+    L, R, A = _tiled_inputs(dev, spec, a_dtype)
+    kw = dict(iters=spec.iters, alpha2=2 * spec.alpha, precision=precision)
+    before = dense_tiled.tiled_deltas.launches
+    got = dense_tiled.tiled_train(L, R, A, **kw)
+    twin = dense_tiled.tiled_train_plain(L, R, A, **kw)
+    again = dense_tiled.tiled_train(L, R, A, **kw)
+    torch.cuda.synchronize()
+    assert dense_tiled.tiled_deltas.launches == before + 2 * spec.iters
+    assert checks.factor_rel(got, twin) <= checks.TILED_FACTOR_RTOL[precision]
+    # No float atomics: two runs give the same bits.
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    # Padding masks itself.
+    assert torch.all(got[0][spec.users:] == 0) and torch.all(got[1][:, spec.features:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,twin_precision",
+                         [(p, p) for p in ("highest", "bf16x3", "default")] + list(checks.UPDATE_CONTROLS))
+def test_tiled_update_on_precision_probe(precision, twin_precision):
+    dev = _cuda()
+    spec = generate_instance(**_K300)
+    L, R, A = checks.tiled_probe(spec, torch.int8, dev)
+    got = dense_tiled.tiled_gd_step(L, R, A, alpha2=checks.PROBE_ALPHA2, precision=precision)
+    want = dense_tiled.tiled_train_plain(L, R, A, iters=1, alpha2=checks.PROBE_ALPHA2, precision=twin_precision)
+    rel = checks.update_rel(got, want, L, R)
+    limit = checks.TILED_UPDATE_RTOL[twin_precision]
+    assert rel <= limit if precision == twin_precision else rel > limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 700, 1000])
+def test_tiled_widths_match_twin(k):
+    # K = 32, 704 (gen-inst1e6's width) and 1024, the kernel's widest.
+    dev = _cuda()
+    spec = generate_instance(2000, 100, k, 1, 3, iters=5, alpha=1e-5, seed=42)
+    L, R, A = _tiled_inputs(dev, spec)
+    kw = dict(iters=spec.iters, alpha2=2 * spec.alpha, precision="highest")
+    got = dense_tiled.tiled_train(L, R, A, **kw)
+    assert checks.factor_rel(got, dense_tiled.tiled_train_plain(L, R, A, **kw)) <= checks.TILED_FACTOR_RTOL["highest"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+def test_run_tiled_matches_oracle_on_card(precision):
+    from recsys_tpu_torch.engine.oracle import run_oracle
+
+    _cuda()
+    spec = generate_instance(40, 130, 300, 2, 12, iters=20, alpha=0.01, seed=21)
+    before = dense_tiled.tiled_deltas.launches
+    out, _ = trainer.run(spec, RunConfig(dtype="float32", path="pallas", precision=precision), "cuda")
+    assert dense_tiled.tiled_deltas.launches == before + spec.iters
+    assert out == run_oracle(spec)
