@@ -25,6 +25,13 @@ each printed as it runs:
    at the gen-instML1M and gen-inst1e6-100-700-1-3 shapes (20 steps): the
    same readings, two runs bit for bit, the controls at both large shapes,
    and B5's training within the factor limit of B3's at gen-instML1M's.
+5b. ``bell_side_update`` (P2's engine form) vs its twin, bit for bit, in
+   f64 and f32, on small specs (stored 0 ratings and k = 700 among them)
+   and at instML100k (20 steps), two runs bit for bit; in f64 against
+   ``_native.serial_gd`` bit for bit, and the sum-then-add control, which
+   must differ there; then at gen-inst1e6-100-700-1-3's shape (2 steps,
+   hub rows of ~20,000 slots, 1M-row buckets) against the twin, bit for
+   bit in f64 and f32, two runs bit for bit.
 6. main path, instML100k: ``trainer.run`` in highest, bf16x3 and default on
    the auto plan (resident) and with the stream kind forced, held against
    the golden ``.out`` with launch counts, phase times, the slope and the
@@ -40,6 +47,15 @@ each printed as it runs:
    the golden ``.out``, with launch counts and phase times; then one
    tiled step's device time by kernel (``torch.profiler``) at its shape
    and at gen-instML1M's.
+10. main path, exact f64: instML100k through ``run()`` on the auto route
+   (``bell``, 2 launches a step) byte for byte against its golden, with
+   phases, the slope and one twin step's time; ``--path dense`` f64 once;
+   inst200-10000-50-100-300 f64 through ``run()``.
+11. main path, gen-inst1e6-100-700-1-3 on the auto route (``bell``) in
+   f64 (byte for byte against its golden) and in f32.
+12. the P2 probe (``probes/mosaic_gather.py``) at the TPU script's shapes:
+   ``gather_rows`` and ``gather_err_grad`` against their twins, then the
+   five variants.
 
 Every main path runs with the launch counts set to 0 just before it and
 read just after.  The last two lines are a JSON object of the kernels'
@@ -78,8 +94,20 @@ ML1M_FLOOR = {"highest": 0.99, "bf16x3": 0.99, "default": 0.95}
 # (bench_results.jsonl); `default` runs as `highest` on the tiled route.
 INST1E6_FLOOR = {"highest": 0.99, "bf16x3": 0.98, "default": 0.99}
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): f32 on the CUDA
-# cores, bf16 on the tensor cores, HBM bandwidth.
+# cores, bf16 on the tensor cores, HBM bandwidth, and f64 on the CUDA
+# cores (the BELL kernel's elementwise products and sums).
 F32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 989e12, 3.35e12
+F64_FLOPS = 34e12
+INST200 = os.path.join(ROOT, "tests", "fixtures", "inst200-10000-50-100-300")
+# Argmax agreement floors of the f64 runs that are not byte-exact by
+# contract: the dense route's DGEMMs sum in another order than the
+# reference (0.99), inst200-10000 sits at 99.5% in every JAX engine.
+# gen-inst1e6 on `bell` is byte-exact in f64 (1.0 demands the byte match)
+# and held to its f32 floor in f32.
+DENSE_F64_FLOOR, INST200_FLOOR = 0.99, 0.995
+INST1E6_BELL_FLOOR = {"float64": 1.0, "float32": 0.99}
+# Steps of the BELL kernel-vs-twin reading at gen-inst1e6's shape.
+INST1E6_BELL_STEPS = 2
 FORCE_RESIDENT = 1 << 62
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
@@ -89,6 +117,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "stream_top1": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:473"),
     "stream_train_top1": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:433"),
     "tiled_deltas": ("recsys_tpu_torch/csrc/dense_tiled.cu", "recsys_tpu/ops/pallas_dense.py:566"),
+    "bell_side_update": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
+    "gather_rows": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:118"),
+    "gather_err_grad": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
 }
 
 
@@ -97,7 +128,7 @@ def log(msg: str) -> None:
 
 
 def _wrappers():
-    from recsys_tpu_torch.ops import dense_fused, dense_stream, dense_tiled
+    from recsys_tpu_torch.ops import bell, dense_fused, dense_stream, dense_tiled, gather
 
     return {
         "resident_train_top1": dense_fused.resident_train_top1,
@@ -106,6 +137,9 @@ def _wrappers():
         "stream_top1": dense_stream.stream_top1,
         "stream_train_top1": dense_stream.stream_train_top1,
         "tiled_deltas": dense_tiled.tiled_deltas,
+        "bell_side_update": bell.bell_side_update,
+        "gather_rows": gather.gather_rows,
+        "gather_err_grad": gather.gather_err_grad,
     }
 
 
@@ -450,12 +484,12 @@ def tiled_kernel_phase(torch, dev, big):
     return worst
 
 
-def _run(spec, precision, dev, torch, path="auto", **plan):
+def _run(spec, precision, dev, torch, path="auto", dtype="float32", **plan):
     from recsys_tpu_torch.config import RunConfig
     from recsys_tpu_torch.engine import trainer
     from recsys_tpu_torch.utils.timing import collect_phases
 
-    cfg = RunConfig(dtype="float32", path=path, precision=precision)
+    cfg = RunConfig(dtype=dtype, path=path, precision=precision)
     phases = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -658,6 +692,269 @@ def inst1e6_phase(torch, dev, launches, spec):
         raise AssertionError(f"{INST1E6} must launch B5 {spec.iters} times per run: {counts}")
 
 
+def _bell_small_specs():
+    """The small specs of the BELL kernel readings: sparse rows, a
+    hyper-sparse item side, stored 0 ratings, and gen-inst1e6's k = 700."""
+    from recsys_tpu_torch.io.generator import generate_instance
+    from recsys_tpu_torch.testing import FACTOR_ITERS as n
+
+    zero = generate_instance(120, 90, 30, 1, 45, iters=n, alpha=1e-4, seed=30)
+    vals = zero.vals.copy()
+    vals[::7] = 0.0
+    return {
+        "sparse 60x200 k8": generate_instance(60, 200, 8, 2, 5, iters=n, alpha=0.01, seed=9),
+        "hyper-sparse 50x5000 k3": generate_instance(50, 5000, 3, 1, 2, iters=n, alpha=0.001, seed=4),
+        "stored zeros 120x90 k30": dataclasses.replace(zero, vals=vals),
+        "wide 120x90 k700": generate_instance(120, 90, 700, 1, 45, iters=4, alpha=1e-5, seed=7),
+    }
+
+
+def _bell_tensors(spec, dtype, dev, torch, init):
+    from recsys_tpu_torch.ops import bell
+
+    data = bell.make_bell_inputs(spec, dtype)
+    L, R = (torch.from_numpy(x).to(dev) for x in bell.pad_factors_for_bell(init, data, dtype))
+    return data, L, R, bell.device_tables(data.tables, dev)
+
+
+def _bell_big_readings(torch, dev, spec):
+    """``bell_train`` against ``bell_train_plain`` at ``spec``'s shape
+    (gen-inst1e6: 100 item rows of ~20,000 slots, one warp each, and
+    1M-row user buckets), ``INST1E6_BELL_STEPS`` steps, bit for bit in f64
+    and f32, and two runs bit for bit.  The factors are drawn on the card
+    from a seed, at the glibc init's scale (the route's own init is read
+    in ``inst1e6_bell_phase``).  Returns the failed readings."""
+    import numpy as np
+
+    from recsys_tpu_torch.ops import bell
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    L64, R64 = (torch.rand((n + 1, spec.features), generator=g, dtype=torch.float64, device=dev)
+                .div_(spec.features) for n in (spec.users, spec.items))
+    L64[-1], R64[-1] = 0.0, 0.0
+    failed, steps, a2 = [], INST1E6_BELL_STEPS, 2.0 * spec.alpha
+    for dtype, tdtype in ((np.float64, torch.float64), (np.float32, torch.float32)):
+        data = bell.make_bell_inputs(spec, dtype)
+        t = bell.device_tables(data.tables, dev)
+        L, R = L64.to(tdtype), R64.to(tdtype)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = bell.bell_train(L, R, t, a2, data.meta, steps)
+        twin = bell.bell_train_plain(L, R, t, a2, data.meta, steps)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, twin))
+        readings = {"= twin": all(torch.equal(a, b) for a, b in zip(got, twin))}
+        del twin
+        again = bell.bell_train(L, R, t, a2, data.meta, steps)
+        readings["two runs same"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        readings["finite"] = all(bool(torch.isfinite(a).all()) for a in got)
+        bad = [k for k, v in readings.items() if not v]
+        log(f"[kernel] bell_side_update {INST1E6} {np.dtype(dtype).name} {steps} steps "
+            f"({len(data.meta.user.bounds)}+{len(data.meta.item.bounds)} buckets, widest "
+            f"{max(w for _, _, w in data.meta.user.bounds)}/{max(w for _, _, w in data.meta.item.bounds)} slots): "
+            f"max_abs_err={err!r} {' '.join(f'{k}={v}' for k, v in readings.items())} | peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev)!r} B {'ok' if not bad else 'FAIL'}")
+        if bad:
+            failed.append(f"{INST1E6} {np.dtype(dtype).name}: {bad}")
+        del got, again, L, R, t, data
+        torch.cuda.empty_cache()
+    return failed
+
+
+def bell_kernel_phase(torch, dev, big):
+    """``bell_side_update`` against its twin, bit for bit, in f64 and f32,
+    on the small specs and on instML100k (20 steps), two runs bit for bit;
+    in f64 against ``_native.serial_gd``; the sum-then-add control, which
+    must differ from it at instML100k; then the same twin and rerun
+    readings at ``big``'s shape (``_bell_big_readings``).  Returns the max
+    abs error against the twin at instML100k in f64."""
+    import numpy as np
+
+    from recsys_tpu_torch import testing as checks
+    from recsys_tpu_torch.io import _native
+    from recsys_tpu_torch.io.parser import load_problem
+    from recsys_tpu_torch.models.mf import init_factors
+    from recsys_tpu_torch.ops import bell
+
+    ml = dataclasses.replace(load_problem(ML100K + ".in"), iters=checks.FACTOR_ITERS)
+    specs = {**_bell_small_specs(), "instML100k": ml}
+    failed, worst = [], 0.0
+    for name, spec in specs.items():
+        init = init_factors(spec.users, spec.items, spec.features)
+        serial = _native.serial_gd(spec, init.L.copy(), init.R.copy())
+        for dtype in (np.float64, np.float32):
+            data, L, R, t = _bell_tensors(spec, dtype, dev, torch, init)
+            a2 = 2.0 * spec.alpha
+            got = bell.bell_train(L, R, t, a2, data.meta, spec.iters)
+            again = bell.bell_train(L, R, t, a2, data.meta, spec.iters)
+            twin = bell.bell_train_plain(L, R, t, a2, data.meta, spec.iters)
+            torch.cuda.synchronize()
+            err = max(float((g - w).abs().max()) for g, w in zip(got, twin))
+            readings = {
+                "= twin": all(torch.equal(g, w) for g, w in zip(got, twin)),
+                "two runs same": all(torch.equal(g, a) for g, a in zip(got, again)),
+                "finite": all(bool(torch.isfinite(g).all()) for g in got),
+            }
+            if dtype is np.float64:
+                Lo, Ro = bell.unpermute_factors(got[0].cpu().numpy(), got[1].cpu().numpy(), data)
+                readings["= serial_gd"] = np.array_equal(Lo, serial[0]) and np.array_equal(Ro, serial[1])
+                if spec is ml:
+                    worst = err
+                    Lc, Rc = checks.bell_sum_then_add_train(L, R, t, a2, data.meta, spec.iters)
+                    Lco, Rco = bell.unpermute_factors(Lc.cpu().numpy(), Rc.cpu().numpy(), data)
+                    cells = int((Lco != serial[0]).sum() + (Rco != serial[1]).sum())
+                    diff = max(float(np.abs(Lco - serial[0]).max()), float(np.abs(Rco - serial[1]).max()))
+                    log(f"[control] BELL {name} f64: sum-then-add (the JAX order) against serial_gd: "
+                        f"{cells} of {Lco.size + Rco.size} factors differ, max abs {diff!r} "
+                        f"{'rejected ok' if cells else 'FAIL: the bitwise reading does not reject it'}")
+                    if not cells:
+                        failed.append("sum-then-add control equals serial_gd")
+            bad = [k for k, v in readings.items() if not v]
+            log(f"[kernel] bell_side_update {name} {np.dtype(dtype).name} {spec.iters} steps "
+                f"({len(data.meta.user.bounds)}+{len(data.meta.item.bounds)} buckets): max_abs_err={err!r} "
+                f"{' '.join(f'{k}={v}' for k, v in readings.items())} {'ok' if not bad else 'FAIL'}")
+            if bad:
+                failed.append(f"{name} {np.dtype(dtype).name}: {bad}")
+    failed += _bell_big_readings(torch, dev, big)
+    if failed:
+        raise AssertionError(f"bell_side_update readings failed: {failed}")
+    return worst
+
+
+def _golden_run(name, spec, golden, floor, dev, torch, launches, label, dtype, path="auto"):
+    """One ``trainer.run`` in its own launch-count window, held against
+    ``golden``: the byte match, and the argmax agreement against ``floor``
+    (1.0 demands the byte match).  Logs the first differing lines; returns
+    the phases."""
+    counts = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counted(counts):
+        out, wall, ph = _run(spec, "auto", dev, torch, path=path, dtype=dtype)
+    want = golden.splitlines()
+    agree, lines = _agreement(out, want)
+    byte = out == golden
+    # inst200-10000's golden ends in an empty line after its 200 users.
+    blank = len(want) - len(golden.rstrip("\n").splitlines())
+    launches[name, label] = counts
+    log(f"[main] {name} {label}: agreement {agree!r} byte_match {byte} lines {lines} | wall {wall!r} s "
+        f"prep {ph['prep']!r} upload {ph['upload']!r} train {ph['train']!r} top1 {ph['top1']!r} | peak device "
+        f"memory {torch.cuda.max_memory_allocated(dev)!r} B | launches {_nonzero(counts)}")
+    if not byte:
+        diffs = [(i, a, b) for i, (a, b) in enumerate(zip(out.splitlines(), want)) if a != b]
+        log(f"[main] {name} {label}: {len(diffs)} differing lines, first {diffs[:8]}; the golden ends in "
+            f"{blank} empty line(s), and the output equals it but for them: {out == golden.rstrip(chr(10)) + chr(10)}")
+    if lines != len(want) - blank or agree < floor or (floor >= 1.0 and not byte):
+        raise AssertionError(f"{name} {label}: agreement {agree} below {floor}")
+    return ph, counts
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def bell_main_phase(torch, dev, launches):
+    """instML100k f64 through ``run()`` on the auto route, which must be
+    ``bell`` (2 launches a step), byte for byte against its golden, with
+    phases and the slope; one twin step's time; the ``dense`` route in f64
+    once; inst200-10000-50-100-300 f64 through ``run()``."""
+    from recsys_tpu_torch.config import RunConfig
+    from recsys_tpu_torch.engine import trainer
+    from recsys_tpu_torch.io.parser import load_problem
+    from recsys_tpu_torch.models.mf import init_factors
+    from recsys_tpu_torch.ops import bell
+
+    import numpy as np
+
+    spec = load_problem(ML100K + ".in")
+    with open(ML100K + ".out") as f:
+        golden = f.read()
+    path = trainer.choose_path(spec, RunConfig(dtype="float64"), dev)
+    log(f"[main] instML100k f64: path={path}")
+    if path != "bell":
+        raise AssertionError(f"instML100k f64 must take the bell route, got {path!r}")
+    _run(dataclasses.replace(spec, iters=10), "auto", dev, torch, dtype="float64")  # warm-up
+    ph, counts = _golden_run("instML100k f64", spec, golden, 1.0, dev, torch, launches, "auto", "float64")
+    if counts["bell_side_update"] != 2 * spec.iters:
+        raise AssertionError(f"instML100k f64 must launch bell_side_update {2 * spec.iters} times: {counts}")
+    _, _, ph1k = _run(dataclasses.replace(spec, iters=1000), "auto", dev, torch, dtype="float64")
+    slope = (ph["train"] - ph1k["train"]) / (spec.iters - 1000)
+    log(f"[main] instML100k f64 bell: slope {slope * 1e6!r} us/iter (1000 vs {spec.iters} iters)")
+
+    data, L, R, t = _bell_tensors(spec, np.float64, dev, torch, init_factors(spec.users, spec.items, spec.features))
+    bell.bell_gd_step_plain(L, R, t, 2.0 * spec.alpha, data.meta)  # warm-up
+    _, twin_s = _plain_seconds(bell.bell_gd_step_plain, torch, L, R, t, 2.0 * spec.alpha, data.meta)
+    log(f"[main] instML100k f64 plain twin: one step {twin_s!r} s (kernel route: train {ph['train']!r} s "
+        f"for {spec.iters} steps)")
+
+    _golden_run("instML100k f64", spec, golden, DENSE_F64_FLOOR, dev, torch, launches, "dense forced",
+                "float64", path="dense")
+    inst200 = load_problem(INST200 + ".in")
+    with open(INST200 + ".out") as f:
+        golden200 = f.read()
+    log(f"[main] inst200-10000-50-100-300 f64: {inst200.users}x{inst200.items} k={inst200.features} "
+        f"nnz={inst200.nnz} iters={inst200.iters} path={trainer.choose_path(inst200, RunConfig(dtype='float64'), dev)}")
+    _golden_run("inst200-10000-50-100-300 f64", inst200, golden200, INST200_FLOOR, dev, torch, launches, "auto",
+                "float64")
+
+
+def inst1e6_bell_phase(torch, dev, launches, spec):
+    """gen-inst1e6-100-700-1-3 through ``run()`` on the auto route, which
+    must be ``bell``, once in f64 and once in f32 (2 launches a step)."""
+    import gc
+
+    from recsys_tpu_torch.config import RunConfig
+    from recsys_tpu_torch.engine import trainer
+
+    with open(INST1E6_OUT) as f:
+        golden = f.read()
+    for dtype in ("float64", "float32"):
+        path = trainer.choose_path(spec, RunConfig(dtype=dtype), dev)
+        log(f"[main] {INST1E6} {dtype}: path={path}")
+        if path != "bell":
+            raise AssertionError(f"{INST1E6} {dtype} must take the bell route on the card, got {path!r}")
+        _, counts = _golden_run(f"{INST1E6} {dtype}", spec, golden, INST1E6_BELL_FLOOR[dtype], dev, torch,
+                                launches, "auto", dtype)
+        if counts["bell_side_update"] != 2 * spec.iters:
+            raise AssertionError(f"{INST1E6} {dtype} must launch bell_side_update {2 * spec.iters} times")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def p2_probe_phase(torch, dev, launches):
+    """P2's probe (``probes/mosaic_gather.py``) at the TPU script's shapes:
+    both kernels against their twins, then all five variants, in one
+    launch-count window.  Returns ({kernel: max abs error against its
+    twin}, {variant: ms per gather})."""
+    from recsys_tpu_torch.probes import mosaic_gather
+
+    counts = {}
+    with counted(counts):
+        errs, per = mosaic_gather.run(dev)
+    launches["P2 probe", "all variants"] = counts
+    log(f"[probe] P2 launches: {_nonzero(counts)}")
+    if counts["gather_rows"] <= 0 or counts["gather_err_grad"] <= 0:
+        raise AssertionError(f"the P2 probe did not launch both kernels: {counts}")
+    return errs, per
+
+
+def device_ms(torch, fn, reps, names=None):
+    """Mean device milliseconds per call of ``fn()`` from ``torch.profiler``:
+    the time of the device events (kernels, copies) whose name holds one
+    of ``names``, or of all of them when ``names`` is None.  Raises where
+    the profiler sees none."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == cuda and (names is None or any(n in e.key for n in names)))
+    if total <= 0:
+        raise RuntimeError(f"the profiler saw no device time of {names or 'any kernel'}")
+    return total / reps / 1e3
+
+
 def _timing_inputs(spec, dev, torch):
     """(L, R, A, At) of the tiled plan at ``spec``'s shape, for timing:
     ``spec``'s ratings and random factors (the time does not depend on
@@ -696,11 +993,20 @@ def tiled_step_profile(torch, dev, spec, name):
     del L, R, A, At
 
 
-def _bound(flops, nbytes):
-    """(bound_ms, bound_by) in `highest`: f32 operations on the CUDA cores
-    against bytes over HBM, whichever takes longer."""
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_S
+def _bound(flops, nbytes, peak=F32_FLOPS):
+    """(bound_ms, bound_by): operations at ``peak`` (by default f32 on the
+    CUDA cores, `highest`) against bytes over HBM, whichever takes longer."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _record(name, launches, err, ms, plain_ms, flops, nbytes, peak=F32_FLOPS, library_ms=None):
+    """One kernel's entry of the kernels line."""
+    bound_ms, bound_by = _bound(flops, nbytes, peak)
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times):
@@ -708,7 +1014,7 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times):
     The train kernels' bound counts 6*k FLOP per rated cell and step, the
     top-1's 2*k per (user, item); bytes count each input tensor read once
     and each output written once.  B5's numbers are one launch, one step's
-    deltas, at gen-inst1e6's shape (``big``)."""
+    deltas, at gen-inst1e6's shape (``big``); then ``bell_records``."""
     from recsys_tpu_torch.engine import trainer
     from recsys_tpu_torch.ops import dense_fused as df
     from recsys_tpu_torch.ops import dense_stream as ds
@@ -725,12 +1031,8 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times):
 
     out = []
 
-    def add(name, spec_launches, err, ms, plain_ms, flops, nbytes):
-        bound_ms, bound_by = _bound(flops, nbytes)
-        source, replaces = KERNELS[name]
-        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": spec_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    def add(*args):
+        out.append(_record(*args))
 
     plan, a_b, f_b, tr, tp = shapes(ml100k)
     add("resident_train_top1", launches["instML100k", "auto"]["resident_train_top1"], errs["B1"],
@@ -766,9 +1068,65 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times):
     log(f"[kernels] tiled_deltas dense count at {INST1E6}: 8*U*I*K = {8.0 * plan.U * plan.I * plan.K!r} FLOP, "
         f"{_bound(8.0 * plan.U * plan.I * plan.K, a_b + 2 * f_b)[0]!r} ms at the f32 peak")
     del L, R, A, At
+    out += bell_records(torch, dev, ml100k, launches, errs)
     for rec in out:
         log(f"[kernels] {rec['name']}: {rec['ms']!r} ms vs bound {rec['bound_ms']!r} ms "
-            f"({rec['bound_by']}), plain {rec['plain_ms']!r} ms, launches {rec['launches']}")
+            f"({rec['bound_by']}), plain {rec['plain_ms']!r} ms, library {rec['library_ms']!r} ms, "
+            f"launches {rec['launches']}")
+    return out
+
+
+def bell_records(torch, dev, ml100k, launches, errs):
+    """The kernels line's entries of ``bell_side_update`` (one step, its
+    two launches, at instML100k in f64; 4*k f64 FLOP per rating and side),
+    ``gather_rows`` and ``gather_err_grad`` (one launch at P2's shapes).
+    Kernel, twin and library times alike are the profiler's device time:
+    the kernel's own events, and every device event of a twin or library
+    call."""
+    import numpy as np
+
+    from recsys_tpu_torch.models.mf import init_factors
+    from recsys_tpu_torch.ops import bell, gather
+    from recsys_tpu_torch.probes import mosaic_gather as mg
+
+    data, L, R, t = _bell_tensors(ml100k, np.float64, dev, torch,
+                                  init_factors(ml100k.users, ml100k.items, ml100k.features))
+    a2, k, m = 2.0 * ml100k.alpha, ml100k.features, data.meta
+    oL, oR = L.clone(), R.clone()
+
+    def bell_step():
+        bell.bell_side_update(L, R, t.ucols, t.uvals, m.user, a2, out=oL)
+        bell.bell_side_update(R, L, t.irows, t.ivals, m.item, a2, out=oR)
+
+    # Bytes: each factor table read once (as own and as other side), the
+    # slot tables (int32 index and f64 value), the updated rows written.
+    nbytes = (2 * 8 * k * (L.shape[0] + R.shape[0]) + 12 * (t.ucols.numel() + t.irows.numel())
+              + 8 * k * (m.user.n_nz + m.item.n_nz))
+    flops = 2 * 4.0 * k * ml100k.nnz
+    out = [_record("bell_side_update", launches["instML100k f64", "auto"]["bell_side_update"],
+                   errs["bell_side_update"], device_ms(torch, bell_step, 200, ("side_update",)),
+                   device_ms(torch, lambda: bell.bell_gd_step_plain(L, R, t, a2, m), 3),
+                   flops, nbytes, F64_FLOPS)]
+    gathered = 8 * k * (t.ucols.numel() + t.irows.numel()) + 2 * 8 * k * (m.user.n_nz + m.item.n_nz)
+    log(f"[kernels] bell_side_update at instML100k f64, counting every gathered row (the slots, "
+        f"{t.ucols.numel()} + {t.irows.numel()}) and the own rows read and written: {gathered} B, "
+        f"{_bound(flops, gathered, F64_FLOPS)[0]!r} ms")
+    del L, R, t, oL, oR
+
+    table, idx, vals = mg.inputs(dev)
+    (S,), (N, K) = idx.shape, table.shape
+    idx_long = idx.long()
+    p2 = launches["P2 probe", "all variants"]
+    out.append(_record("gather_rows", p2["gather_rows"], errs["gather_rows"],
+                       device_ms(torch, lambda: gather.gather_rows(table, idx), 50, ("gather_rows",)),
+                       device_ms(torch, lambda: gather.gather_rows_plain(table, idx), 50), 0.0,
+                       4 * (N * K + S + S * K),
+                       library_ms=device_ms(torch, lambda: table.index_select(0, idx_long), 50)))
+    out.append(_record("gather_err_grad", p2["gather_err_grad"], errs["gather_err_grad"],
+                       device_ms(torch, lambda: gather.gather_err_grad(table, idx, vals, mg.BLK), 50,
+                                 ("gather_err_grad",)),
+                       device_ms(torch, lambda: gather.gather_err_grad_plain(table, idx, vals, mg.BLK), 20),
+                       4.0 * S * K + 2.0 * S, 4 * (N * K + 2 * S + S * K)))
     return out
 
 
@@ -796,6 +1154,7 @@ def main() -> int:
         errs.update(stream_kernels_phase(torch, dev))
         big = _inst1e6_spec()
         errs["tiled_deltas"] = tiled_kernel_phase(torch, dev, big)
+        errs["bell_side_update"] = bell_kernel_phase(torch, dev, big)
         launches = {}
         ml100k, train1, plain1 = ml100k_phase(torch, dev, launches)
         ml1m, train2, plain2 = ml1m_phase(torch, dev, launches)
@@ -803,6 +1162,10 @@ def main() -> int:
         inst1e6_phase(torch, dev, launches, big)
         tiled_step_profile(torch, dev, big, INST1E6)
         tiled_step_profile(torch, dev, ml1m, "gen-instML1M")
+        bell_main_phase(torch, dev, launches)
+        inst1e6_bell_phase(torch, dev, launches, big)
+        p2_errs, _ = p2_probe_phase(torch, dev, launches)
+        errs.update(p2_errs)
         times = {"B1": (train1["auto", "highest"], plain1["highest"]),
                  "B3": (train2["auto", "highest"], plain2["highest"])}
         kernels = kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times)

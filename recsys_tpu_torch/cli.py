@@ -9,8 +9,11 @@ per user, then ``time : <seconds>`` (``matFact.c:127,134``).  Flags keep
 the JAX CLI's names.  ``--checkpoint`` trains in chunks of
 ``--checkpoint-every`` iterations through ``trainer.factorize``, resuming
 from the file if it exists, and then runs ``trainer.recommend`` with
-``--block-items`` (``recsys_tpu/cli.py:155-163``).  Values the port does
-not have yet (``--path`` dense/bell/coo, ``--mesh``) raise.
+``--block-items`` (``recsys_tpu/cli.py:155-163``).  ``--dtype float64``
+is the exact mode: on the card it takes the BELL route, whose factors are
+the reference binary's bit for bit (``--path bell`` or ``dense`` forces a
+route).  Values the port does not have yet (``--path coo``, ``--mesh``)
+raise.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ returns an ``MFState`` of (users, k) / (items, k) arrays.  These helpers
 move any of these forms, or a checkpoint file of either package, onto a
 device as the port's padded f32 tensors (K-major for the resident and
 stream kernels, lane-major for the tiled one) and back, so a test can hand
-the same factors to both packages.
+the same factors to both packages.  The BELL route's degree-permuted
+tables with their zero rows (``pad_factors_for_bell``) keep the run's
+dtype, f32 or f64.
 """
 
 from __future__ import annotations
@@ -66,6 +68,28 @@ def tiled_to_state(L: torch.Tensor, R: torch.Tensor, spec) -> MFState:
     """The port's tiled tables -> an ``MFState`` of host f32 arrays at the
     true (users, k) / (items, k) shapes."""
     return MFState(*(np.ascontiguousarray(x.cpu().numpy()) for x in tiled_views(L, R, spec)))
+
+
+def from_jax_bell(L, R, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's BELL tables (``recsys_tpu.ops.bell.pad_factors_for_bell``'s
+    output, numpy or anything ``np.asarray`` takes: degree-permuted rows,
+    zero row last) -> contiguous tensors in their dtype on ``device``, the
+    layout of the port's ``bell.bell_train``.  Both packages permute by the
+    same stable degree sort."""
+    def move(x):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(x))).to(device)
+
+    return move(L), move(R)
+
+
+def bell_to_state(L: torch.Tensor, R: torch.Tensor, data) -> MFState:
+    """The BELL tables (degree-permuted, zero row last) -> an ``MFState`` of
+    host arrays in their dtype, original row order, zero rows dropped.
+    ``data`` is either package's ``BellData`` of the same spec."""
+    from recsys_tpu_torch.ops.bell import unpermute_factors
+
+    Lo, Ro = unpermute_factors(L.cpu().numpy(), R.cpu().numpy(), data)
+    return MFState(L=np.ascontiguousarray(Lo), R=np.ascontiguousarray(Ro))
 
 
 def from_checkpoint(path: str, spec, device) -> tuple[torch.Tensor, torch.Tensor]:

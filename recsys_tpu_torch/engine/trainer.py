@@ -14,9 +14,16 @@ Routes, chosen by ``choose_path`` in the JAX engine's decision order:
   ``dense_stream.stream_train``, then B4 ``dense_stream.stream_top1`` in
   ``run``) or ``tiled`` (B5 ``dense_tiled.tiled_deltas`` once per step,
   then ``recommend`` on the factors left on the device in ``run``).
-* ``dense``, ``bell``, ``coo`` and any mesh raise ``NotImplementedError``
-  naming the ROADMAP item that ports them.  Nothing falls back to
-  another route.
+* ``bell``   -- the degree-bucketed sparse route in f32 or exact f64:
+  ``bell.bell_side_update`` (P2's engine form) twice per step, from the
+  host glibc init (the on-device init of the JAX engine, trainer.py:364,
+  is ROADMAP A8), then ``recommend`` on the factors left on the device in
+  ``run``.  In f64 it follows the reference's order and gives its factors
+  bit for bit.  bfloat16 on this route raises (ROADMAP A12).
+* ``dense``  -- the three-matmul step of ``ops/dense.py`` in the run's
+  dtype (f64 DGEMM on the card), then ``recommend``.
+* ``coo`` and any mesh raise ``NotImplementedError`` naming the ROADMAP
+  item that ports them.  Nothing falls back to another route.
 """
 
 from __future__ import annotations
@@ -29,8 +36,8 @@ import torch
 from recsys_tpu_torch import convert
 from recsys_tpu_torch.config import ProblemSpec, RunConfig
 from recsys_tpu_torch.models.mf import MFState, init_factors
-from recsys_tpu_torch.ops import dense_fused, dense_stream, dense_tiled, topk
-from recsys_tpu_torch.ops.bell_host import bell_slot_ratio
+from recsys_tpu_torch.ops import bell, dense, dense_fused, dense_stream, dense_tiled, topk
+from recsys_tpu_torch.ops.bell import bell_slot_ratio
 from recsys_tpu_torch.utils.timing import phase
 
 # Decision constants, unchanged from the JAX engine (trainer.py:62-94).
@@ -59,10 +66,11 @@ _ITEMSIZE = {"float32": 4, "float64": 8, "bfloat16": 2}
 
 # Where each route that is not ported yet is queued.
 _NOT_PORTED = {
-    "dense": "A4 (ops/dense.py, exact f64)",
-    "bell": "A4 (ops/bell.py, exact f64)",
     "coo": "A7 (ops/coo.py)",
 }
+# Host (numpy) and device dtypes of the bell and dense routes.
+_NP_DTYPE = {"float32": np.float32, "float64": np.float64}
+_TORCH_DTYPE = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
 
 
 def _host_serial_ok(spec: ProblemSpec) -> bool:
@@ -268,7 +276,7 @@ def _check_device(device) -> torch.device:
 
 def _dense_route_ok(spec: ProblemSpec, cfg: RunConfig) -> None:
     if cfg.dtype == "float64":
-        raise ValueError("the fused dense route computes in float32; exact float64 is the BELL route (ROADMAP A4)")
+        raise ValueError("the fused dense route computes in float32; exact float64 takes the bell or dense route")
     if not dense_fused.mask_is_implicit(spec):
         raise ValueError("pallas path requires all ratings non-zero (implicit mask)")
 
@@ -279,6 +287,59 @@ def _refuse(path: str) -> None:
     raise ValueError(f"unknown path {path!r}")
 
 
+def _factorize_bell_device(spec: ProblemSpec, cfg: RunConfig, device, state: MFState | None = None) -> MFState:
+    """BELL training with the result left on ``device`` in original row
+    order (trainer.py:367-406): ``prep`` builds the tables, the glibc
+    init and the degree-permuted factors with their zero rows; ``upload``
+    copies them to the device; ``train`` runs ``bell.bell_train``; the
+    un-permute is a device ``index_select`` (exact).  The init is always
+    the host one, which is exact: the JAX engine's on-device init above
+    ``DEVICE_INIT_MIN_DRAWS`` is ROADMAP A8."""
+    if cfg.dtype not in _NP_DTYPE:
+        raise NotImplementedError(f"the bell route computes in float32 or float64; {cfg.dtype} on it is "
+                                  "not ported yet (ROADMAP A12)")
+    dt = _NP_DTYPE[cfg.dtype]
+    with phase("prep"):
+        data = bell.make_bell_inputs(spec, dtype=dt)
+        if state is None:
+            state = init_factors(spec.users, spec.items, spec.features)
+        Lp0, Rp0 = bell.pad_factors_for_bell(state, data, dt)
+    with phase("upload") as psync:
+        L0, R0 = torch.from_numpy(Lp0).to(device), torch.from_numpy(Rp0).to(device)
+        tables = bell.device_tables(data.tables, device)
+        psync((L0, R0, *tables))
+    del Lp0, Rp0, state
+    with phase("train") as psync:
+        Lp, Rp = bell.bell_train(L0, R0, tables, 2.0 * spec.alpha, data.meta, spec.iters, donate=True)
+        psync((Lp, Rp))
+    del L0, R0, tables
+    L = Lp.index_select(0, torch.from_numpy(data.inv_user_perm).to(device=device, dtype=torch.int64))
+    R = Rp.index_select(0, torch.from_numpy(data.inv_item_perm).to(device=device, dtype=torch.int64))
+    return MFState(L=L, R=R)
+
+
+def _factorize_dense(spec: ProblemSpec, cfg: RunConfig, device, state: MFState | None = None) -> MFState:
+    """The ``dense`` route (trainer.py:292-311) on ``device`` in the run's
+    dtype; the factors stay there."""
+    dt = _TORCH_DTYPE[cfg.dtype]
+    with phase("prep"):
+        if state is None:
+            state = init_factors(spec.users, spec.items, spec.features)
+        A, M = dense.make_dense_inputs(spec, dtype=np.float64 if dt == torch.float64 else np.float32)
+    with phase("upload") as psync:
+        L0, R0 = (torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt) for x in state)
+        A, M = (torch.from_numpy(x).to(device=device, dtype=dt) for x in (A, M))
+        psync((L0, R0, A, M))
+    with phase("train") as psync:
+        L, R = dense.dense_train(L0, R0, A, M, 2.0 * spec.alpha, spec.iters)
+        psync((L, R))
+    return MFState(L=L, R=R)
+
+
+def _host_state(state: MFState) -> MFState:
+    return MFState(*(np.ascontiguousarray(x.cpu().numpy()) for x in state))
+
+
 def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", state: MFState | None = None, *,
               a_max_bytes: int = RESIDENT_A_MAX_BYTES, tiled: bool = False) -> MFState:
     """The full GD loop on ``device`` from ``state`` (default: the glibc
@@ -287,9 +348,10 @@ def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", st
     The ``host`` route runs the native f64 trajectory; the ``pallas`` route
     runs the plan's training kernel, B2 ``resident_train``, B3
     ``stream_train`` or B5 ``tiled_deltas``, and returns f32 factors at
-    their true shapes.  The other routes raise ``NotImplementedError``
-    naming their ROADMAP item.  ``a_max_bytes`` and ``tiled`` force a plan
-    kind, as in ``run``.
+    their true shapes; the ``bell`` and ``dense`` routes return factors in
+    the run's dtype.  ``coo`` raises ``NotImplementedError`` naming its
+    ROADMAP item.  ``a_max_bytes`` and ``tiled`` force a plan kind, as in
+    ``run``.
     """
     device = _check_device(device)
     if cfg.mesh_shape is not None:
@@ -297,6 +359,10 @@ def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", st
     path = choose_path(spec, cfg, device)
     if path == "host":
         return _factorize_host_serial(spec, state)
+    if path == "bell":
+        return _host_state(_factorize_bell_device(spec, cfg, device, state))
+    if path == "dense":
+        return _host_state(_factorize_dense(spec, cfg, device, state))
     if path != "pallas":
         _refuse(path)
     _dense_route_ok(spec, cfg)
@@ -346,8 +412,8 @@ def run(spec: ProblemSpec, cfg: RunConfig, device, *, a_max_bytes: int = RESIDEN
     """Factorize + recommend on ``device``; returns (stdout payload, top1).
     ``a_max_bytes`` moves the plan's resident/stream line and ``tiled``
     forces the tiled kind (tests and ``chip_smoke.py`` force each kind with
-    them).  On the tiled kind the trained factors stay on the device for
-    ``recommend`` (trainer.py:765-767)."""
+    them).  On the tiled kind and the bell and dense routes the trained
+    factors stay on the device for ``recommend`` (trainer.py:763-767)."""
     from recsys_tpu_torch.io.writers import format_recommendations
 
     device = _check_device(device)
@@ -361,6 +427,11 @@ def run(spec: ProblemSpec, cfg: RunConfig, device, *, a_max_bytes: int = RESIDEN
             state = _factorize_host_serial(spec)
         with phase("top1"):
             top1 = top1_numpy(np.asarray(state.L), np.asarray(state.R), spec)
+        return format_recommendations(top1, spec.rated_counts(), spec.items), top1
+    if path in ("bell", "dense"):
+        state = (_factorize_bell_device if path == "bell" else _factorize_dense)(spec, cfg, device)
+        with phase("top1"):
+            top1 = recommend(state, spec, cfg, device)
         return format_recommendations(top1, spec.rated_counts(), spec.items), top1
     if path != "pallas":
         _refuse(path)

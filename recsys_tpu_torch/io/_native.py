@@ -124,6 +124,17 @@ def _load():
                 *([ctypes.c_long] * 4),
                 *([ctypes.c_void_p] * 7),
             ]
+            lib.rs_bell_side.restype = ctypes.c_long
+            lib.rs_bell_side.argtypes = [
+                ctypes.c_long,                 # nnz
+                *([ctypes.c_void_p] * 5),      # own, other, vals, inv_own, inv_other
+                *([ctypes.c_long] * 4),        # dim, other_dim, total, nb
+                *([ctypes.c_void_p] * 3),      # b0, b1, base
+                ctypes.c_void_p,               # cols_flat
+                ctypes.c_void_p,               # vals_flat
+                ctypes.c_int,                  # vals_f64
+                *([ctypes.c_void_p] * 2),      # slot_next, bkt_of
+            ]
             _lib = lib
         except Exception:
             _failed = True
@@ -248,6 +259,51 @@ def serial_gd(spec, L: np.ndarray, R: np.ndarray):
         Rs.ctypes.data,
     )
     return L, R
+
+
+def bell_side_tables(own, other, vals, inv_own, inv_other, other_dim, bounds, dtype):
+    """One BELL side's flat (cols, vals) tables in a single native pass
+    -- bit-identical to the numpy builder (ops/bell.py::_side_tables
+    fallback).  ``bounds``: ((b0, b1, w), ...) bucket tuples.  Returns
+    (cols_flat int32[S], vals_flat dtype[S]) or None to fall back
+    (no toolchain, or a dtype the C side does not handle -- bf16)."""
+    lib = _load()
+    if lib is None:
+        return None
+    dt = np.dtype(dtype)
+    if dt not in (np.dtype(np.float32), np.dtype(np.float64)):
+        return None  # bf16 tables keep the numpy path
+    from recsys_tpu_torch.utils.hostmem import hugepage_empty
+
+    nb = len(bounds)
+    b0 = np.ascontiguousarray([b[0] for b in bounds], np.int64)
+    b1 = np.ascontiguousarray([b[1] for b in bounds], np.int64)
+    sizes = [int(w * (hi - lo)) for (lo, hi, w) in bounds]
+    base = np.ascontiguousarray(np.concatenate([[0], np.cumsum(sizes)[:-1]]) if nb else [], np.int64)
+    total = int(sum(sizes))
+    dim = len(inv_own)
+    own = np.ascontiguousarray(own, np.int32)
+    other = np.ascontiguousarray(other, np.int32)
+    vals = np.ascontiguousarray(vals, np.float64)
+    inv_own = np.ascontiguousarray(inv_own, np.int32)
+    inv_other = np.ascontiguousarray(inv_other, np.int32)
+    cols_flat = hugepage_empty(total, np.int32)
+    vals_flat = hugepage_empty(total, dt)
+    slot_next = np.zeros(dim, np.int32)
+    bkt_of = np.empty(dim, np.int32)
+    rc = lib.rs_bell_side(
+        len(own),
+        own.ctypes.data, other.ctypes.data, vals.ctypes.data,
+        inv_own.ctypes.data, inv_other.ctypes.data,
+        dim, int(other_dim), total, nb,
+        b0.ctypes.data, b1.ctypes.data, base.ctypes.data,
+        cols_flat.ctypes.data, vals_flat.ctypes.data,
+        1 if dt == np.dtype(np.float64) else 0,
+        slot_next.ctypes.data, bkt_of.ctypes.data,
+    )
+    if rc != 0:
+        return None
+    return cols_flat, vals_flat
 
 
 def format_entries(rows, cols, vals) -> bytes | None:

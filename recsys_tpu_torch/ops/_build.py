@@ -84,7 +84,7 @@ def build() -> str:
     return so
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong, ctypes.c_double
 # Each C entry point's arguments (csrc/*.cu); pointers and the stream are
 # c_void_p, or ctypes would pass them as 32-bit ints.
 SIGNATURES = {
@@ -106,6 +106,12 @@ SIGNATURES = {
     "rs_stream_train_top1": [_P, _I, *[_P] * 11, *[_I] * 6, _F, *[_I] * 6, _P],
     # A, At, a_kind, L, R, dL, dR, part, U, I, K, precision, chunk, S, stream
     "rs_tiled_deltas": [_P, _P, _I, *[_P] * 5, *[_I] * 6, _P],
+    # own, other, out, idx, vals, buckets, nb, warps, k, pad, alpha2, f64, stream
+    "rs_bell_side_update": [*[_P] * 6, _I, _LL, _I, _I, _D, _I, _P],
+    # table, idx, out, S, K, stream
+    "rs_gather_rows": [_P, _P, _P, _LL, _I, _P],
+    # table, idx, vals, out, S, K, blk, stream
+    "rs_gather_err_grad": [*[_P] * 4, _LL, _I, _I, _P],
 }
 
 

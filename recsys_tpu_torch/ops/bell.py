@@ -1,0 +1,491 @@
+"""BELL, the degree-bucketed sparse GD step: the port of
+``recsys_tpu/ops/bell.py``, the route of every exact-f64 run on a device
+and of the speed dtypes past the dense budgets.
+
+Users (and, independently, items) are permuted by descending entry count
+and grouped into contiguous buckets of one padded width.  Each side keeps
+one flat table of the opposite side's permuted row index per slot and one
+of values, the concatenation of every bucket's row-major (w, n) table.
+Padding slots index the opposite side's zero row, appended last to each
+factor table, and carry value 0.  Host builders, ported as they are:
+``_degree_perm`` :190, ``_side_tables`` :199 (the native builder first,
+then its numpy form), ``make_bell_inputs`` :265, ``bell_side_slots`` :301,
+``bell_slot_ratio`` :325, ``pad_factors_for_bell`` :859 and
+``unpermute_factors`` :874.  Here the value tables stay flat; the JAX
+package keeps per-bucket (w, n) views of the same bytes.
+
+The step, ``bell_gd_step`` (:628), updates each side from the same
+snapshot (L, R) (``matFact.c:38-39``).  The JAX function sums the
+gradient over a row's slots and then adds it; this port follows the
+reference instead: for every slot of an own row j, in file order,
+
+    e = 2a * (v - <F_own[j], F_other[c]>)     (dot summed f = 0..k-1)
+    F_own'[j] += e * F_other[c]               (into the row, slot by slot)
+
+with every product and sum rounded on its own, which is ``rs_serial_gd``'s
+order (``csrc/recsys_native.c``).  In f64 the factors are therefore bit
+for bit those of the reference binary.  The side update is the fused
+gather, error and update of the TPU probe kernel ``p4_kernel``
+(``scripts/probe_mosaic_gather.py:139``), hand-written in CUDA
+(``csrc/bell.cu``) behind ``bell_side_update``; ``bell_side_update_plain``
+is its plain torch twin.  The wrapper picks by the tensors' device: the
+twin for CPU tensors, the kernel for CUDA tensors, and an error for
+anything the kernel does not take -- never a fallback.  f32 and f64 are
+the kernel's types.
+
+Not ported: the TPU gather-engine and XLA-fusion workarounds (the chunk
+grain ``CHUNK_*``/``_chunk_grain`` :385-409 with its ``WIDE_F64_*`` fault
+cap, ``REGATHER_FOR_GRADIENT`` :435, the 3xf32 split gather
+``SPLIT_GATHER_F64`` :478-530); the sharded BELL (:653-857) waits for
+ROADMAP A9.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from recsys_tpu_torch.ops import _build
+from recsys_tpu_torch.ops.dense_fused import _kernel_device, _ptrs
+from recsys_tpu_torch.ops.dense_stream import _stream
+
+# Widest k the kernel takes: a warp holds a factor row, at most 32 values
+# a lane (csrc/bell.cu, KPL).
+MAX_K = 1024
+
+
+class BellSide(NamedTuple):
+    """Static metadata for one side's buckets."""
+
+    bounds: tuple[tuple[int, int, int], ...]  # (start, stop, width) per bucket
+    n_nz: int  # rows with >= 1 entry (all updates land in [0, n_nz))
+    size: int  # true dimension (users or items)
+
+
+class BellMeta(NamedTuple):
+    user: BellSide
+    item: BellSide
+    features: int
+    nnz: int
+    slots: int  # total padded slots, both sides
+
+
+class BellTables(NamedTuple):
+    """Flat per-side tables (numpy on the host, tensors on a device):
+    opposite-side row index per slot in permuted space (padding: the zero
+    row, index = opposite size) and rating per slot (padding: 0)."""
+
+    ucols: object  # int32 (S_u,)
+    uvals: object  # dtype (S_u,)
+    irows: object  # int32 (S_i,)
+    ivals: object  # dtype (S_i,)
+
+
+class BellData(NamedTuple):
+    meta: BellMeta
+    tables: BellTables
+    user_perm: np.ndarray  # original user id at permuted position p
+    item_perm: np.ndarray
+    inv_user_perm: np.ndarray  # permuted position of original user u
+    inv_item_perm: np.ndarray
+
+
+# Bucketing rules, unchanged from the JAX module (:106-129).
+MIN_BUCKET_ROWS = 64
+SMALL_SIDE_ENTRIES = 90_000
+SMALL_MIN_BUCKET_ROWS = 128
+SMALL_SLOT_GUARD = 1.5
+
+
+def _guarded_buckets(counts_sorted: np.ndarray, min_rows: int) -> list[tuple[int, int, int]]:
+    """Half-width-guarded buckets (large sides)."""
+    out: list[tuple[int, int, int]] = []
+    n = len(counts_sorted)
+    start = 0
+    while start < n and counts_sorted[start] > 0:
+        w = int(counts_sorted[start])
+        stop = int(np.searchsorted(-counts_sorted, -w, side="right"))
+        # Merge narrow runs in, but never into rows less than half the
+        # bucket width: a lone hub row must not pad a long tail.
+        while stop - start < min_rows and stop < n and counts_sorted[stop] * 2 >= w:
+            nxt = int(counts_sorted[stop])
+            stop = int(np.searchsorted(-counts_sorted, -nxt, side="right"))
+        out.append((start, stop, w))
+        start = stop
+    return out
+
+
+def _rows_merged_buckets(counts_sorted: np.ndarray, min_rows: int) -> list[tuple[int, int, int]]:
+    """Merge-by-rows buckets (small sides): absorb runs until ``min_rows``
+    rows, then only rows of the bucket's own width."""
+    out: list[tuple[int, int, int]] = []
+    n = len(counts_sorted)
+    start = 0
+    while start < n and counts_sorted[start] > 0:
+        w = int(counts_sorted[start])
+        stop = start
+        while stop < n and counts_sorted[stop] > 0 and (
+            stop - start < min_rows or int(counts_sorted[stop]) == w
+        ):
+            stop += 1
+        out.append((start, stop, w))
+        start = stop
+    return out
+
+
+def _degree_buckets(counts_sorted: np.ndarray, min_rows: int = MIN_BUCKET_ROWS) -> list[tuple[int, int, int]]:
+    """Contiguous (start, stop, width) buckets over a non-increasing degree
+    sequence: merge-by-rows on small sides (slot-guarded), half-width
+    guarded everywhere else."""
+    if int(counts_sorted.sum()) <= SMALL_SIDE_ENTRIES:
+        merged = _rows_merged_buckets(counts_sorted, SMALL_MIN_BUCKET_ROWS)
+        guarded = _guarded_buckets(counts_sorted, min_rows)
+        slots = lambda bs: sum(w * (b1 - b0) for (b0, b1, w) in bs)  # noqa: E731
+        if slots(merged) <= SMALL_SLOT_GUARD * slots(guarded):
+            return merged
+        return guarded
+    return _guarded_buckets(counts_sorted, min_rows)
+
+
+def _degree_perm(coords: np.ndarray, dim: int):
+    """(counts, perm, inv): stable sort of 0..dim-1 by descending entry count."""
+    counts = np.bincount(coords, minlength=dim)
+    perm = np.argsort(-counts, kind="stable").astype(np.int32)
+    inv = np.empty(dim, np.int32)
+    inv[perm] = np.arange(dim, dtype=np.int32)
+    return counts, perm, inv
+
+
+def _side_tables(counts: np.ndarray, perm: np.ndarray, inv: np.ndarray,
+                 other_dim: int, own: np.ndarray, other: np.ndarray,
+                 vals: np.ndarray, inv_other: np.ndarray, dtype):
+    """One side's (bounds, n_nz, flat cols, flat vals).
+
+    ``own`` are this side's entry coordinates (grouping key), ``other``
+    the opposite coordinates (mapped through ``inv_other`` into permuted
+    space; padding slots get index ``other_dim``, the zero row).  The
+    native single-pass builder first; the numpy form where it returns
+    None (no toolchain)."""
+    from recsys_tpu_torch.io import _native
+
+    bounds = _degree_buckets(counts[perm])
+    n_nz = bounds[-1][1] if bounds else 0
+    nat = _native.bell_side_tables(own, other, vals, inv, inv_other, other_dim, bounds, dtype)
+    if nat is not None:
+        return tuple(bounds), n_nz, nat[0], nat[1]
+    return (tuple(bounds), n_nz, *_side_tables_numpy(counts, perm, inv, other_dim, own, other, vals,
+                                                       inv_other, dtype, bounds))
+
+
+def _side_tables_numpy(counts, perm, inv, other_dim, own, other, vals, inv_other, dtype, bounds):
+    """The numpy form of the side builder (bell.py:231-262): entries sorted
+    by (permuted own, file order) -- the sort is stable over a row-major
+    stream, so a row's slots keep the file's order."""
+    from recsys_tpu_torch.utils.hostmem import hugepage_empty, hugepage_zeros
+
+    own_p = inv[own]
+    order = np.argsort(own_p, kind="stable")
+    own_s = own_p[order]
+    other_s = inv_other[other[order]]
+    vals_s = vals[order]
+    starts = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(counts[perm], out=starts[1:])
+    slot = np.arange(len(own_s), dtype=np.int64) - starts[own_s]
+    cols_t, vals_t = [], []
+    for (b0, b1, w) in bounds:
+        nb = b1 - b0
+        ct = hugepage_empty((w, nb), np.int32)
+        ct[...] = other_dim  # pad -> zero row
+        vt = hugepage_zeros((w, nb), dtype)
+        sel = (own_s >= b0) & (own_s < b1)
+        ct[slot[sel], own_s[sel] - b0] = other_s[sel]
+        vt[slot[sel], own_s[sel] - b0] = vals_s[sel].astype(dtype)
+        cols_t.append(ct.reshape(-1))
+        vals_t.append(vt.reshape(-1))
+    if not cols_t:
+        return np.zeros(0, np.int32), np.zeros(0, dtype)
+    return np.concatenate(cols_t), np.concatenate(vals_t)
+
+
+def require_row_major(spec) -> None:
+    """Entries strictly increasing in (row, col): the .in format invariant
+    the builders rely on (a copy of ``recsys_tpu/ops/coo.py:30``)."""
+    key = spec.rows.astype(np.int64) * spec.items + spec.cols
+    if key.size > 1 and not bool(np.all(np.diff(key) > 0)):
+        raise ValueError(
+            "entries must be row-major sorted with unique (row, col) cells "
+            "(the .in format invariant, reference util.c:29-34)"
+        )
+
+
+def make_bell_inputs(spec, dtype=np.float32) -> BellData:
+    """Host BELL tables of ``spec`` in ``dtype`` (numpy float32/float64)."""
+    require_row_major(spec)
+    ucounts, uperm, uinv = _degree_perm(spec.rows, spec.users)
+    icounts, iperm, iinv = _degree_perm(spec.cols, spec.items)
+    ubounds, u_nz, ucols, uvals = _side_tables(
+        ucounts, uperm, uinv, spec.items, spec.rows, spec.cols, spec.vals, iinv, dtype
+    )
+    ibounds, i_nz, irows, ivals = _side_tables(
+        icounts, iperm, iinv, spec.users, spec.cols, spec.rows, spec.vals, uinv, dtype
+    )
+    slots = sum(w * (b1 - b0) for (b0, b1, w) in ubounds + ibounds)
+    meta = BellMeta(
+        user=BellSide(bounds=ubounds, n_nz=u_nz, size=spec.users),
+        item=BellSide(bounds=ibounds, n_nz=i_nz, size=spec.items),
+        features=spec.features,
+        nnz=spec.nnz,
+        slots=slots,
+    )
+    return BellData(meta=meta, tables=BellTables(ucols, uvals, irows, ivals),
+                    user_perm=uperm, item_perm=iperm, inv_user_perm=uinv, inv_item_perm=iinv)
+
+
+def bell_side_slots(spec) -> tuple[int, int]:
+    """(user-side, item-side) padded slot counts of the BELL format."""
+    sides = []
+    for coords, dim in ((spec.rows, spec.users), (spec.cols, spec.items)):
+        sc = np.sort(np.bincount(coords, minlength=dim))[::-1]
+        sides.append(sum(w * (b1 - b0) for (b0, b1, w) in _degree_buckets(sc)))
+    return int(sides[0]), int(sides[1])
+
+
+def bell_slot_ratio(spec) -> float:
+    """Padded-slot overhead of the BELL format (1.0 = no padding)."""
+    if spec.nnz == 0:
+        return float("inf")
+    su, si = bell_side_slots(spec)
+    return (su + si) / (2.0 * spec.nnz)
+
+
+def pad_factors_for_bell(state, data: BellData, dtype):
+    """Host-side: permute the factors into degree order and append the
+    zero padding row each side's gathers use (numpy arrays in ``dtype``).
+    The permute is a CPU ``index_select`` on all cores; at gen-inst1e6's
+    1M x 700 it is several times faster than the JAX module's chunked
+    numpy take (PERF.md)."""
+    tdtype = torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
+
+    def permuted(F, perm):
+        src = torch.from_numpy(np.ascontiguousarray(F)).to(tdtype)  # the cast rounds each value, as numpy's
+        out = torch.empty((len(perm) + 1, src.shape[1]), dtype=tdtype)
+        out[-1] = 0
+        torch.index_select(src, 0, torch.from_numpy(perm.astype(np.int64)), out=out[:-1])
+        return out.numpy()
+
+    return permuted(state.L, data.user_perm), permuted(state.R, data.item_perm)
+
+
+def unpermute_factors(L, R, data: BellData):
+    """Back to original row order, dropping the padding rows (numpy)."""
+    return (
+        np.asarray(L)[:-1][data.inv_user_perm],
+        np.asarray(R)[:-1][data.inv_item_perm],
+    )
+
+
+def device_tables(tables: BellTables, device) -> BellTables:
+    """The host tables as tensors on ``device``."""
+    return BellTables(*(torch.from_numpy(np.ascontiguousarray(t)).to(device) for t in tables))
+
+
+# ---------------------------------------------------------------------
+# The plain twin
+# ---------------------------------------------------------------------
+
+
+def _twin_buckets(cols, vals, side: BellSide, pad: int):
+    """Per bucket: (b0, b1, w, idx (w, n) int64, vals (w, n), live (w, n, 1)
+    bool, False on padding slots), from a side's flat tables; ``pad`` is
+    the opposite zero row's index."""
+    out, off = [], 0
+    for (b0, b1, w) in side.bounds:
+        n = b1 - b0
+        idx = cols[off:off + w * n].reshape(w, n).long()
+        out.append((b0, b1, w, idx, vals[off:off + w * n].reshape(w, n), (idx != pad).unsqueeze(-1)))
+        off += w * n
+    return out
+
+
+def _bucket_terms(F_own, F_other, bucket, a2):
+    """(own rows (n, k), terms (w, n, k)) of one bucket: term [s, j] is
+    ``e * F_other[c]`` of row j's slot s, and -0.0 on a padding slot
+    (x + (-0.0) is x for every x, so it leaves a row as it is: the kernel
+    skips it).  The terms are computed in the gathered rows' buffer, so a
+    bucket holds at most two (w, n, k) tensors at once."""
+    b0, b1, w, idx, v, live = bucket
+    fo = F_own[b0:b1]
+    g = F_other[idx]  # (w, n, k)
+    prod = fo * g  # every product rounded on its own
+    dot = torch.zeros(idx.shape, dtype=F_own.dtype, device=F_own.device)
+    for f in range(F_own.shape[1]):  # the dot in order f = 0..k-1
+        dot = dot + prod[:, :, f]
+    del prod
+    e = a2 * (v - dot)
+    return fo, g.mul_(e.unsqueeze(-1)).masked_fill_(~live, -0.0)
+
+
+def _side_plain(F_own, F_other, buckets, alpha2):
+    """Twin of one side's update over prepared buckets (see
+    ``bell_side_update_plain``)."""
+    a2 = torch.tensor(alpha2, dtype=F_own.dtype, device=F_own.device)
+    out = F_own.clone()
+    for bucket in buckets:
+        acc, terms = _bucket_terms(F_own, F_other, bucket, a2)
+        for s in range(bucket[2]):  # slots in file order, each added into the row
+            acc = acc + terms[s]
+        out[bucket[0]:bucket[1]] = acc
+    return out
+
+
+def bell_side_update_plain(F_own, F_other, cols, vals, side: BellSide, alpha2: float):
+    """Plain torch twin of ``bell_side_update``: one side's new factor
+    table, vectorised over the slots of a bucket for the dot (k steps on
+    (w, n) tensors) and over its rows for the accumulation (w steps on
+    (n, k)).  Separate multiplies and adds, so no contraction; padding
+    slots leave the row as it is."""
+    return _side_plain(F_own, F_other, _twin_buckets(cols, vals, side, F_other.shape[0] - 1), alpha2)
+
+
+def bell_gd_step_plain(L, R, tables: BellTables, alpha2: float, meta: BellMeta):
+    """Twin of ``bell_gd_step``: both sides from the snapshot (L, R)."""
+    return (bell_side_update_plain(L, R, tables.ucols, tables.uvals, meta.user, alpha2),
+            bell_side_update_plain(R, L, tables.irows, tables.ivals, meta.item, alpha2))
+
+
+def bell_train_plain(L, R, tables: BellTables, alpha2: float, meta: BellMeta, iters: int):
+    """``iters`` twin steps, the buckets prepared once."""
+    ub = _twin_buckets(tables.ucols, tables.uvals, meta.user, meta.item.size)
+    ib = _twin_buckets(tables.irows, tables.ivals, meta.item, meta.user.size)
+    for _ in range(iters):
+        L, R = _side_plain(L, R, ub, alpha2), _side_plain(R, L, ib, alpha2)
+    return L, R
+
+
+# ---------------------------------------------------------------------
+# The kernel
+# ---------------------------------------------------------------------
+
+
+def side_warps(side: BellSide) -> tuple[np.ndarray, int]:
+    """The kernel's bucket descriptors, int64 (nb, 6) rows of (flat base,
+    first warp, b0, n, w, rows per warp), and its warp count.  A warp takes
+    one row of a bucket at least 32 wide, else as many rows as fit 32 of
+    their slots (csrc/bell.cu)."""
+    rows, base, warp0 = [], 0, 0
+    for (b0, b1, w) in side.bounds:
+        n = b1 - b0
+        rpw = max(1, 32 // w)
+        rows.append((base, warp0, b0, n, w, rpw))
+        base += w * n
+        warp0 += -(-n // rpw)
+    return np.array(rows, np.int64).reshape(-1, 6), warp0
+
+
+def _side_desc(side: BellSide, dev):
+    """``side_warps`` with the descriptors on ``dev``."""
+    desc, warps = side_warps(side)
+    return torch.from_numpy(desc).to(dev), warps
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+
+
+def _check(F_own, F_other, cols, vals, side: BellSide):
+    if F_own.dim() != 2 or F_other.dim() != 2 or cols.dim() != 1 or vals.dim() != 1:
+        raise ValueError("factor tables must be 2-D and the side tables flat")
+    k = F_own.shape[1]
+    slots = sum(w * (b1 - b0) for (b0, b1, w) in side.bounds)
+    if F_own.shape[0] != side.size + 1 or F_other.shape[1] != k or cols.shape[0] != slots \
+            or vals.shape[0] != slots:
+        raise ValueError(f"shapes own {tuple(F_own.shape)}, other {tuple(F_other.shape)}, tables "
+                         f"{tuple(cols.shape)}/{tuple(vals.shape)} disagree with the side ({side.size} rows, "
+                         f"{slots} slots)")
+    if F_own.dtype not in _DTYPE_CODE or F_other.dtype != F_own.dtype or vals.dtype != F_own.dtype:
+        raise ValueError(f"dtypes own {F_own.dtype}, other {F_other.dtype}, vals {vals.dtype}: the kernel "
+                         "takes float32 or float64, all alike")
+    if cols.dtype != torch.int32:
+        raise ValueError(f"cols must be int32, got {cols.dtype}")
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"k={k} outside the kernel's 1..{MAX_K}")
+    if not all(t.is_contiguous() for t in (F_own, F_other, cols, vals)):
+        raise ValueError("tables must be contiguous")
+    if not (F_own.device == F_other.device == cols.device == vals.device):
+        raise ValueError("tables must be on one device")
+
+
+def bell_side_update(F_own, F_other, cols, vals, side: BellSide, alpha2: float, *, out=None):
+    """One side of a BELL step: every row of ``side`` with at least one
+    entry updated from the snapshot (``F_own``, ``F_other``), slot by slot
+    in file order (see the module docstring).  ``F_own`` is (size + 1, k),
+    ``F_other`` (other size + 1, k), zero rows last; ``cols``/``vals`` the
+    side's flat tables.  Returns the new table: ``out`` when given (its rows
+    from ``side.n_nz`` on must already hold ``F_own``'s), else a copy of
+    ``F_own`` updated.  CPU tensors go to the plain twin; CUDA tensors to
+    the kernel, which counts each launch in ``.launches``."""
+    _check(F_own, F_other, cols, vals, side)
+    if out is not None and (out.shape != F_own.shape or out.dtype != F_own.dtype or out.device != F_own.device
+                            or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous table like F_own")
+    if out is not None and out.data_ptr() in (F_own.data_ptr(), F_other.data_ptr()):
+        raise ValueError("out must not be F_own or F_other: both are the step's snapshot")
+    if F_own.device.type == "cpu":
+        new = bell_side_update_plain(F_own, F_other, cols, vals, side, alpha2)
+        return new if out is None else out.copy_(new)
+    dev = _kernel_device(F_own)
+    return _launch(F_own, F_other, cols, vals, alpha2, F_own.clone() if out is None else out,
+                   _side_desc(side, dev))
+
+
+bell_side_update.launches = 0
+
+
+def _launch(F_own, F_other, cols, vals, alpha2, out, desc):
+    """One ``rs_bell_side_update`` launch into ``out`` over the side's
+    descriptors ``desc`` (``_side_desc``), on tensors already checked;
+    counted in ``bell_side_update.launches``."""
+    desc, warps = desc
+    if warps:
+        dev = out.device
+        with torch.cuda.device(dev):
+            rc = _build.load().rs_bell_side_update(
+                *_ptrs(F_own, F_other, out, cols, vals, desc), desc.shape[0], warps, F_own.shape[1],
+                F_other.shape[0] - 1, float(alpha2), _DTYPE_CODE[F_own.dtype], _stream(dev),
+            )
+        if rc != 0:
+            raise RuntimeError(f"rs_bell_side_update failed: CUDA error {rc}")
+        bell_side_update.launches += 1
+    return out
+
+
+def bell_gd_step(L, R, tables: BellTables, alpha2: float, meta: BellMeta):
+    """One full-batch GD step in BELL form (``bell.py:628``): L (users + 1,
+    k) and R (items + 1, k) in degree-permuted order with the zero row
+    last; returns new (L, R), both sides from the snapshot (L, R), the
+    zero rows and zero-degree rows untouched.  Two ``bell_side_update``
+    launches on a CUDA device."""
+    return (bell_side_update(L, R, tables.ucols, tables.uvals, meta.user, alpha2),
+            bell_side_update(R, L, tables.irows, tables.ivals, meta.item, alpha2))
+
+
+def bell_train(L, R, tables: BellTables, alpha2: float, meta: BellMeta, iters: int, *, donate: bool = False):
+    """``iters`` BELL steps (``trainer._train_bell``).  On a CUDA device
+    the steps alternate between two buffers per side, so rows that never
+    change need no copy per step: with ``donate`` the input tensors are one
+    of them and are overwritten, else both are copies and the inputs are
+    left as they are.  CPU tensors run ``bell_train_plain``."""
+    _check(L, R, tables.ucols, tables.uvals, meta.user)
+    _check(R, L, tables.irows, tables.ivals, meta.item)
+    if L.device.type == "cpu":
+        return bell_train_plain(L, R, tables, alpha2, meta, iters)
+    dev = _kernel_device(L)
+    udesc, idesc = _side_desc(meta.user, dev), _side_desc(meta.item, dev)
+    bufs_l = [L.clone(), L] if donate else [L.clone() for _ in range(min(iters, 2))]
+    bufs_r = [R.clone(), R] if donate else [R.clone() for _ in range(min(iters, 2))]
+    for it in range(iters):
+        nl, nr = bufs_l[it % 2], bufs_r[it % 2]
+        L, R = (_launch(L, R, tables.ucols, tables.uvals, alpha2, nl, udesc),
+                _launch(R, L, tables.irows, tables.ivals, alpha2, nr, idesc))
+    return L, R

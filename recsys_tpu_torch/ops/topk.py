@@ -5,8 +5,9 @@ JAX module is XLA code with no Pallas kernel): ``top1_blocked`` :23,
 :128 and ``make_mask_blocks`` :147.
 
 A loop over item blocks keeps a running (best value, best index) per user,
-reconstructing one (users x block) tile of B per step with a matmul (true
-f32 on a CUDA device: TF32 is off for the call).  Tie-break as the
+reconstructing one (users x block) tile of B per step with a matmul in the
+factors' dtype: true f32 on a CUDA device (TF32 is off for the call), or
+a DGEMM for the f64 factors of the ``bell`` and ``dense`` routes.  Tie-break as the
 reference's strictly-greater scan: a new block's value must exceed the
 incumbent, and within a block ``torch.argmax`` picks the first maximum, so
 the lowest item index wins.

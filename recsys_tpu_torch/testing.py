@@ -24,6 +24,9 @@ and the controls (kernel in one mode, twin in another), with room on
 both sides.  A control stands for a kernel that skips the bf16 rounding
 of ``default`` or the split of ``bf16x3``, or drops ``highest`` to split
 products, and must exceed the limit.
+
+The BELL kernel has no limit: it equals its twin bit for bit, and in f64
+``_native.serial_gd``.  Its control is ``bell_sum_then_add_train``.
 """
 
 from __future__ import annotations
@@ -98,3 +101,37 @@ def tiled_probe(spec, a_dtype: torch.dtype, device, *, seed: int = 0, spread: fl
     L[:, : Lt.shape[0]] = Lt.T
     R[:, : Rt.shape[0]] = Rt.T
     return L.to(device), R.to(device), At.T.contiguous().to(device)
+
+
+# ``ops/gather.py::gather_err_grad`` against its twin at the probe's values
+# (N(0, 1) table and ratings, K = 128): max |kernel - twin| over max |twin|.
+# The two sum the K products of a slot's dot in different f32 orders.
+GATHER_ERR_GRAD_RTOL = 1e-5
+
+
+def bell_sum_then_add_train(L, R, tables, alpha2: float, meta, iters: int):
+    """The control of the bitwise BELL readings: ``bell.bell_train_plain``
+    with the JAX package's order (``recsys_tpu/ops/bell.py:556``, :639),
+    each row's change summed over its slots first and added to the row
+    once.  It computes the same sums in another order, so in f64 it must
+    differ from ``_native.serial_gd`` in at least one bit where the
+    reference order matches it."""
+    from recsys_tpu_torch.ops import bell
+
+    ub = bell._twin_buckets(tables.ucols, tables.uvals, meta.user, meta.item.size)
+    ib = bell._twin_buckets(tables.irows, tables.ivals, meta.item, meta.user.size)
+
+    def side(F_own, F_other, buckets):
+        a2 = torch.tensor(alpha2, dtype=F_own.dtype, device=F_own.device)
+        out = F_own.clone()
+        for bucket in buckets:
+            fo, terms = bell._bucket_terms(F_own, F_other, bucket, a2)
+            delta = torch.zeros_like(fo)
+            for s in range(bucket[2]):
+                delta = delta + terms[s]
+            out[bucket[0]:bucket[1]] = fo + delta
+        return out
+
+    for _ in range(iters):
+        L, R = side(L, R, ub), side(R, L, ib)
+    return L, R

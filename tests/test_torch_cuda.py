@@ -249,3 +249,99 @@ def test_run_tiled_matches_oracle_on_card(precision):
     out, _ = trainer.run(spec, RunConfig(dtype="float32", path="pallas", precision=precision), "cuda")
     assert dense_tiled.tiled_deltas.launches == before + spec.iters
     assert out == run_oracle(spec)
+
+
+def _bell_spec(k, stored_zero=False):
+    # Rows of 1 to 45 ratings: warps that take several narrow rows and
+    # warps that walk a wide row in groups of 32 slots.
+    import dataclasses
+
+    spec = generate_instance(120, 90, k, 1, 45, iters=4, alpha=1e-4, seed=k)
+    if stored_zero:
+        vals = spec.vals.copy()
+        vals[::7] = 0.0
+        spec = dataclasses.replace(spec, vals=vals)
+    return spec
+
+
+def _bell_inputs(spec, dtype, dev):
+    import numpy as np
+
+    from recsys_tpu_torch.models.mf import init_factors
+    from recsys_tpu_torch.ops import bell
+
+    data = bell.make_bell_inputs(spec, dtype)
+    L, R = bell.pad_factors_for_bell(init_factors(spec.users, spec.items, spec.features), data, dtype)
+    return data, torch.from_numpy(L).to(dev), torch.from_numpy(R).to(dev), bell.device_tables(data.tables, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("k", [10, 30, 320, 704, 1024])
+def test_bell_kernel_equals_twin_bit_for_bit(k, dtype):
+    import numpy as np
+
+    from recsys_tpu_torch.io import _native
+    from recsys_tpu_torch.ops import bell
+
+    dev = _cuda()
+    for stored_zero in (False, True):
+        spec = _bell_spec(k, stored_zero)
+        data, L, R, t = _bell_inputs(spec, getattr(np, dtype), dev)
+        a2 = 2.0 * spec.alpha
+        before = bell.bell_side_update.launches
+        got = bell.bell_train(L, R, t, a2, data.meta, spec.iters)
+        again = bell.bell_train(L, R, t, a2, data.meta, spec.iters)
+        # The route's form: the inputs are one of the two buffers a side.
+        donated = bell.bell_train(L.clone(), R.clone(), t, a2, data.meta, spec.iters, donate=True)
+        odd = bell.bell_train(L.clone(), R.clone(), t, a2, data.meta, spec.iters - 1, donate=True)
+        twin = bell.bell_train_plain(L, R, t, a2, data.meta, spec.iters)
+        twin_odd = bell.bell_train_plain(L, R, t, a2, data.meta, spec.iters - 1)
+        torch.cuda.synchronize()
+        assert bell.bell_side_update.launches == before + 8 * spec.iters - 2
+        for g, a, d, w in zip(got, again, donated, twin):
+            assert torch.equal(g, w)  # the twin's order, bit for bit
+            assert torch.equal(g, a)  # no atomics: two runs give the same bits
+            assert torch.equal(d, g)
+        assert all(torch.equal(o, w) for o, w in zip(odd, twin_odd))
+        if dtype == "float64":
+            from recsys_tpu_torch.models.mf import init_factors
+
+            st = init_factors(spec.users, spec.items, spec.features)
+            want = _native.serial_gd(spec, st.L.copy(), st.R.copy())
+            Lo, Ro = bell.unpermute_factors(got[0].cpu().numpy(), got[1].cpu().numpy(), data)
+            assert np.array_equal(Lo, want[0]) and np.array_equal(Ro, want[1])
+
+
+@pytest.mark.cuda
+def test_run_instml100k_f64_takes_bell_and_matches_golden():
+    from recsys_tpu_torch.ops import bell
+
+    _cuda()
+    spec = load_problem(str(FIXTURES / "instML100k.in"))
+    cfg = RunConfig(dtype="float64")
+    assert trainer.choose_path(spec, cfg, "cuda") == "bell"
+    before = bell.bell_side_update.launches
+    out, _ = trainer.run(spec, cfg, "cuda")
+    assert bell.bell_side_update.launches == before + 2 * spec.iters
+    assert out == (FIXTURES / "instML100k.out").read_text()
+
+
+@pytest.mark.cuda
+def test_p2_kernels_match_twins():
+    from recsys_tpu_torch.ops import gather
+    from recsys_tpu_torch.probes import mosaic_gather
+
+    dev = _cuda()
+    table, idx, vals = mosaic_gather.inputs(dev)
+    before = gather.gather_rows.launches, gather.gather_err_grad.launches
+    rows = gather.gather_rows(table, idx)
+    fused = gather.gather_err_grad(table, idx, vals, mosaic_gather.BLK)
+    torch.cuda.synchronize()
+    assert (gather.gather_rows.launches, gather.gather_err_grad.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(rows, table.index_select(0, idx.long()))
+    twin = gather.gather_err_grad_plain(table, idx, vals, mosaic_gather.BLK)
+    assert float((fused - twin).abs().max()) <= checks.GATHER_ERR_GRAD_RTOL * float(twin.abs().max())
+    # The kernel moves float4s: other widths raise, never fall back.
+    with pytest.raises(ValueError, match="K % 4"):
+        gather.gather_rows(table[:, :5].contiguous(), idx)

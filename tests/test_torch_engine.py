@@ -67,15 +67,16 @@ def test_dense_plan_instml100k():
 
 
 def test_unported_routes_raise_and_never_fall_back():
-    # Exact f64 on a sparse, non-toy shape routes to BELL (ROADMAP A4).
+    # Exact f64 on a sparse, non-toy shape routes to BELL (ported); COO
+    # and the mesh are not ported yet and raise, naming their item.
     spec = generate_instance(200, 2000, 10, 2, 5, iters=100_000, alpha=1e-4, seed=1)
     cfg = RunConfig(dtype="float64")
     assert trainer.choose_path(spec, cfg, "cpu") == "bell"
-    with pytest.raises(NotImplementedError, match="A4"):
-        trainer.run(spec, cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        trainer.run(spec, RunConfig(dtype="float64", path="coo"), "cpu")
     ml = load_problem(str(FIXTURES / "instML100k.in"))
-    with pytest.raises(NotImplementedError, match="dense"):
-        trainer.run(ml, RunConfig(dtype="float32"), "cpu")  # CPU device: the dense route
+    with pytest.raises(NotImplementedError, match="coo"):
+        trainer.run(ml, RunConfig(dtype="float32", path="coo"), "cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         trainer.run(ml, RunConfig(dtype="float32", path="pallas", mesh_shape=(2, 2)), "cpu")
     with pytest.raises(ValueError, match="float32"):
@@ -110,7 +111,7 @@ def test_cli_run_matches_oracle(spec20, tmp_path):
     assert "".join(lines[:-1]) == run_oracle(load_problem(str(path)))
 
 
-@pytest.mark.parametrize("flag", [["--path", "bell"]])
+@pytest.mark.parametrize("flag", [["--path", "coo"], ["--mesh", "2x2"]])
 def test_cli_refuses_what_is_not_ported(flag):
     # A flag the port cannot honour raises; it is never accepted and ignored.
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -131,7 +132,7 @@ def test_factorize_and_recommend_refuse_cuda_without_a_card(spec20, entry):
 
 def test_factorize_refuses_unported_routes():
     spec = generate_instance(200, 2000, 10, 2, 5, iters=100_000, alpha=1e-4, seed=1)
-    with pytest.raises(NotImplementedError, match="A4"):
-        trainer.factorize(spec, RunConfig(dtype="float64"), "cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        trainer.factorize(spec, RunConfig(dtype="float64", path="coo"), "cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         trainer.factorize(spec, RunConfig(dtype="float32", mesh_shape=(2, 2)), "cpu")

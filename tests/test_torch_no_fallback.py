@@ -22,7 +22,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 _NO_JAX = r"""
 import contextlib, io, os, sys, tempfile
 import chip_smoke
-import recsys_tpu_torch, recsys_tpu_torch.cli, recsys_tpu_torch.convert
+import recsys_tpu_torch, recsys_tpu_torch.cli, recsys_tpu_torch.convert, recsys_tpu_torch.probes.mosaic_gather
 from recsys_tpu_torch.config import RunConfig
 from recsys_tpu_torch.engine import trainer
 from recsys_tpu_torch.io.generator import generate_instance
@@ -36,6 +36,8 @@ assert out2 == out
 state = trainer.factorize(spec, RunConfig(dtype="float32", path="pallas"), "cpu")
 trainer.recommend(state, spec, RunConfig(), "cpu")
 out, _ = trainer.run(load_problem(sys.argv[1]), RunConfig(dtype="float64"), "cpu")
+assert out == open(sys.argv[2]).read()
+out, _ = trainer.run(load_problem(sys.argv[1]), RunConfig(dtype="float64", path="bell"), "cpu")
 assert out == open(sys.argv[2]).read()
 with tempfile.TemporaryDirectory() as tmp:
     save_problem(spec, os.path.join(tmp, "s.in"))
