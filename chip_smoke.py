@@ -51,11 +51,29 @@ each printed as it runs:
    (``bell``, 2 launches a step) byte for byte against its golden, with
    phases, the slope and one twin step's time; ``--path dense`` f64 once;
    inst200-10000-50-100-300 f64 through ``run()``.
+10b. the device glibc stream: equal to the host generator's words across
+    block boundaries and two calls, then ``device_init_factors`` at
+    gen-inst1e6's shape bit for bit against the host draws on a sample of
+    rows, and 2^27 draws at four block sizes; phase 11's f32 run then
+    draws its factors on the card.
 11. main path, gen-inst1e6-100-700-1-3 on the auto route (``bell``) in
    f64 (byte for byte against its golden) and in f32.
 12. the P2 probe (``probes/mosaic_gather.py``) at the TPU script's shapes:
    ``gather_rows`` and ``gather_err_grad`` against their twins, then the
    five variants.
+13. the P1 probe (``probes/gather.py``): ``lane_gather_loop`` equal to its
+   twin bit for bit at every probe shape and with broadcast indices,
+   ``lane_cumsum_loop`` within ``testing.LANE_CUMSUM_RTOL`` with its control
+   rejected, then the probe's timings and each kernel's T-scaling (T = 512
+   against T = 128, 3.5-4.5x at the widest shape, net of the T = 0 launch
+   at every shape).
+14. the P3 probe (``probes/stream_v2.py``): ``stream_v2_train`` against its
+   twin (control rejected), two runs and against B3 bit for bit, at the
+   small spec and at gen-instML1M's and inst200-10000's shapes, then the
+   slopes of B3 ("v1") and P3 ("v2").
+15. main path, ``--path coo``: instML100k through ``run()`` in f32 (prefix
+   sums) and f64 (segment sums) against the golden, two ``factorize`` runs
+   bit for bit in each, phases and slope, one step's device time by kernel.
 
 Every main path runs with the launch counts set to 0 just before it and
 read just after.  The last two lines are a JSON object of the kernels'
@@ -98,6 +116,11 @@ INST1E6_FLOOR = {"highest": 0.99, "bf16x3": 0.98, "default": 0.99}
 # cores (the BELL kernel's elementwise products and sums).
 F32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 989e12, 3.35e12
 F64_FLOPS = 34e12
+# Shared memory of an H100 SXM: 128 B a clock per SM (32 banks of 4 B) at
+# the 1,980 MHz boost clock on 132 SMs.
+SMEM_BYTES_S = 128 * 1.98e9 * 132
+# Steps of the P3 probe (the TPU script's default).
+P3_ITERS = 300
 INST200 = os.path.join(ROOT, "tests", "fixtures", "inst200-10000-50-100-300")
 # Argmax agreement floors of the f64 runs that are not byte-exact by
 # contract: the dense route's DGEMMs sum in another order than the
@@ -120,7 +143,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "bell_side_update": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
     "gather_rows": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:118"),
     "gather_err_grad": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
+    "lane_gather": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:40"),
+    "lane_cumsum": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:57"),
+    "stream_v2_train": ("recsys_tpu_torch/csrc/stream_v2.cu", "scripts/probe_stream_v2.py:89"),
 }
+# The T-scaling of the P1 kernels: T = 512 against T = 128 steps.
+T_SCALING = (3.5, 4.5)
 
 
 def log(msg: str) -> None:
@@ -128,7 +156,7 @@ def log(msg: str) -> None:
 
 
 def _wrappers():
-    from recsys_tpu_torch.ops import bell, dense_fused, dense_stream, dense_tiled, gather
+    from recsys_tpu_torch.ops import bell, dense_fused, dense_stream, dense_tiled, gather, lane, stream_v2
 
     return {
         "resident_train_top1": dense_fused.resident_train_top1,
@@ -140,6 +168,9 @@ def _wrappers():
         "bell_side_update": bell.bell_side_update,
         "gather_rows": gather.gather_rows,
         "gather_err_grad": gather.gather_err_grad,
+        "lane_gather": lane.lane_gather_loop,
+        "lane_cumsum": lane.lane_cumsum_loop,
+        "stream_v2_train": stream_v2.stream_v2_train,
     }
 
 
@@ -908,7 +939,11 @@ def inst1e6_bell_phase(torch, dev, launches, spec):
         golden = f.read()
     for dtype in ("float64", "float32"):
         path = trainer.choose_path(spec, RunConfig(dtype=dtype), dev)
-        log(f"[main] {INST1E6} {dtype}: path={path}")
+        init = "device" if trainer._device_init(spec, RunConfig(dtype=dtype), None) else "host"
+        log(f"[main] {INST1E6} {dtype}: path={path}, initial factors drawn on the {init} "
+            f"({(spec.users + spec.items) * spec.features} draws)")
+        if init != ("host" if dtype == "float64" else "device"):
+            raise AssertionError(f"{INST1E6} {dtype}: the {init} init ran")
         if path != "bell":
             raise AssertionError(f"{INST1E6} {dtype} must take the bell route on the card, got {path!r}")
         _, counts = _golden_run(f"{INST1E6} {dtype}", spec, golden, INST1E6_BELL_FLOOR[dtype], dev, torch,
@@ -936,23 +971,186 @@ def p2_probe_phase(torch, dev, launches):
     return errs, per
 
 
-def device_ms(torch, fn, reps, names=None):
-    """Mean device milliseconds per call of ``fn()`` from ``torch.profiler``:
-    the time of the device events (kernels, copies) whose name holds one
-    of ``names``, or of all of them when ``names`` is None.  Raises where
-    the profiler sees none."""
-    fn()
+def p1_probe_phase(torch, dev, launches):
+    """P1's probe (``probes/gather.py``) in one launch-count window, then
+    each kernel against its twin at every probe shape (T = 512): the gather
+    bit for bit with full-width and broadcast indices, the scan within its
+    limit with the control rejected; and the T-scaling.  Returns ({kernel:
+    max abs error}, the probe's timing rows)."""
+    import numpy as np
+
+    from recsys_tpu_torch.ops import lane
+    from recsys_tpu_torch.probes import gather as probe
+
+    counts = {}
+    with counted(counts):
+        errs, rows = probe.run(dev)
+    launches["P1 probe", "all shapes"] = counts
+    log(f"[probe] P1 launches: {_nonzero(counts)}")
+    if counts["lane_gather"] <= 0 or counts["lane_cumsum"] <= 0:
+        raise AssertionError(f"the P1 probe did not launch both kernels: {counts}")
+    rng, failed = np.random.default_rng(1), []
+    for S, W in probe.GATHER_SHAPES:
+        tab, idx = probe.gather_inputs(S, W, dev, rng)
+        for name, ix in (("full-width", idx), ("broadcast", idx[:1].expand_as(idx).contiguous())):
+            same = torch.equal(lane.lane_gather_loop(tab, ix, probe.T), lane.lane_gather_loop_plain(tab, ix, probe.T))
+            log(f"[kernel] lane_gather ({S}, {W}) {name} idx T={probe.T}: = twin bit for bit {same}")
+            if not same:
+                failed.append(f"lane_gather ({S}, {W}) {name}")
+    for S, W in probe.CUMSUM_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((S, W)).astype(np.float32)).to(dev)
+        errs["lane_cumsum"] = max(errs["lane_cumsum"], probe.scan_reading(x, probe.T)[0])
+    lo, hi = T_SCALING
+    for row in rows:
+        widest = row["W"] == max(w for _, w in (probe.GATHER_SHAPES if row["kind"] == "gather" else probe.CUMSUM_SHAPES))
+        ok = lo <= row["scaling_net"] <= hi and (not widest or lo <= row["scaling"] <= hi)
+        log(f"[probe] P1 {row['kind']} ({row['S']}, {row['W']}) T-scaling: T={probe.T} / T={probe.T_SHORT} "
+            f"x{row['scaling']!r}, net of T=0 x{row['scaling_net']!r} (range {lo}-{hi}{', widest shape' if widest else ''})"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{row['kind']} ({row['S']}, {row['W']}) T-scaling")
+    if failed:
+        raise AssertionError(f"P1 phase failed: {failed}")
+    return errs, rows
+
+
+def p3_probe_phase(torch, dev, launches):
+    """P3's probe (``probes/stream_v2.py``, 300 steps) in one launch-count
+    window: the kernel against its twin, itself and B3 at the small spec and
+    both probe shapes, then the slopes.  Returns (readings, timings)."""
+    from recsys_tpu_torch.probes import stream_v2 as probe
+
+    counts = {}
+    with counted(counts):
+        readings, timings = probe.run(dev, P3_ITERS)
+    launches["P3 probe", "all shapes"] = counts
+    log(f"[probe] P3 launches: {_nonzero(counts)}")
+    if counts["stream_v2_train"] <= 0:
+        raise AssertionError(f"the P3 probe did not launch stream_v2_train: {counts}")
+    return readings, timings
+
+
+def coo_phase(torch, dev, launches):
+    """instML100k through ``run(path="coo")`` in f32 (the prefix-sum form on
+    the card) and f64 (segment sums) against its golden at
+    ``DENSE_F64_FLOOR`` with the byte match reported; two ``factorize``
+    runs bit for bit in each; phases and the slope (1000 vs 3000 steps);
+    one step's device time by kernel."""
+    import numpy as np
+
+    from recsys_tpu_torch.config import RunConfig
+    from recsys_tpu_torch.engine import trainer
+    from recsys_tpu_torch.io.parser import load_problem
+    from recsys_tpu_torch.ops import coo
+
+    spec = load_problem(ML100K + ".in")
+    with open(ML100K + ".out") as f:
+        golden = f.read()
+    for dtype in ("float32", "float64"):
+        cfg = RunConfig(dtype=dtype, path="coo")
+        form = "prefix sums" if trainer._coo_use_cumsum(spec, cfg, dev) else "segment sums"
+        if form != ("prefix sums" if dtype == "float32" else "segment sums"):
+            raise AssertionError(f"instML100k coo {dtype} took the {form} form")
+        _run(dataclasses.replace(spec, iters=10), "auto", dev, torch, path="coo", dtype=dtype)  # warm-up
+        ph, _ = _golden_run(f"instML100k coo {dtype} ({form})", spec, golden, DENSE_F64_FLOOR, dev, torch,
+                            launches, "coo", dtype, path="coo")
+        _, _, ph1k = _run(dataclasses.replace(spec, iters=1000), "auto", dev, torch, path="coo", dtype=dtype)
+        a, b = (trainer.factorize(spec, cfg, dev) for _ in range(2))
+        same = np.array_equal(a.L, b.L) and np.array_equal(a.R, b.R)
+        log(f"[main] instML100k coo {dtype}: slope {(ph['train'] - ph1k['train']) / (spec.iters - 1000) * 1e6!r} "
+            f"us/iter (1000 vs {spec.iters} iters) | two factorize runs same bits {same}")
+        if not same:
+            raise AssertionError(f"instML100k coo {dtype}: two runs differ")
+        cumsum = form == "prefix sums"
+        tdt = getattr(torch, dtype)
+        data = coo.to_device((coo.make_coo_seg_inputs if cumsum else coo.make_coo_inputs)(spec, dtype=np.float64),
+                             dev, tdt)
+        L, R = (torch.from_numpy(x).to(dev, tdt) for x in (a.L, a.R))
+        step = coo.coo_gd_step_cumsum if cumsum else coo.coo_gd_step
+        _step_profile(torch, f"COO step at instML100k {dtype} ({form})", lambda: step(L, R, data, 2.0 * spec.alpha), 20)
+
+
+def device_rng_phase(torch, dev, spec):
+    """The card's glibc words against the host generator's across block
+    boundaries and two calls, at a small block and at the default one; then
+    ``device_init_factors`` at ``spec``'s shape (gen-inst1e6: L 1M x 700,
+    then R 100 x 700) bit for bit against ``f32(host random()) * f32(scale)``
+    on a sample of L's rows (the first, the last, and every row that holds a
+    block's first or last draw) and on all of R."""
+    import numpy as np
+
+    from recsys_tpu_torch.io.glibc_random import RAND_MAX, GlibcRandom, rand01_sequence
+    from recsys_tpu_torch.ops import device_rng
+
+    failed = []
+    for block, sizes in ((1000, (3517, 1311)), (device_rng.DEFAULT_BLOCK, (3 * device_rng.DEFAULT_BLOCK + 12345,
+                                                                          device_rng.DEFAULT_BLOCK // 2 + 7))):
+        st = device_rng.DeviceGlibcStream(0, block, dev)
+        words = torch.cat([st.raw32(n) for n in sizes]).cpu().numpy() >> 1
+        n = sum(sizes)
+        host = GlibcRandom(0).raw(n) if n < 10_000 else np.rint(rand01_sequence(n) * RAND_MAX).astype(np.int64)
+        same = np.array_equal(words, host)
+        log(f"[kernel] device glibc words, block {block}, calls of {sizes} ({n // block} block boundaries and a "
+            f"remainder of {n % block}): = host bit for bit {same}")
+        if not same:
+            failed.append(f"words block {block}")
+    k, users, items = spec.features, spec.users, spec.items
+    t0 = time.perf_counter()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    L, R = device_rng.device_init_factors(users, items, k, device=dev)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r01 = rand01_sequence((users + items) * k)  # the host init's draws, random() / RAND_MAX in f64
+    t_host = time.perf_counter() - t0
+    scale = np.float32(1.0 / (float(RAND_MAX) * k))
+    B = device_rng.DEFAULT_BLOCK
+    edges = np.arange(B, users * k, B)
+    rows = np.unique(np.concatenate([[0, users - 1], edges // k, (edges - 1) // k]))
+
+    def expect(draws):  # random() recovered exactly (below 2^31), then the card's float step
+        return np.rint(draws * RAND_MAX).astype(np.float32) * scale
+
+    want_L = expect(r01[: users * k].reshape(users, k)[rows])
+    want_R = expect(r01[users * k :].reshape(k, items).T)
+    same = (np.array_equal(L[torch.from_numpy(rows).to(dev)].cpu().numpy(), want_L)
+            and np.array_equal(R.cpu().numpy(), want_R))
+    log(f"[kernel] device_init_factors {users}x{items} k={k}: {(users + items) * k} draws on the card in "
+        f"{t_dev!r} s ({-(-users * k // B) + -(-items * k // B)} blocks of {B}), host draws {t_host!r} s; "
+        f"{len(rows)} rows of L (first, last, block edges) and all of R = f32(host)*scale bit for bit {same}")
+    if not same:
+        failed.append("device_init_factors")
+    del L, R, r01
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"device RNG phase failed: {failed}")
+    device_rng_blocks(torch, dev)
+
+
+def device_rng_blocks(torch, dev, n=1 << 27):
+    """The block size of the device glibc stream: for each candidate, the
+    coefficient table's build, ``n`` draws, and the device kernels one
+    block launches (``torch.profiler``).  Logged only."""
+    from recsys_tpu_torch.ops import device_rng
+
     cuda = torch.autograd.DeviceType.CUDA
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if e.device_type == cuda and (names is None or any(n in e.key for n in names)))
-    if total <= 0:
-        raise RuntimeError(f"the profiler saw no device time of {names or 'any kernel'}")
-    return total / reps / 1e3
+    for block in (1 << 18, 1 << 20, 1 << 22, 1 << 24):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = device_rng.DeviceGlibcStream(0, block, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st.raw32(n)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            st.raw32(block)
+            torch.cuda.synchronize()
+        per_block = sum(e.count for e in prof.key_averages() if e.device_type == cuda)
+        log(f"[kernel] device glibc stream at block {block}: coefficient table {t1 - t0!r} s, {n} draws "
+            f"{t2 - t1!r} s, {per_block} device kernels a block")
+        del st
+    torch.cuda.empty_cache()
 
 
 def _timing_inputs(spec, dev, torch):
@@ -970,26 +1168,31 @@ def _timing_inputs(spec, dev, torch):
     return L, R, A, A.t().contiguous()
 
 
+def _step_profile(torch, label, step, reps=5):
+    """Device time by kernel of one ``step()`` from ``torch.profiler`` over
+    ``reps`` calls, and their sum.  Logged only."""
+    step()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    rows = [(getattr(e, "device_time_total", 0.0) / reps, e.key) for e in prof.key_averages()]
+    rows = sorted((t, k) for t, k in rows if t > 0)[::-1]
+    if not rows:
+        log(f"[profile] {label}: the profiler saw no device time")
+    for t, key in rows:
+        log(f"[profile] {label}: {t!r} us per step {key[:90]}")
+    log(f"[profile] {label}: {sum(t for t, _ in rows)!r} us of device time per step in all")
+
+
 def tiled_step_profile(torch, dev, spec, name):
-    """Device time by kernel of one ``tiled_gd_step`` at ``spec``'s shape
-    (tiled plan, `highest`), from ``torch.profiler`` over 5 steps: B5's
-    passes beside the torch update.  Logged only."""
+    """One ``tiled_gd_step`` at ``spec``'s shape (tiled plan, `highest`) by
+    kernel: B5's passes beside the torch update."""
     from recsys_tpu_torch.ops import dense_tiled as dt
 
     L, R, A, At = _timing_inputs(spec, dev, torch)
-    step = dict(alpha2=2.0 * spec.alpha, At=At)
-    dt.tiled_gd_step(L, R, A, **step)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            dt.tiled_gd_step(L, R, A, **step)
-        torch.cuda.synchronize()
-    rows = [(getattr(e, "device_time_total", 0.0) / 5, e.key) for e in prof.key_averages()]
-    rows = sorted((t, k) for t, k in rows if t > 0)[::-1]
-    if not rows:
-        log(f"[profile] B5 step at {name}: the profiler saw no device time")
-    for t, key in rows:
-        log(f"[profile] B5 step at {name}: {t!r} us per step {key[:90]}")
+    _step_profile(torch, f"B5 step at {name}", lambda: dt.tiled_gd_step(L, R, A, alpha2=2.0 * spec.alpha, At=At))
     del L, R, A, At
 
 
@@ -1009,7 +1212,7 @@ def _record(name, launches, err, ms, plain_ms, flops, nbytes, peak=F32_FLOPS, li
             "library_ms": library_ms}
 
 
-def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times):
+def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows, p3):
     """The kernels line: every number measured in this run, in `highest`.
     The train kernels' bound counts 6*k FLOP per rated cell and step, the
     top-1's 2*k per (user, item); bytes count each input tensor read once
@@ -1069,6 +1272,7 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times):
         f"{_bound(8.0 * plan.U * plan.I * plan.K, a_b + 2 * f_b)[0]!r} ms at the f32 peak")
     del L, R, A, At
     out += bell_records(torch, dev, ml100k, launches, errs)
+    out += probe_records(torch, dev, launches, errs, p1_rows, p3)
     for rec in out:
         log(f"[kernels] {rec['name']}: {rec['ms']!r} ms vs bound {rec['bound_ms']!r} ms "
             f"({rec['bound_by']}), plain {rec['plain_ms']!r} ms, library {rec['library_ms']!r} ms, "
@@ -1088,6 +1292,7 @@ def bell_records(torch, dev, ml100k, launches, errs):
     from recsys_tpu_torch.models.mf import init_factors
     from recsys_tpu_torch.ops import bell, gather
     from recsys_tpu_torch.probes import mosaic_gather as mg
+    from recsys_tpu_torch.utils.timing import device_ms
 
     data, L, R, t = _bell_tensors(ml100k, np.float64, dev, torch,
                                   init_factors(ml100k.users, ml100k.items, ml100k.features))
@@ -1104,8 +1309,8 @@ def bell_records(torch, dev, ml100k, launches, errs):
               + 8 * k * (m.user.n_nz + m.item.n_nz))
     flops = 2 * 4.0 * k * ml100k.nnz
     out = [_record("bell_side_update", launches["instML100k f64", "auto"]["bell_side_update"],
-                   errs["bell_side_update"], device_ms(torch, bell_step, 200, ("side_update",)),
-                   device_ms(torch, lambda: bell.bell_gd_step_plain(L, R, t, a2, m), 3),
+                   errs["bell_side_update"], device_ms(bell_step, 200, ("side_update",)),
+                   device_ms(lambda: bell.bell_gd_step_plain(L, R, t, a2, m), 3),
                    flops, nbytes, F64_FLOPS)]
     gathered = 8 * k * (t.ucols.numel() + t.irows.numel()) + 2 * 8 * k * (m.user.n_nz + m.item.n_nz)
     log(f"[kernels] bell_side_update at instML100k f64, counting every gathered row (the slots, "
@@ -1118,15 +1323,50 @@ def bell_records(torch, dev, ml100k, launches, errs):
     idx_long = idx.long()
     p2 = launches["P2 probe", "all variants"]
     out.append(_record("gather_rows", p2["gather_rows"], errs["gather_rows"],
-                       device_ms(torch, lambda: gather.gather_rows(table, idx), 50, ("gather_rows",)),
-                       device_ms(torch, lambda: gather.gather_rows_plain(table, idx), 50), 0.0,
+                       device_ms(lambda: gather.gather_rows(table, idx), 50, ("gather_rows",)),
+                       device_ms(lambda: gather.gather_rows_plain(table, idx), 50), 0.0,
                        4 * (N * K + S + S * K),
-                       library_ms=device_ms(torch, lambda: table.index_select(0, idx_long), 50)))
+                       library_ms=device_ms(lambda: table.index_select(0, idx_long), 50)))
     out.append(_record("gather_err_grad", p2["gather_err_grad"], errs["gather_err_grad"],
-                       device_ms(torch, lambda: gather.gather_err_grad(table, idx, vals, mg.BLK), 50,
+                       device_ms(lambda: gather.gather_err_grad(table, idx, vals, mg.BLK), 50,
                                  ("gather_err_grad",)),
-                       device_ms(torch, lambda: gather.gather_err_grad_plain(table, idx, vals, mg.BLK), 20),
+                       device_ms(lambda: gather.gather_err_grad_plain(table, idx, vals, mg.BLK), 20),
                        4.0 * S * K + 2.0 * S, 4 * (N * K + 2 * S + S * K)))
+    return out
+
+
+def probe_records(torch, dev, launches, errs, p1_rows, p3):
+    """The kernels line's entries of P1's kernels (one launch of T = 512
+    steps at (8, 32768), from the probe's own timings: kernel, twin and
+    library loop by the profiler's device time) and P3's (300 steps at
+    gen-instML1M's probe shape, the probe's device time; its twin timed
+    here).  P1 counts 2 FLOP per gathered element and step, 3 per scanned
+    one (the scan's add, 0 * out and its add); bytes are the inputs read
+    and the output written once.  Their shared-memory reads are logged
+    beside, at 128 B a clock per SM."""
+    from recsys_tpu_torch.ops import stream_v2
+    from recsys_tpu_torch.probes import gather as pg
+    from recsys_tpu_torch.probes import stream_v2 as ps
+    from recsys_tpu_torch.utils.timing import device_ms
+
+    p1 = launches["P1 probe", "all shapes"]
+    out = []
+    for name, kind, flop, nbytes, smem in (("lane_gather", "gather", 2, 12, 4), ("lane_cumsum", "cumsum", 3, 8, 8)):
+        row = next(r for r in p1_rows if r["kind"] == kind and (r["S"], r["W"]) == (8, 32768))
+        n = row["S"] * row["W"]
+        out.append(_record(name, p1[name], errs[name], row["ms"], row["plain_ms"], flop * n * pg.T, nbytes * n,
+                           library_ms=row["library_ms"]))
+        log(f"[kernels] {name} at (8, 32768), T={pg.T}: shared-memory reads {smem * n * pg.T} B, "
+            f"{smem * n * pg.T / SMEM_BYTES_S * 1e3!r} ms at {SMEM_BYTES_S:.4g} B/s")
+    readings, timings = p3
+    spec = dataclasses.replace(ps.shapes()["gen-instML1M"], iters=P3_ITERS)
+    Lt, _, Rp, A, _ = ps.inputs(spec, ps.STRIP, dev)
+    kw = dict(iters=P3_ITERS, alpha2=2.0 * spec.alpha, strip=ps.STRIP)
+    plain_ms = device_ms(lambda: stream_v2.stream_v2_train_plain(Lt, Rp, A, **kw), 1)
+    out.append(_record("stream_v2_train", launches["P3 probe", "all shapes"]["stream_v2_train"],
+                       readings["gen-instML1M"]["max_abs_err"], timings["gen-instML1M"]["v2 packed"]["ms"], plain_ms,
+                       6.0 * spec.nnz * spec.features * P3_ITERS, A.numel() + 2 * 4 * (Lt.numel() + Rp.numel())))
+    del Lt, Rp, A
     return out
 
 
@@ -1163,12 +1403,17 @@ def main() -> int:
         tiled_step_profile(torch, dev, big, INST1E6)
         tiled_step_profile(torch, dev, ml1m, "gen-instML1M")
         bell_main_phase(torch, dev, launches)
+        device_rng_phase(torch, dev, big)
         inst1e6_bell_phase(torch, dev, launches, big)
         p2_errs, _ = p2_probe_phase(torch, dev, launches)
         errs.update(p2_errs)
+        p1_errs, p1_rows = p1_probe_phase(torch, dev, launches)
+        errs.update(p1_errs)
+        p3 = p3_probe_phase(torch, dev, launches)
+        coo_phase(torch, dev, launches)
         times = {"B1": (train1["auto", "highest"], plain1["highest"]),
                  "B3": (train2["auto", "highest"], plain2["highest"])}
-        kernels = kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times)
+        kernels = kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows, p3)
     except Exception as e:  # noqa: BLE001 - report any failed phase, exit non-zero
         import traceback
 

@@ -11,9 +11,10 @@ the JAX CLI's names.  ``--checkpoint`` trains in chunks of
 from the file if it exists, and then runs ``trainer.recommend`` with
 ``--block-items`` (``recsys_tpu/cli.py:155-163``).  ``--dtype float64``
 is the exact mode: on the card it takes the BELL route, whose factors are
-the reference binary's bit for bit (``--path bell`` or ``dense`` forces a
-route).  Values the port does not have yet (``--path coo``, ``--mesh``)
-raise.
+the reference binary's bit for bit.  ``--path`` forces a route: ``bell``,
+``dense``, ``pallas`` or ``coo`` (the COO step: prefix sums for f32 on the
+card, sorted segment sums otherwise).  ``--mesh``, which the port does
+not have yet, raises.
 """
 
 from __future__ import annotations

@@ -15,15 +15,20 @@ Routes, chosen by ``choose_path`` in the JAX engine's decision order:
   ``run``) or ``tiled`` (B5 ``dense_tiled.tiled_deltas`` once per step,
   then ``recommend`` on the factors left on the device in ``run``).
 * ``bell``   -- the degree-bucketed sparse route in f32 or exact f64:
-  ``bell.bell_side_update`` (P2's engine form) twice per step, from the
-  host glibc init (the on-device init of the JAX engine, trainer.py:364,
-  is ROADMAP A8), then ``recommend`` on the factors left on the device in
-  ``run``.  In f64 it follows the reference's order and gives its factors
-  bit for bit.  bfloat16 on this route raises (ROADMAP A12).
+  ``bell.bell_side_update`` (P2's engine form) twice per step, then
+  ``recommend`` on the factors left on the device in ``run``.  In f64 it
+  follows the reference's order and gives its factors bit for bit, from
+  the host glibc init; in f32 above ``DEVICE_INIT_MIN_DRAWS`` the initial
+  factors are drawn on the device (``ops/device_rng.py``).  bfloat16 on
+  this route raises (ROADMAP A12).
 * ``dense``  -- the three-matmul step of ``ops/dense.py`` in the run's
   dtype (f64 DGEMM on the card), then ``recommend``.
-* ``coo`` and any mesh raise ``NotImplementedError`` naming the ROADMAP
-  item that ports them.  Nothing falls back to another route.
+* ``coo``    -- the COO step of ``ops/coo.py`` in the run's dtype: the
+  prefix-sum form for the speed dtypes on the card when the ratings
+  outnumber the rows (``_coo_use_cumsum``), else the sorted segment sums;
+  then ``recommend``.
+* Any mesh raises ``NotImplementedError`` naming ROADMAP A9.  Nothing falls
+  back to another route.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch
 from recsys_tpu_torch import convert
 from recsys_tpu_torch.config import ProblemSpec, RunConfig
 from recsys_tpu_torch.models.mf import MFState, init_factors
-from recsys_tpu_torch.ops import bell, dense, dense_fused, dense_stream, dense_tiled, topk
+from recsys_tpu_torch.ops import bell, coo, dense, dense_fused, dense_stream, dense_tiled, device_rng, topk
 from recsys_tpu_torch.ops.bell import bell_slot_ratio
 from recsys_tpu_torch.utils.timing import phase
 
@@ -64,10 +69,12 @@ RESIDENT_A_MAX_BYTES = 4 << 20
 
 _ITEMSIZE = {"float32": 4, "float64": 8, "bfloat16": 2}
 
-# Where each route that is not ported yet is queued.
-_NOT_PORTED = {
-    "coo": "A7 (ops/coo.py)",
-}
+# Above this many glibc draws, ``(users + items) * k``, the f32 BELL route
+# draws its initial factors on the device (trainer.py:364): the host init
+# of gen-inst1e6-100-700-1-3's 700M draws dominates its wall (PERF.md).
+# Every byte-exact golden sits far below it.
+DEVICE_INIT_MIN_DRAWS = 200_000_000
+
 # Host (numpy) and device dtypes of the bell and dense routes.
 _NP_DTYPE = {"float32": np.float32, "float64": np.float64}
 _TORCH_DTYPE = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
@@ -281,34 +288,56 @@ def _dense_route_ok(spec: ProblemSpec, cfg: RunConfig) -> None:
         raise ValueError("pallas path requires all ratings non-zero (implicit mask)")
 
 
-def _refuse(path: str) -> None:
-    if path in _NOT_PORTED:
-        raise NotImplementedError(f"path {path!r} is not ported yet (ROADMAP {_NOT_PORTED[path]})")
-    raise ValueError(f"unknown path {path!r}")
+def _device_init(spec: ProblemSpec, cfg: RunConfig, state: MFState | None) -> bool:
+    """The f32 BELL route draws its initial factors on the device when no
+    state is given and the draws reach ``DEVICE_INIT_MIN_DRAWS``
+    (trainer.py:378-382).  f64 keeps the host init, which is exact."""
+    draws = (spec.users + spec.items) * spec.features
+    return state is None and draws >= DEVICE_INIT_MIN_DRAWS and cfg.dtype == "float32"
+
+
+def _permute_pad(F: torch.Tensor, perm: np.ndarray) -> torch.Tensor:
+    """``F``'s rows in ``perm``'s order plus a zero row at the end, by one
+    ``index_select`` (the JAX engine's ``take(..., mode="fill")``,
+    trainer.py:388-391): the pad row's index reads row 0 and is zeroed."""
+    idx = torch.from_numpy(np.append(perm, 0).astype(np.int64)).to(F.device)
+    out = F.index_select(0, idx)
+    out[-1] = 0
+    return out
 
 
 def _factorize_bell_device(spec: ProblemSpec, cfg: RunConfig, device, state: MFState | None = None) -> MFState:
     """BELL training with the result left on ``device`` in original row
-    order (trainer.py:367-406): ``prep`` builds the tables, the glibc
-    init and the degree-permuted factors with their zero rows; ``upload``
-    copies them to the device; ``train`` runs ``bell.bell_train``; the
-    un-permute is a device ``index_select`` (exact).  The init is always
-    the host one, which is exact: the JAX engine's on-device init above
-    ``DEVICE_INIT_MIN_DRAWS`` is ROADMAP A8."""
+    order (trainer.py:367-406): ``prep`` builds the tables and, for the
+    host init, the glibc draws and the degree-permuted factors with their
+    zero rows; ``upload`` copies them to the device, or draws the factors
+    there (``_device_init``) and permutes them on the device; ``train``
+    runs ``bell.bell_train``; the un-permute is a device ``index_select``
+    (exact)."""
     if cfg.dtype not in _NP_DTYPE:
         raise NotImplementedError(f"the bell route computes in float32 or float64; {cfg.dtype} on it is "
                                   "not ported yet (ROADMAP A12)")
     dt = _NP_DTYPE[cfg.dtype]
+    on_device = _device_init(spec, cfg, state)
     with phase("prep"):
         data = bell.make_bell_inputs(spec, dtype=dt)
-        if state is None:
-            state = init_factors(spec.users, spec.items, spec.features)
-        Lp0, Rp0 = bell.pad_factors_for_bell(state, data, dt)
+        if not on_device:
+            if state is None:
+                state = init_factors(spec.users, spec.items, spec.features)
+            Lp0, Rp0 = bell.pad_factors_for_bell(state, data, dt)
+            del state
     with phase("upload") as psync:
-        L0, R0 = torch.from_numpy(Lp0).to(device), torch.from_numpy(Rp0).to(device)
+        if on_device:
+            L, R = device_rng.device_init_factors(spec.users, spec.items, spec.features, device=device)
+            L0 = _permute_pad(L, data.user_perm)
+            del L
+            R0 = _permute_pad(R, data.item_perm)
+            del R
+        else:
+            L0, R0 = torch.from_numpy(Lp0).to(device), torch.from_numpy(Rp0).to(device)
+            del Lp0, Rp0
         tables = bell.device_tables(data.tables, device)
         psync((L0, R0, *tables))
-    del Lp0, Rp0, state
     with phase("train") as psync:
         Lp, Rp = bell.bell_train(L0, R0, tables, 2.0 * spec.alpha, data.meta, spec.iters, donate=True)
         psync((Lp, Rp))
@@ -336,6 +365,42 @@ def _factorize_dense(spec: ProblemSpec, cfg: RunConfig, device, state: MFState |
     return MFState(L=L, R=R)
 
 
+def _coo_use_cumsum(spec: ProblemSpec, cfg: RunConfig, device) -> bool:
+    """The prefix-sum COO step for the speed dtypes on the card when the
+    ratings outnumber the rows it gathers (trainer.py:210-222, its
+    ``jax.default_backend() == "tpu"`` read as a CUDA device); exact f64,
+    the CPU and hyper-sparse shapes keep the segment sums."""
+    return (cfg.dtype in ("float32", "bfloat16") and torch.device(device).type == "cuda"
+            and spec.nnz >= spec.users + spec.items)
+
+
+def _factorize_coo(spec: ProblemSpec, cfg: RunConfig, device, state: MFState | None = None) -> MFState:
+    """The ``coo`` route (trainer.py:287-298, :315-330) on ``device`` in the
+    run's dtype: the glibc init and the entry tables in ``prep``, both on
+    the device in ``upload``, the step loop in ``train``; the factors stay
+    there."""
+    dt = _TORCH_DTYPE[cfg.dtype]
+    cumsum = _coo_use_cumsum(spec, cfg, device)
+    with phase("prep"):
+        if state is None:
+            state = init_factors(spec.users, spec.items, spec.features)
+        data = (coo.make_coo_seg_inputs if cumsum else coo.make_coo_inputs)(spec, dtype=np.float64)
+    with phase("upload") as psync:
+        L, R = (torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt) for x in state)
+        data = coo.to_device(data, device, dt)
+        psync((L, R, *data))
+    step = coo.coo_gd_step_cumsum if cumsum else coo.coo_gd_step
+    alpha2 = 2.0 * spec.alpha
+    with phase("train") as psync:
+        for _ in range(spec.iters):
+            L, R = step(L, R, data, alpha2)
+        psync((L, R))
+    return MFState(L=L, R=R)
+
+
+_DEVICE_ROUTES = {"bell": _factorize_bell_device, "dense": _factorize_dense, "coo": _factorize_coo}
+
+
 def _host_state(state: MFState) -> MFState:
     return MFState(*(np.ascontiguousarray(x.cpu().numpy()) for x in state))
 
@@ -349,8 +414,7 @@ def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", st
     runs the plan's training kernel, B2 ``resident_train``, B3
     ``stream_train`` or B5 ``tiled_deltas``, and returns f32 factors at
     their true shapes; the ``bell`` and ``dense`` routes return factors in
-    the run's dtype.  ``coo`` raises ``NotImplementedError`` naming its
-    ROADMAP item.  ``a_max_bytes`` and ``tiled`` force a plan kind, as in
+    the run's dtype, as does ``coo``.  ``a_max_bytes`` and ``tiled`` force a plan kind, as in
     ``run``.
     """
     device = _check_device(device)
@@ -359,12 +423,10 @@ def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", st
     path = choose_path(spec, cfg, device)
     if path == "host":
         return _factorize_host_serial(spec, state)
-    if path == "bell":
-        return _host_state(_factorize_bell_device(spec, cfg, device, state))
-    if path == "dense":
-        return _host_state(_factorize_dense(spec, cfg, device, state))
+    if path in _DEVICE_ROUTES:
+        return _host_state(_DEVICE_ROUTES[path](spec, cfg, device, state))
     if path != "pallas":
-        _refuse(path)
+        raise ValueError(f"unknown path {path!r}")
     _dense_route_ok(spec, cfg)
     plan = dense_plan(spec, a_max_bytes=a_max_bytes, tiled=tiled)
     if plan.kind == "tiled":
@@ -412,8 +474,9 @@ def run(spec: ProblemSpec, cfg: RunConfig, device, *, a_max_bytes: int = RESIDEN
     """Factorize + recommend on ``device``; returns (stdout payload, top1).
     ``a_max_bytes`` moves the plan's resident/stream line and ``tiled``
     forces the tiled kind (tests and ``chip_smoke.py`` force each kind with
-    them).  On the tiled kind and the bell and dense routes the trained
-    factors stay on the device for ``recommend`` (trainer.py:763-767)."""
+    them).  On the tiled kind and the bell, dense and coo routes the
+    trained factors stay on the device for ``recommend``
+    (trainer.py:763-767)."""
     from recsys_tpu_torch.io.writers import format_recommendations
 
     device = _check_device(device)
@@ -428,13 +491,13 @@ def run(spec: ProblemSpec, cfg: RunConfig, device, *, a_max_bytes: int = RESIDEN
         with phase("top1"):
             top1 = top1_numpy(np.asarray(state.L), np.asarray(state.R), spec)
         return format_recommendations(top1, spec.rated_counts(), spec.items), top1
-    if path in ("bell", "dense"):
-        state = (_factorize_bell_device if path == "bell" else _factorize_dense)(spec, cfg, device)
+    if path in _DEVICE_ROUTES:
+        state = _DEVICE_ROUTES[path](spec, cfg, device)
         with phase("top1"):
             top1 = recommend(state, spec, cfg, device)
         return format_recommendations(top1, spec.rated_counts(), spec.items), top1
     if path != "pallas":
-        _refuse(path)
+        raise ValueError(f"unknown path {path!r}")
     _dense_route_ok(spec, cfg)
     plan = dense_plan(spec, a_max_bytes=a_max_bytes, tiled=tiled)
     if plan.kind == "tiled":

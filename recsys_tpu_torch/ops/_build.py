@@ -112,6 +112,13 @@ SIGNATURES = {
     "rs_gather_rows": [_P, _P, _P, _LL, _I, _P],
     # table, idx, vals, out, S, K, blk, stream
     "rs_gather_err_grad": [*[_P] * 4, _LL, _I, _I, _P],
+    # tab, idx, out, S, W, t, sms, stream
+    "rs_lane_gather_loop": [*[_P] * 3, *[_I] * 4, _P],
+    # x, out, S, W, t, stream
+    "rs_lane_cumsum_loop": [*[_P] * 2, *[_I] * 3, _P],
+    # A, a_kind, Lt_in .. part_r (8 pointers), K, U, I, strip, G, C, iters,
+    # alpha2, chunk, S, stream
+    "rs_stream_v2_train": [_P, _I, *[_P] * 8, *[_I] * 7, _F, _I, _I, _P],
 }
 
 

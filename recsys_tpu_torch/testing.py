@@ -1,5 +1,5 @@
-"""How the dense kernels are held against their plain twins: the two
-readings, their limits and the controls the limits must reject.  Shared
+"""How the kernels are held against their plain twins: the readings,
+their limits and the controls the limits must reject.  Shared
 by ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` on the card, and
 checked on the CPU by ``tests/test_torch_dense_fused.py`` and
 ``tests/test_torch_tiled.py``.
@@ -101,6 +101,42 @@ def tiled_probe(spec, a_dtype: torch.dtype, device, *, seed: int = 0, spread: fl
     L[:, : Lt.shape[0]] = Lt.T
     R[:, : Rt.shape[0]] = Rt.T
     return L.to(device), R.to(device), At.T.contiguous().to(device)
+
+
+# ``ops/lane.py::lane_cumsum_loop`` against its twin: max |kernel - twin|
+# over max |twin|.  Both scan a row of N(0, 1) values in f32 in different
+# orders: the kernel a thread's 32 in sequence, then a warp and a block
+# carry; ``torch.cumsum`` its own.  A numpy model of the kernel's order
+# reads 2.1e-7 to 3.6e-7 of exact f64 at the probe's shapes, and a plain
+# sequential f32 scan up to 4.7e-6; the limit sits 4x above that.  Its
+# control, ``lane_cumsum_dropped``, moves every later prefix by one
+# element, 4.8e-3 to 2.5e-2 at those shapes (my numpy reading).
+LANE_CUMSUM_RTOL = 2e-5
+# ``ops/stream_v2.py::stream_v2_train`` against its twin, ``factor_rel``
+# after ``FACTOR_ITERS`` steps: B3's steps in B3's order of sums, held to
+# B3's `highest` limit against a twin that sums in another f32 order.  Its
+# control is the twin's step in `default` (``stream_v2_default``).
+STREAM_V2_RTOL = FACTOR_RTOL["highest"]
+
+
+def lane_cumsum_dropped(x):
+    """The control of ``LANE_CUMSUM_RTOL``: the scan with x[:, W // 2] left
+    out, i.e. every prefix from there on short by that element."""
+    keep = torch.ones(x.shape[1], dtype=torch.bool, device=x.device)
+    keep[x.shape[1] // 2] = False
+    return torch.cumsum(torch.where(keep, x, 0.0), dim=1)
+
+
+def stream_v2_default(Lt, Rp, A, *, iters: int, alpha2: float, strip: int):
+    """The control of ``STREAM_V2_RTOL``: P3's steps with `default`'s bf16
+    rounding of every product's operands, by B3's twin on the unpacked
+    layout, packed again."""
+    from recsys_tpu_torch.ops import dense_stream, stream_v2
+
+    K = Lt.shape[0]
+    Lt2, Rt2 = dense_stream.stream_train_plain(Lt, stream_v2.unpack_R(Rp, K), A.T.contiguous(), iters=iters,
+                                               alpha2=alpha2, precision="default")
+    return Lt2, stream_v2.pack_R(Rt2, strip)
 
 
 # ``ops/gather.py::gather_err_grad`` against its twin at the probe's values

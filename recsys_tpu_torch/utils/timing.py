@@ -95,3 +95,22 @@ def cuda_event_ms(fn, reps: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, names=None) -> float:
+    """Mean device milliseconds per call of ``fn()`` from ``torch.profiler``,
+    after one warm-up call: the time of the device events (kernels,
+    copies) whose name holds one of ``names``, or of all of them when
+    ``names`` is None.  Raises where the profiler sees none."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == cuda and (names is None or any(n in e.key for n in names)))
+    if total <= 0:
+        raise RuntimeError(f"the profiler saw no device time of {names or 'any kernel'}")
+    return total / reps / 1e3

@@ -345,3 +345,105 @@ def test_p2_kernels_match_twins():
     # The kernel moves float4s: other widths raise, never fall back.
     with pytest.raises(ValueError, match="K % 4"):
         gather.gather_rows(table[:, :5].contiguous(), idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 512), (8, 2048), (5, 1000), (24, 8192), (8, 32768)])
+def test_lane_gather_equals_twin_bit_for_bit(shape):
+    import numpy as np
+
+    from recsys_tpu_torch.ops import lane
+    from recsys_tpu_torch.probes import gather as probe
+
+    dev = _cuda()
+    tab, idx = probe.gather_inputs(*shape, dev, np.random.default_rng(0))
+    before = lane.lane_gather_loop.launches
+    for ix in (idx, idx[:1].expand_as(idx).contiguous()):  # full-width and broadcast indices
+        got = lane.lane_gather_loop(tab, ix, 7)
+        torch.cuda.synchronize()
+        assert torch.equal(got, lane.lane_gather_loop_plain(tab, ix, 7))
+    assert lane.lane_gather_loop.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 512), (4, 96), (3, 1056), (2, 3040), (3, 8192), (2, 32768)])
+def test_lane_cumsum_within_limit_and_control_rejected(shape):
+    import numpy as np
+
+    from recsys_tpu_torch.ops import lane
+
+    dev = _cuda()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(shape).astype(np.float32)).to(dev)
+    before = lane.lane_cumsum_loop.launches
+    got = lane.lane_cumsum_loop(x, 5)
+    twin = lane.lane_cumsum_loop_plain(x, 5)
+    torch.cuda.synchronize()
+    assert lane.lane_cumsum_loop.launches == before + 1
+    scale = float(twin.abs().max())
+    assert float((got - twin).abs().max()) <= checks.LANE_CUMSUM_RTOL * scale
+    assert float((checks.lane_cumsum_dropped(x) - twin).abs().max()) > checks.LANE_CUMSUM_RTOL * scale
+    assert torch.equal(got, lane.lane_cumsum_loop(x, 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [8, 50])
+def test_stream_v2_equals_b3_and_matches_twin(a_dtype, k):
+    from recsys_tpu_torch.ops import stream_v2
+    from recsys_tpu_torch.probes import stream_v2 as probe
+
+    dev = _cuda()
+    spec = generate_instance(40, 700, k, 2, 8, iters=5, alpha=0.01, seed=7)
+    Lt, Rt, Rp, A, At = probe.inputs(spec, probe.SMALL_STRIP, dev, a_dtype)
+    kw = dict(iters=spec.iters, alpha2=2 * spec.alpha, strip=probe.SMALL_STRIP)
+    before = stream_v2.stream_v2_train.launches
+    got = stream_v2.stream_v2_train(Lt, Rp, A, **kw)
+    b3 = dense_stream.stream_train(Lt, Rt, At, iters=spec.iters, alpha2=2 * spec.alpha)
+    torch.cuda.synchronize()
+    assert stream_v2.stream_v2_train.launches == before + 1
+    assert torch.equal(got[0], b3[0]) and torch.equal(got[1], stream_v2.pack_R(b3[1], probe.SMALL_STRIP))
+    twin = stream_v2.stream_v2_train_plain(Lt, Rp, A, **kw)
+    assert checks.factor_rel(got, twin) <= checks.STREAM_V2_RTOL
+    assert checks.factor_rel(checks.stream_v2_default(Lt, Rp, A, **kw), twin) > checks.STREAM_V2_RTOL
+
+
+@pytest.mark.cuda
+def test_device_glibc_stream_equals_host():
+    import numpy as np
+
+    from recsys_tpu_torch.io.glibc_random import GlibcRandom
+    from recsys_tpu_torch.ops import device_rng
+
+    dev = _cuda()
+    st = device_rng.DeviceGlibcStream(0, block=1000, device=dev)
+    words = torch.cat([st.raw32(3517), st.raw32(1311)]).cpu()
+    np.testing.assert_array_equal((words >> 1).numpy(), GlibcRandom(0).raw(3517 + 1311))
+    L, R = device_rng.device_init_factors(37, 23, 6, device=dev, block=100)
+    Lc, Rc = device_rng.device_init_factors(37, 23, 6, block=100)
+    assert torch.equal(L.cpu(), Lc) and torch.equal(R.cpu(), Rc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_coo_route_two_runs_same_bits_and_golden(dtype):
+    _cuda()
+    spec = load_problem(str(FIXTURES / "instML100k.in"))
+    cfg = RunConfig(dtype=dtype, path="coo")
+    assert trainer._coo_use_cumsum(spec, cfg, "cuda") == (dtype == "float32")
+    a = trainer.factorize(spec, cfg, "cuda")
+    b = trainer.factorize(spec, cfg, "cuda")
+    import numpy as np
+
+    assert np.array_equal(a.L, b.L) and np.array_equal(a.R, b.R)
+    out, _ = trainer.run(spec, cfg, "cuda")
+    want = (FIXTURES / "instML100k.out").read_text().splitlines()
+    got = out.splitlines()
+    assert len(got) == len(want) and sum(x == y for x, y in zip(got, want)) / len(want) >= 0.99
+
+
+@pytest.mark.cuda
+def test_run_coo_f64_matches_golden_on_card():
+    _cuda()
+    spec = load_problem(str(FIXTURES / "inst30-40-10-2-10.in"))
+    out, _ = trainer.run(spec, RunConfig(dtype="float64", path="coo"), "cuda")
+    assert out == (FIXTURES / "inst30-40-10-2-10.out").read_text()

@@ -66,17 +66,17 @@ def test_dense_plan_instml100k():
     assert plan.device_bytes <= trainer.DEVICE_BUDGET_BYTES
 
 
-def test_unported_routes_raise_and_never_fall_back():
-    # Exact f64 on a sparse, non-toy shape routes to BELL (ported); COO
-    # and the mesh are not ported yet and raise, naming their item.
+def test_unported_routes_raise_and_never_fall_back(spec20):
+    # Exact f64 on a sparse, non-toy shape routes to BELL; COO (ported)
+    # runs what it is asked in both dtypes, as the JAX engine's coo route
+    # does; the mesh is not ported yet and raises, naming its item.
     spec = generate_instance(200, 2000, 10, 2, 5, iters=100_000, alpha=1e-4, seed=1)
     cfg = RunConfig(dtype="float64")
     assert trainer.choose_path(spec, cfg, "cpu") == "bell"
-    with pytest.raises(NotImplementedError, match="A7"):
-        trainer.run(spec, RunConfig(dtype="float64", path="coo"), "cpu")
+    for dtype in ("float64", "float32"):
+        out, _ = trainer.run(spec20, RunConfig(dtype=dtype, path="coo"), "cpu")
+        assert out == jax_trainer.run(spec20, RunConfig(dtype=dtype, path="coo"))[0]
     ml = load_problem(str(FIXTURES / "instML100k.in"))
-    with pytest.raises(NotImplementedError, match="coo"):
-        trainer.run(ml, RunConfig(dtype="float32", path="coo"), "cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         trainer.run(ml, RunConfig(dtype="float32", path="pallas", mesh_shape=(2, 2)), "cpu")
     with pytest.raises(ValueError, match="float32"):
@@ -113,9 +113,17 @@ def test_cli_run_matches_oracle(spec20, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--path", "coo"], ["--mesh", "2x2"]])
 def test_cli_refuses_what_is_not_ported(flag):
-    # A flag the port cannot honour raises; it is never accepted and ignored.
+    # A flag the port cannot honour raises; it is never accepted and
+    # ignored.  --path coo is ported: it runs and prints the golden.
+    argv = ["run", str(FIXTURES / "inst0.in"), "--device", "cpu", "--no-time", *flag]
+    if flag[0] == "--path":
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            assert cli.main(argv) == 0
+        assert buf.getvalue() == read_golden("inst0")
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(["run", str(FIXTURES / "inst0.in"), "--device", "cpu", *flag])
+        cli.main(argv)
 
 
 @pytest.mark.parametrize("entry", ["factorize", "recommend"])
@@ -131,8 +139,14 @@ def test_factorize_and_recommend_refuse_cuda_without_a_card(spec20, entry):
 
 
 def test_factorize_refuses_unported_routes():
+    # COO is ported: factorize takes it and gives the oracle's factors.
+    from recsys_tpu_torch.engine.oracle import factorize_numpy
+
+    small = generate_instance(30, 50, 6, 2, 8, iters=25, alpha=0.01, seed=1)
+    got = trainer.factorize(small, RunConfig(dtype="float64", path="coo"), "cpu")
+    want, _ = factorize_numpy(small)
+    np.testing.assert_allclose(got.L, want.L, rtol=1e-12)
+    np.testing.assert_allclose(got.R, want.R, rtol=1e-12)
     spec = generate_instance(200, 2000, 10, 2, 5, iters=100_000, alpha=1e-4, seed=1)
-    with pytest.raises(NotImplementedError, match="A7"):
-        trainer.factorize(spec, RunConfig(dtype="float64", path="coo"), "cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         trainer.factorize(spec, RunConfig(dtype="float32", mesh_shape=(2, 2)), "cpu")

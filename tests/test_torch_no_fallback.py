@@ -23,6 +23,8 @@ _NO_JAX = r"""
 import contextlib, io, os, sys, tempfile
 import chip_smoke
 import recsys_tpu_torch, recsys_tpu_torch.cli, recsys_tpu_torch.convert, recsys_tpu_torch.probes.mosaic_gather
+import recsys_tpu_torch.probes.gather, recsys_tpu_torch.probes.stream_v2
+from recsys_tpu_torch.ops import coo, device_rng, lane, stream_v2
 from recsys_tpu_torch.config import RunConfig
 from recsys_tpu_torch.engine import trainer
 from recsys_tpu_torch.io.generator import generate_instance
@@ -39,6 +41,10 @@ out, _ = trainer.run(load_problem(sys.argv[1]), RunConfig(dtype="float64"), "cpu
 assert out == open(sys.argv[2]).read()
 out, _ = trainer.run(load_problem(sys.argv[1]), RunConfig(dtype="float64", path="bell"), "cpu")
 assert out == open(sys.argv[2]).read()
+out, _ = trainer.run(load_problem(sys.argv[1]), RunConfig(dtype="float64", path="coo"), "cpu")
+assert out == open(sys.argv[2]).read()
+device_rng.device_init_factors(5, 4, 3)
+lane.lane_cumsum_loop(lane.lane_gather_loop(*recsys_tpu_torch.probes.gather.gather_inputs(2, 64, "cpu", __import__("numpy").random.default_rng(0)), 2), 2)
 with tempfile.TemporaryDirectory() as tmp:
     save_problem(spec, os.path.join(tmp, "s.in"))
     buf = io.StringIO()

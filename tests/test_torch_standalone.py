@@ -138,3 +138,19 @@ def test_hostmem_buffers():
 
 def test_run_config_defaults_equal():
     assert dataclasses.asdict(config.RunConfig()) == dataclasses.asdict(jax_config.RunConfig())
+
+
+@pytest.mark.parametrize("module", ["ops/coo.py", "ops/device_rng.py", "ops/lane.py", "ops/stream_v2.py",
+                                    "probes/gather.py", "probes/stream_v2.py", "engine/trainer.py"])
+def test_new_modules_import_neither_jax_nor_the_jax_package(module):
+    import ast
+
+    path = FIXTURES.parent.parent / "recsys_tpu_torch" / module
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    top = {n.split(".")[0] for n in names}
+    assert not top & {"jax", "jaxlib", "recsys_tpu"}, top
