@@ -31,7 +31,16 @@ each printed as it runs:
    ``_native.serial_gd`` bit for bit, and the sum-then-add control, which
    must differ there; then at gen-inst1e6-100-700-1-3's shape (2 steps,
    hub rows of ~20,000 slots, 1M-row buckets) against the twin, bit for
-   bit in f64 and f32, two runs bit for bit.
+   bit in f64 and f32, two runs bit for bit, and one step of the block form
+   against the warp form alone, bit for bit and timed in turns.
+5c. the redesigned forms against the ones they replaced: B3's sparse walk
+   against its dense form bit for bit (``probes/stream_sparse.py``: the
+   small spec in every A storage, k = 40, and gen-instML1M in every
+   precision, 20 steps) and their slopes in turns; ``bell_side_update``'s
+   block form against its warp form bit for bit (``probes/bell_wide.py``:
+   instML100k and a hub-row spec in f64 and f32) and one step at several
+   thresholds in turns.  Each engine form must be no slower than the form
+   it replaced at the main path's shape.
 6. main path, instML100k: ``trainer.run`` in highest, bf16x3 and default on
    the auto plan (resident) and with the stream kind forced, held against
    the golden ``.out`` with launch counts, phase times, the slope and the
@@ -137,6 +146,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "resident_train_top1": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:663"),
     "resident_train": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:238"),
     "stream_train": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:420"),
+    "stream_train_dense": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:420"),
     "stream_top1": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:473"),
     "stream_train_top1": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:433"),
     "tiled_deltas": ("recsys_tpu_torch/csrc/dense_tiled.cu", "recsys_tpu/ops/pallas_dense.py:566"),
@@ -162,6 +172,7 @@ def _wrappers():
         "resident_train_top1": dense_fused.resident_train_top1,
         "resident_train": dense_fused.resident_train,
         "stream_train": dense_stream.stream_train,
+        "stream_train_dense": dense_stream.stream_train_dense,
         "stream_top1": dense_stream.stream_top1,
         "stream_train_top1": dense_stream.stream_train_top1,
         "tiled_deltas": dense_tiled.tiled_deltas,
@@ -334,17 +345,16 @@ def _report_controls(where, controls):
 
 
 def stream_kernels_phase(torch, dev):
-    """B2, B3, B4 and B6 against their twins and against each other.
-    Returns {kernel: max abs error in highest at the shape its main path
-    gives it}: instML100k's for B2 (``--checkpoint``), gen-instML1M's for
-    B3, B4 and B6."""
+    """B2, B3 (both forms), B4 and B6 against their twins and against each
+    other.  Returns {kernel: max abs error in highest at the shape its main
+    path gives it}: instML100k's for B2 (``--checkpoint``), gen-instML1M's
+    for B3, its dense form, B4 and B6."""
     from recsys_tpu_torch import testing as checks
     from recsys_tpu_torch.io.parser import load_problem
     from recsys_tpu_torch.ops import dense_fused as df
     from recsys_tpu_torch.ops import dense_stream as ds
 
-    def same(a, b):
-        return all(torch.equal(x, y) for x, y in zip(a, b))
+    same = checks.same_bits
 
     def probe_rel(train, twin, spec, a_dtype, precision, twin_precision):
         Lt, Rt, A = checks.precision_probe(spec, a_dtype, dev)
@@ -364,6 +374,7 @@ def stream_kernels_phase(torch, dev):
                 L1, R1, t1 = df.resident_train_top1(Lt, Rt, A, precision=precision, items_true=spec.items, **kw)
                 b2 = df.resident_train(Lt, Rt, A, precision=precision, **kw)
                 b3 = ds.stream_train(Lt, Rt, A, precision=precision, **kw)
+                b3d = ds.stream_train_dense(Lt, Rt, A, precision=precision, **kw)
                 b4 = ds.stream_top1(*b3, A, precision=precision, items_true=spec.items)
                 b6 = ds.stream_train_top1(Lt, Rt, A, precision=precision, items_true=spec.items, **kw)
                 twin2 = df.resident_train_plain(Lt, Rt, A, precision=precision, **kw)
@@ -381,12 +392,14 @@ def stream_kernels_phase(torch, dev):
                                precision, precision)
                 err2 = max(float((k - p).abs().max()) for k, p in zip(b2, twin2))
                 err3 = max(float((k - p).abs().max()) for k, p in zip(b3, twin))
+                err3d = max(float((k - p).abs().max()) for k, p in zip(b3d, twin))
                 finite = all(bool(torch.isfinite(x).all()) for x in (*b2, *b3))
                 checks_ok = {
                     "B2=B1 factors": same(b2, (L1, R1)),
                     "B2 vs twin": r2 <= checks.FACTOR_RTOL[precision] and u2 <= checks.UPDATE_RTOL[precision],
                     "B3 vs twin": r3 <= checks.FACTOR_RTOL[precision] and u3 <= checks.UPDATE_RTOL[precision],
                     "B3 vs B2": r32 <= checks.FACTOR_RTOL[precision],
+                    "B3=dense form": same(b3, b3d),
                     "B4=twin": torch.equal(b4, twin_top),
                     "B4=B1 top-1": torch.equal(b4, b1_top),
                     "B6=B3+B4": same(b6, (*b3, b4)),
@@ -396,7 +409,8 @@ def stream_kernels_phase(torch, dev):
                 log(f"[kernel] B2-B6 {name} {precision:7s} A={storage:8s} "
                     f"B2 max_abs_err={err2!r} factor_rel={r2!r} update_rel={u2!r} | "
                     f"B3 max_abs_err={err3!r} factor_rel={r3!r} update_rel={u3!r} vs_B2={r32!r} "
-                    f"(limits {checks.FACTOR_RTOL[precision]} / {checks.UPDATE_RTOL[precision]}) | "
+                    f"(limits {checks.FACTOR_RTOL[precision]} / {checks.UPDATE_RTOL[precision]}) "
+                    f"dense form max_abs_err={err3d!r} = sparse bit for bit {checks_ok['B3=dense form']} | "
                     f"B2=B1 {checks_ok['B2=B1 factors']} B4=twin {checks_ok['B4=twin']} "
                     f"B4=B1 {checks_ok['B4=B1 top-1']} B6=B3+B4 {checks_ok['B6=B3+B4']} "
                     f"{'ok' if not bad else 'FAIL ' + ','.join(bad)}")
@@ -406,6 +420,7 @@ def stream_kernels_phase(torch, dev):
                     worst["resident_train"] = max(worst.get("resident_train", 0.0), err2)
                 if spec is ml1m and precision == "highest":
                     worst["stream_train"] = max(worst.get("stream_train", 0.0), err3)
+                    worst["stream_train_dense"] = max(worst.get("stream_train_dense", 0.0), err3d)
                     worst["stream_top1"] = max(worst.get("stream_top1", 0.0),
                                                float((b4 - twin_top).abs().max()))
                     worst["stream_train_top1"] = max(worst.get("stream_train_top1", 0.0), err3)
@@ -758,6 +773,7 @@ def _bell_big_readings(torch, dev, spec):
     import numpy as np
 
     from recsys_tpu_torch.ops import bell
+    from recsys_tpu_torch.probes import bell_wide
 
     g = torch.Generator(device=dev).manual_seed(0)
     L64, R64 = (torch.rand((n + 1, spec.features), generator=g, dtype=torch.float64, device=dev)
@@ -779,6 +795,7 @@ def _bell_big_readings(torch, dev, spec):
         readings["two runs same"] = all(torch.equal(a, b) for a, b in zip(got, again))
         readings["finite"] = all(bool(torch.isfinite(a).all()) for a in got)
         bad = [k for k, v in readings.items() if not v]
+        del again
         log(f"[kernel] bell_side_update {INST1E6} {np.dtype(dtype).name} {steps} steps "
             f"({len(data.meta.user.bounds)}+{len(data.meta.item.bounds)} buckets, widest "
             f"{max(w for _, _, w in data.meta.user.bounds)}/{max(w for _, _, w in data.meta.item.bounds)} slots): "
@@ -786,14 +803,25 @@ def _bell_big_readings(torch, dev, spec):
             f"{torch.cuda.max_memory_allocated(dev)!r} B {'ok' if not bad else 'FAIL'}")
         if bad:
             failed.append(f"{INST1E6} {np.dtype(dtype).name}: {bad}")
-        del got, again, L, R, t, data
+        del got
+        # The block form (the engine's) against the warp form alone, one
+        # step, bit for bit (raises otherwise) and in turns.
+        bell_wide.compare(INST1E6, L, R, t, data.meta, a2, 1, twin=False)
+        bell_wide.step_ms(INST1E6, L, R, t, data.meta, a2, (bell.WIDE_MIN, bell.WARP_FORM), steps=1, rounds=3)
+        bell_wide.side_ms(INST1E6, L, R, t, data.meta, a2, rounds=3)
+        nbytes, flops = _bell_work(L, R, t, data.meta, spec.nnz)
+        peak = F64_FLOPS if dtype is np.float64 else F32_FLOPS
+        log(f"[kernels] bell_side_update at {INST1E6} {np.dtype(dtype).name}, one step: {nbytes} B, {flops!r} FLOP, "
+            f"bound {_bound(flops, nbytes, peak)!r} ms")
+        del L, R, t, data
         torch.cuda.empty_cache()
     return failed
 
 
 def bell_kernel_phase(torch, dev, big):
-    """``bell_side_update`` against its twin, bit for bit, in f64 and f32,
-    on the small specs and on instML100k (20 steps), two runs bit for bit;
+    """``bell_side_update`` against its twin and its warp form alone, bit for
+    bit, in f64 and f32, on the small specs and on instML100k (20 steps),
+    two runs bit for bit;
     in f64 against ``_native.serial_gd``; the sum-then-add control, which
     must differ from it at instML100k; then the same twin and rerun
     readings at ``big``'s shape (``_bell_big_readings``).  Returns the max
@@ -817,12 +845,15 @@ def bell_kernel_phase(torch, dev, big):
             a2 = 2.0 * spec.alpha
             got = bell.bell_train(L, R, t, a2, data.meta, spec.iters)
             again = bell.bell_train(L, R, t, a2, data.meta, spec.iters)
+            warp = bell.bell_train(L, R, t, a2, data.meta, spec.iters, wide=bell.WARP_FORM)
             twin = bell.bell_train_plain(L, R, t, a2, data.meta, spec.iters)
             torch.cuda.synchronize()
             err = max(float((g - w).abs().max()) for g, w in zip(got, twin))
+            err_warp = max(float((g - w).abs().max()) for g, w in zip(warp, twin))
             readings = {
-                "= twin": all(torch.equal(g, w) for g, w in zip(got, twin)),
-                "two runs same": all(torch.equal(g, a) for g, a in zip(got, again)),
+                "= twin": checks.same_bits(got, twin),
+                "= warp form": checks.same_bits(got, warp),
+                "two runs same": checks.same_bits(got, again),
                 "finite": all(bool(torch.isfinite(g).all()) for g in got),
             }
             if dtype is np.float64:
@@ -842,6 +873,7 @@ def bell_kernel_phase(torch, dev, big):
             bad = [k for k, v in readings.items() if not v]
             log(f"[kernel] bell_side_update {name} {np.dtype(dtype).name} {spec.iters} steps "
                 f"({len(data.meta.user.bounds)}+{len(data.meta.item.bounds)} buckets): max_abs_err={err!r} "
+                f"(warp form alone {err_warp!r}) "
                 f"{' '.join(f'{k}={v}' for k, v in readings.items())} {'ok' if not bad else 'FAIL'}")
             if bad:
                 failed.append(f"{name} {np.dtype(dtype).name}: {bad}")
@@ -849,6 +881,34 @@ def bell_kernel_phase(torch, dev, big):
     if failed:
         raise AssertionError(f"bell_side_update readings failed: {failed}")
     return worst
+
+
+def redesign_phase(torch, dev, launches):
+    """The redesigned forms against the forms they replaced, at the main
+    paths' shapes: B3's sparse walk against its dense form
+    (``probes/stream_sparse.py``) and ``bell_side_update``'s block form
+    against its warp form (``probes/bell_wide.py``), bit for bit, then
+    timed in turns.  Each engine form must be no slower.  The B3 probe runs
+    in one launch-count window.  Returns ({form: gen-instML1M slope and
+    time}, {threshold: instML100k f64 ms a step})."""
+    from recsys_tpu_torch.ops import bell
+    from recsys_tpu_torch.probes import bell_wide, stream_sparse
+
+    counts = {}
+    with counted(counts):
+        _, slopes = stream_sparse.run(dev)
+    launches["B3 sparse probe", "all shapes"] = counts
+    log(f"[probe] B3 sparse probe launches: {_nonzero(counts)}")
+    sweep = bell_wide.run(dev)
+    b3_ok = slopes["sparse"]["us_per_step"] <= slopes["dense"]["us_per_step"]
+    bell_ok = sweep[bell.WIDE_MIN] <= sweep[bell.WARP_FORM]
+    log(f"[redesign] gen-instML1M B3 slope: sparse {slopes['sparse']['us_per_step']!r} us/iter against dense "
+        f"{slopes['dense']['us_per_step']!r} -> the engine's sparse form no slower {b3_ok}")
+    log(f"[redesign] instML100k f64 bell step: block form from {bell.WIDE_MIN} slots {sweep[bell.WIDE_MIN]!r} ms "
+        f"against the warp form alone {sweep[bell.WARP_FORM]!r} ms -> the engine's block form no slower {bell_ok}")
+    if not (b3_ok and bell_ok):
+        raise AssertionError("an engine form is slower than the form it replaced")
+    return slopes, sweep
 
 
 def _golden_run(name, spec, golden, floor, dev, torch, launches, label, dtype, path="auto"):
@@ -1254,6 +1314,10 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     counts = launches["gen-instML1M", "auto"]
     add("stream_train", counts["stream_train"], errs["stream_train"],
         times["B3"][0] * 1e3, times["B3"][1] * 1e3, tr, a_b + 2 * f_b)
+    # The dense form left the main path: its launches are the B3 probe's.
+    add("stream_train_dense", launches["B3 sparse probe", "all shapes"]["stream_train_dense"],
+        errs["stream_train_dense"], cuda_event_ms(lambda: ds.stream_train_dense(Lt, Rt, A, **kw)),
+        times["B3"][1] * 1e3, tr, a_b + 2 * f_b)
     b4_ms = cuda_event_ms(lambda: ds.stream_top1(Lf, Rf, A, precision="highest", items_true=ml1m.items), 20)
     b4_plain = cuda_event_ms(lambda: ds.stream_top1_plain(Lf, Rf, A, precision="highest", items_true=ml1m.items), 5)
     add("stream_top1", counts["stream_top1"], errs["stream_top1"], b4_ms, b4_plain, tp, a_b + f_b + 4 * plan.U)
@@ -1280,6 +1344,16 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     return out
 
 
+def _bell_work(L, R, t, meta, nnz):
+    """(bytes, FLOP) of one BELL step: each factor table read once (as own
+    and as other side), the slot tables (int32 index and a value), the
+    updated rows written; 4*k FLOP per rating and side."""
+    k, size = L.shape[1], L.element_size()
+    nbytes = (2 * size * k * (L.shape[0] + R.shape[0]) + (4 + size) * (t.ucols.numel() + t.irows.numel())
+              + size * k * (meta.user.n_nz + meta.item.n_nz))
+    return nbytes, 2 * 4.0 * k * nnz
+
+
 def bell_records(torch, dev, ml100k, launches, errs):
     """The kernels line's entries of ``bell_side_update`` (one step, its
     two launches, at instML100k in f64; 4*k f64 FLOP per rating and side),
@@ -1299,19 +1373,20 @@ def bell_records(torch, dev, ml100k, launches, errs):
     a2, k, m = 2.0 * ml100k.alpha, ml100k.features, data.meta
     oL, oR = L.clone(), R.clone()
 
-    def bell_step():
-        bell.bell_side_update(L, R, t.ucols, t.uvals, m.user, a2, out=oL)
-        bell.bell_side_update(R, L, t.irows, t.ivals, m.item, a2, out=oR)
+    def bell_step(wide=bell.WIDE_MIN):
+        bell.bell_side_update(L, R, t.ucols, t.uvals, m.user, a2, out=oL, wide=wide)
+        bell.bell_side_update(R, L, t.irows, t.ivals, m.item, a2, out=oR, wide=wide)
 
-    # Bytes: each factor table read once (as own and as other side), the
-    # slot tables (int32 index and f64 value), the updated rows written.
-    nbytes = (2 * 8 * k * (L.shape[0] + R.shape[0]) + 12 * (t.ucols.numel() + t.irows.numel())
-              + 8 * k * (m.user.n_nz + m.item.n_nz))
-    flops = 2 * 4.0 * k * ml100k.nnz
+    nbytes, flops = _bell_work(L, R, t, m, ml100k.nnz)
     out = [_record("bell_side_update", launches["instML100k f64", "auto"]["bell_side_update"],
                    errs["bell_side_update"], device_ms(bell_step, 200, ("side_update",)),
                    device_ms(lambda: bell.bell_gd_step_plain(L, R, t, a2, m), 3),
                    flops, nbytes, F64_FLOPS)]
+    # The warp form alone, the form the block form replaced: the same entry
+    # point with no row in a block (``bell.WARP_FORM``), timed alike.
+    log(f"[redesign] bell_side_update at instML100k f64, one step: warp form alone "
+        f"{device_ms(lambda: bell_step(bell.WARP_FORM), 200, ('side_update',))!r} ms against the block form "
+        f"{out[0]['ms']!r} ms")
     gathered = 8 * k * (t.ucols.numel() + t.irows.numel()) + 2 * 8 * k * (m.user.n_nz + m.item.n_nz)
     log(f"[kernels] bell_side_update at instML100k f64, counting every gathered row (the slots, "
         f"{t.ucols.numel()} + {t.irows.numel()}) and the own rows read and written: {gathered} B, "
@@ -1396,6 +1471,7 @@ def main() -> int:
         errs["tiled_deltas"] = tiled_kernel_phase(torch, dev, big)
         errs["bell_side_update"] = bell_kernel_phase(torch, dev, big)
         launches = {}
+        redesign_phase(torch, dev, launches)
         ml100k, train1, plain1 = ml100k_phase(torch, dev, launches)
         ml1m, train2, plain2 = ml1m_phase(torch, dev, launches)
         checkpoint_phase(torch, dev, launches)

@@ -222,27 +222,29 @@ def dense_plan(spec: ProblemSpec, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES, ti
 
 
 def _dense_inputs(spec: ProblemSpec, plan: DensePlan, device, state: MFState | None = None):
-    """(Lt, Rt, A^T) on ``device`` in the plan's layout, timed as the
-    ``prep`` and ``upload`` phases."""
+    """(Lt, Rt, A^T, train keywords) on ``device`` in the plan's layout,
+    timed as the ``prep`` and ``upload`` phases.  On the card the stream
+    plan's keywords hold B3's walk of the rated cells, built here."""
     with phase("prep"):
         Lt, Rt, _ = dense_fused.pad_factors_for_pallas(spec, state=state)
     with phase("upload") as psync:
         A = dense_fused.device_dense_AT(spec, plan.U, plan.I, plan.a_dtype, device)
         Lt = torch.from_numpy(Lt).to(device)
         Rt = torch.from_numpy(Rt).to(device)
-        psync((A, Lt, Rt))
-    return Lt, Rt, A
+        walk = dense_stream.stream_walk(A, Lt.shape[0]) if plan.kind == "stream" and A.is_cuda else None
+        psync((A, Lt, Rt, walk.tables if walk else ()))
+    return Lt, Rt, A, ({"walk": walk} if walk else {})
 
 
 def _pallas_fused_top1(spec: ProblemSpec, plan: DensePlan, precision: str, device) -> np.ndarray:
     """Training loop + masked top-1 on the plan's kernels (trainer.py:683):
     one B1 call on ``resident``; on ``stream``, B3 in the ``train`` phase
     and then B4 in the ``top1`` phase, as the JAX code splits them."""
-    Lt, Rt, A = _dense_inputs(spec, plan, device)
+    Lt, Rt, A, train_kw = _dense_inputs(spec, plan, device)
     kw = dict(alpha2=2.0 * spec.alpha, precision=precision)
     if plan.kind == "stream":
         with phase("train") as psync:
-            Lt, Rt = dense_stream.stream_train(Lt, Rt, A, iters=spec.iters, **kw)
+            Lt, Rt = dense_stream.stream_train(Lt, Rt, A, iters=spec.iters, **kw, **train_kw)
             psync((Lt, Rt))
         with phase("top1"):
             top1 = dense_stream.stream_top1(Lt, Rt, A, precision=precision, items_true=spec.items)
@@ -431,10 +433,11 @@ def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", st
     plan = dense_plan(spec, a_max_bytes=a_max_bytes, tiled=tiled)
     if plan.kind == "tiled":
         return convert.tiled_to_state(*_tiled_train(spec, plan, mxu_precision(cfg), device, state), spec)
-    Lt, Rt, A = _dense_inputs(spec, plan, device, state)
+    Lt, Rt, A, train_kw = _dense_inputs(spec, plan, device, state)
     train = dense_fused.resident_train if plan.kind == "resident" else dense_stream.stream_train
     with phase("train") as psync:
-        Lt, Rt = train(Lt, Rt, A, iters=spec.iters, alpha2=2.0 * spec.alpha, precision=mxu_precision(cfg))
+        Lt, Rt = train(Lt, Rt, A, iters=spec.iters, alpha2=2.0 * spec.alpha, precision=mxu_precision(cfg),
+                       **train_kw)
         psync((Lt, Rt))
     return convert.to_state(Lt, Rt, spec)
 

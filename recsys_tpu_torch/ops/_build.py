@@ -100,14 +100,22 @@ SIGNATURES = {
     # At, a_kind, Lt_in .. part_r (8 pointers), K, U, I, G, C, iters, alpha2,
     # precision, chunk, S, stream
     "rs_stream_train": [_P, _I, *[_P] * 8, *[_I] * 6, _F, *[_I] * 3, _P],
-    # At, a_kind, Lt_in .. part_r, top_val, top_idx, top1 (11 pointers), K,
-    # U, I, G, C, iters, alpha2, precision, items_true, chunk, S, top_chunk,
-    # top_S, stream
-    "rs_stream_train_top1": [_P, _I, *[_P] * 11, *[_I] * 6, _F, *[_I] * 6, _P],
+    # the walk's 8 tables, cap, Lt_in .. part_r (8 pointers), K, U, I, G,
+    # C, iters, alpha2, precision, chunk, S, SR, stream
+    "rs_stream_sparse_train": [*[_P] * 8, _I, *[_P] * 8, *[_I] * 6, _F, *[_I] * 4, _P],
+    # the walk's 8 tables, cap, At, a_kind, Lt_in .. part_r, top_val,
+    # top_idx, top1 (11 pointers), K, U, I, G, C, iters, alpha2, precision,
+    # items_true, chunk, S, SR, top_chunk, top_S, stream
+    "rs_stream_train_top1": [*[_P] * 8, _I, _P, _I, *[_P] * 11, *[_I] * 6, _F, *[_I] * 7, _P],
     # A, At, a_kind, L, R, dL, dR, part, U, I, K, precision, chunk, S, stream
     "rs_tiled_deltas": [_P, _P, _I, *[_P] * 5, *[_I] * 6, _P],
-    # own, other, out, idx, vals, buckets, nb, warps, k, pad, alpha2, f64, stream
-    "rs_bell_side_update": [*[_P] * 6, _I, _LL, _I, _I, _D, _I, _P],
+    # own, other, out, idx, vals, narrow, nb_narrow, warps, wide, nb_wide,
+    # blocks, escr, k, pad, alpha2, f64, stream
+    "rs_bell_side_update": [*[_P] * 6, _I, _LL, _P, _I, _LL, _P, _I, _I, _D, _I, _P],
+    # L, R, l0, l1, r0, r1; per side (user, item): cols, vals, narrow,
+    # nb_narrow, warps, wide, nb_wide, blocks, escr; iters, k, users,
+    # items, alpha2, f64, stream
+    "rs_bell_train": [*[_P] * 6, *[_P, _P, _P, _I, _LL, _P, _I, _LL, _P] * 2, *[_I] * 4, _D, _I, _P],
     # table, idx, out, S, K, stream
     "rs_gather_rows": [_P, _P, _P, _LL, _I, _P],
     # table, idx, vals, out, S, K, blk, stream

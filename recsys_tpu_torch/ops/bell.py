@@ -369,25 +369,48 @@ def bell_train_plain(L, R, tables: BellTables, alpha2: float, meta: BellMeta, it
 # ---------------------------------------------------------------------
 
 
-def side_warps(side: BellSide) -> tuple[np.ndarray, int]:
-    """The kernel's bucket descriptors, int64 (nb, 6) rows of (flat base,
-    first warp, b0, n, w, rows per warp), and its warp count.  A warp takes
-    one row of a bucket at least 32 wide, else as many rows as fit 32 of
-    their slots (csrc/bell.cu)."""
-    rows, base, warp0 = [], 0, 0
+# Rows of a bucket at least this many slots wide take the block form
+# (csrc/bell.cu, side_update_wide), narrower ones the warp form.  A width
+# above every bucket's (``WARP_FORM``) gives the warp form alone, the
+# kernel as it was before the block form.
+WIDE_MIN = 128
+WARP_FORM = 1 << 62
+
+
+class SideDesc(NamedTuple):
+    """One side's kernel descriptors (``side_warps``): int64 (nb, 6) rows
+    of (flat base, first warp or block, b0, n, w, rows per warp)."""
+
+    narrow: object  # buckets narrower than the threshold: warps
+    warps: int
+    wide: object  # the others: a block a row (rows per warp 1)
+    blocks: int
+
+
+def side_warps(side: BellSide, wide: int = WIDE_MIN) -> SideDesc:
+    """The kernel's bucket descriptors for both forms.  A bucket ``wide``
+    slots wide or wider gives each of its rows a block; a narrower one
+    gives a warp one row when it is at least 32 wide, else as many rows as
+    fit 32 of their slots (csrc/bell.cu)."""
+    narrow, wide_rows, base, warp0, block0 = [], [], 0, 0, 0
     for (b0, b1, w) in side.bounds:
         n = b1 - b0
-        rpw = max(1, 32 // w)
-        rows.append((base, warp0, b0, n, w, rpw))
+        if w >= wide:
+            wide_rows.append((base, block0, b0, n, w, 1))
+            block0 += n
+        else:
+            rpw = max(1, 32 // w)
+            narrow.append((base, warp0, b0, n, w, rpw))
+            warp0 += -(-n // rpw)
         base += w * n
-        warp0 += -(-n // rpw)
-    return np.array(rows, np.int64).reshape(-1, 6), warp0
+    return SideDesc(np.array(narrow, np.int64).reshape(-1, 6), warp0,
+                    np.array(wide_rows, np.int64).reshape(-1, 6), block0)
 
 
-def _side_desc(side: BellSide, dev):
+def _side_desc(side: BellSide, dev, wide: int):
     """``side_warps`` with the descriptors on ``dev``."""
-    desc, warps = side_warps(side)
-    return torch.from_numpy(desc).to(dev), warps
+    d = side_warps(side, wide)
+    return d._replace(narrow=torch.from_numpy(d.narrow).to(dev), wide=torch.from_numpy(d.wide).to(dev))
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
@@ -416,7 +439,8 @@ def _check(F_own, F_other, cols, vals, side: BellSide):
         raise ValueError("tables must be on one device")
 
 
-def bell_side_update(F_own, F_other, cols, vals, side: BellSide, alpha2: float, *, out=None):
+def bell_side_update(F_own, F_other, cols, vals, side: BellSide, alpha2: float, *, out=None,
+                     wide: int = WIDE_MIN):
     """One side of a BELL step: every row of ``side`` with at least one
     entry updated from the snapshot (``F_own``, ``F_other``), slot by slot
     in file order (see the module docstring).  ``F_own`` is (size + 1, k),
@@ -424,7 +448,9 @@ def bell_side_update(F_own, F_other, cols, vals, side: BellSide, alpha2: float, 
     side's flat tables.  Returns the new table: ``out`` when given (its rows
     from ``side.n_nz`` on must already hold ``F_own``'s), else a copy of
     ``F_own`` updated.  CPU tensors go to the plain twin; CUDA tensors to
-    the kernel, which counts each launch in ``.launches``."""
+    the kernel, which counts each launch in ``.launches``: rows of buckets
+    ``wide`` slots wide or wider in its block form, the others in its warp
+    form (``WARP_FORM``: all in the warp form); the same bits either way."""
     _check(F_own, F_other, cols, vals, side)
     if out is not None and (out.shape != F_own.shape or out.dtype != F_own.dtype or out.device != F_own.device
                             or not out.is_contiguous()):
@@ -436,22 +462,24 @@ def bell_side_update(F_own, F_other, cols, vals, side: BellSide, alpha2: float, 
         return new if out is None else out.copy_(new)
     dev = _kernel_device(F_own)
     return _launch(F_own, F_other, cols, vals, alpha2, F_own.clone() if out is None else out,
-                   _side_desc(side, dev))
+                   _side_desc(side, dev, wide))
 
 
 bell_side_update.launches = 0
 
 
 def _launch(F_own, F_other, cols, vals, alpha2, out, desc):
-    """One ``rs_bell_side_update`` launch into ``out`` over the side's
+    """One ``rs_bell_side_update`` call into ``out`` over the side's
     descriptors ``desc`` (``_side_desc``), on tensors already checked;
-    counted in ``bell_side_update.launches``."""
-    desc, warps = desc
-    if warps:
+    counted in ``bell_side_update.launches``.  The block form's e goes to
+    a scratch table like ``vals``."""
+    if desc.warps or desc.blocks:
         dev = out.device
+        escr = torch.empty_like(vals) if desc.blocks else vals
         with torch.cuda.device(dev):
             rc = _build.load().rs_bell_side_update(
-                *_ptrs(F_own, F_other, out, cols, vals, desc), desc.shape[0], warps, F_own.shape[1],
+                *_ptrs(F_own, F_other, out, cols, vals, desc.narrow), desc.narrow.shape[0], desc.warps,
+                *_ptrs(desc.wide), desc.wide.shape[0], desc.blocks, *_ptrs(escr), F_own.shape[1],
                 F_other.shape[0] - 1, float(alpha2), _DTYPE_CODE[F_own.dtype], _stream(dev),
             )
         if rc != 0:
@@ -470,22 +498,37 @@ def bell_gd_step(L, R, tables: BellTables, alpha2: float, meta: BellMeta):
             bell_side_update(R, L, tables.irows, tables.ivals, meta.item, alpha2))
 
 
-def bell_train(L, R, tables: BellTables, alpha2: float, meta: BellMeta, iters: int, *, donate: bool = False):
+def bell_train(L, R, tables: BellTables, alpha2: float, meta: BellMeta, iters: int, *, donate: bool = False,
+               wide: int = WIDE_MIN):
     """``iters`` BELL steps (``trainer._train_bell``).  On a CUDA device
     the steps alternate between two buffers per side, so rows that never
     change need no copy per step: with ``donate`` the input tensors are one
     of them and are overwritten, else both are copies and the inputs are
-    left as they are.  CPU tensors run ``bell_train_plain``."""
+    left as they are.  ``wide`` picks each bucket's form as in
+    ``bell_side_update``.  The step loop runs in C (``rs_bell_train``), two
+    side updates a step counted in ``bell_side_update.launches``.  CPU
+    tensors run ``bell_train_plain``."""
     _check(L, R, tables.ucols, tables.uvals, meta.user)
     _check(R, L, tables.irows, tables.ivals, meta.item)
     if L.device.type == "cpu":
         return bell_train_plain(L, R, tables, alpha2, meta, iters)
     dev = _kernel_device(L)
-    udesc, idesc = _side_desc(meta.user, dev), _side_desc(meta.item, dev)
+    udesc, idesc = _side_desc(meta.user, dev, wide), _side_desc(meta.item, dev, wide)
     bufs_l = [L.clone(), L] if donate else [L.clone() for _ in range(min(iters, 2))]
     bufs_r = [R.clone(), R] if donate else [R.clone() for _ in range(min(iters, 2))]
-    for it in range(iters):
-        nl, nr = bufs_l[it % 2], bufs_r[it % 2]
-        L, R = (_launch(L, R, tables.ucols, tables.uvals, alpha2, nl, udesc),
-                _launch(R, L, tables.irows, tables.ivals, alpha2, nr, idesc))
-    return L, R
+    if iters == 0:
+        return L, R
+    sides = []
+    for cols, vals, d in ((tables.ucols, tables.uvals, udesc), (tables.irows, tables.ivals, idesc)):
+        escr = torch.empty_like(vals) if d.blocks else vals
+        sides += [*_ptrs(cols, vals, d.narrow), d.narrow.shape[0], d.warps, *_ptrs(d.wide), d.wide.shape[0],
+                  d.blocks, *_ptrs(escr)]
+    with torch.cuda.device(dev):
+        rc = _build.load().rs_bell_train(
+            *_ptrs(L, R, bufs_l[0], bufs_l[-1], bufs_r[0], bufs_r[-1]), *sides, iters, L.shape[1], meta.user.size, meta.item.size,
+            float(alpha2), _DTYPE_CODE[L.dtype], _stream(dev),
+        )
+    if rc != 0:
+        raise RuntimeError(f"rs_bell_train failed: CUDA error {rc}")
+    bell_side_update.launches += iters * sum(1 for d in (udesc, idesc) if d.warps or d.blocks)
+    return bufs_l[(iters - 1) % 2], bufs_r[(iters - 1) % 2]

@@ -6,14 +6,18 @@ while the factors stay in VMEM (``_stream_call`` :372).  Its entry points
 and their counterparts here:
 
 * ``stream_train`` (:420, B3): ``iters`` GD steps.  CUDA kernel
-  ``csrc/dense_stream.cu`` (``rs_stream_train``): one read of each A^T tile
-  per step feeds both gradient sides.
+  ``csrc/dense_stream.cu`` in its sparse form (``rs_stream_sparse_train``):
+  a walk of the rated cells alone over tables that ``walk_tables`` builds
+  once per call, bit for bit the dense form's steps.  The dense form
+  (``rs_stream_train``: one read of each A^T tile per step feeds both
+  gradient sides) stays callable as ``stream_train_dense``, the baseline
+  of ``probes/stream_sparse.py``.
 * ``stream_top1`` (:473, B4): the masked top-1 from final factors.  CUDA
   kernel ``top1_pass`` + ``top1_reduce`` of ``csrc/dense_fused.cu`` behind
   their own entry (``rs_stream_top1``), so from the same factors it is B1's
   top-1 bit for bit.
-* ``stream_train_top1`` (:433, B6): B3's steps, then B4's pass, in one host
-  call (``rs_stream_train_top1``).
+* ``stream_train_top1`` (:433, B6): B3's steps (the sparse form), then
+  B4's pass, in one host call (``rs_stream_train_top1``).
 
 Each has a plain torch twin of the same math.  The wrappers take the plain
 twin for CPU tensors and the kernel for CUDA tensors, and raise for
@@ -25,10 +29,12 @@ of 128, K a multiple of 8 up to ``dense_fused.MAX_K``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from recsys_tpu_torch.ops import _build
+from recsys_tpu_torch.ops.precision import bsplit, round_bf16
 from recsys_tpu_torch.ops.dense_fused import (
     _A_KIND,
     _PRECISION_CODE,
@@ -38,6 +44,7 @@ from recsys_tpu_torch.ops.dense_fused import (
     _ptrs,
     _split,
     exact_f32,
+    load_at,
     plain_top1,
     plain_train,
     round_up,
@@ -80,6 +87,160 @@ def stream_partial_bytes(K: int, U: int, I: int, sms: int = H100_SMS,
     part_r (U*G / (128*C), K, I), f32."""
     G, C, _, S = stream_split(K, U, I, sms, grid)
     return 4 * K * (S * U + U * G // (128 * C) * I)
+
+
+def sub_strip(G: int) -> int:
+    """Items a block of the sparse form stages at a time
+    (``csrc/dense_stream.cu``, SR): 64, or 32 when a column spans G > 1
+    lanes, so its shared memory stays under 227 KB at K = 256."""
+    return 64 if G == 1 else 32
+
+
+# u_cell packs the user within its block above the item within its chunk.
+_CELL_ITEM_BITS = 24
+
+
+class Walk(NamedTuple):
+    """The sparse form's tables for one A^T and split (``walk_tables``).
+    A tile is block (cb, si) of the stream grid, numbered si * (U / BC) +
+    cb; its cells split into sub-strips of ``sub`` items."""
+
+    u_cell: torch.Tensor  # int32, user order: user in block << 24 | item in chunk
+    u_val: torch.Tensor  # f32, user order: the dequantised rating
+    u_off: torch.Tensor  # int32 (tiles * subs * BC + 1,): first cell of (tile, sub, user)
+    u_order: torch.Tensor  # int32 (tiles * BC,): a tile's users by descending degree
+    i_user: torch.Tensor  # int32, item order: user in block
+    i_cell: torch.Tensor  # int32, item order: the cell's position in user order
+    i_off: torch.Tensor  # int32 (tiles * chunk + 1,): first cell of (tile, item in chunk)
+    i_order: torch.Tensor  # int32 (tiles * chunk,): items by descending degree in each sub-strip
+    split: tuple  # (G, C, chunk, S) of stream_split
+    sub: int  # items per sub-strip
+    cap: int  # the most cells of one (tile, sub-strip) segment
+
+    @property
+    def tables(self) -> tuple:
+        return self[:8]
+
+
+def _offsets(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """int32 (n + 1,) start of each key's run in an order sorted by key."""
+    off = torch.zeros(n + 1, dtype=torch.int64, device=keys.device)
+    off[1:] = torch.cumsum(torch.bincount(keys, minlength=n), 0)
+    return off.to(torch.int32)
+
+
+def _by_degree(groups: torch.Tensor, counts: torch.Tensor, n: int) -> torch.Tensor:
+    """Within each row of ``groups`` (rows, m), positions ordered by
+    (group, descending count, position): the stable sort of a composite
+    key."""
+    key = groups * (n + 1) + (n - counts)
+    return torch.sort(key, dim=1, stable=True).indices.to(torch.int32).reshape(-1)
+
+
+def walk_tables(At, split: tuple, sub: int) -> Walk:
+    """The rated cells of A^T (I, U) as the sparse form walks them, built
+    with torch ops on At's device.  ``split`` is ``stream_split``'s (G, C,
+    chunk, S): it fixes B3's order of sums, which the tables keep.  User
+    order: by (tile, sub-strip, user, item); item order: by (tile, item,
+    user), with each cell's position in user order."""
+    G, C, chunk, S = split
+    I, U = At.shape
+    if I >= 1 << _CELL_ITEM_BITS:
+        raise ValueError(f"the sparse form takes fewer than 2^{_CELL_ITEM_BITS} items; got {I}")
+    BC, dev = 128 // G, At.device
+    nb, nsub = U // BC, -(-chunk // sub)
+    ntile = S * nb
+    r, c = torch.nonzero(At, as_tuple=True)  # (item, user) ascending: item order within a tile
+    val = load_at(At[r, c])
+    n = r.numel()
+    cl, rl = c % BC, r % chunk
+    tile = (r // chunk) * nb + c // BC
+    user_run = (tile * nsub + rl // sub) * BC + cl
+    u_perm = torch.argsort(user_run * chunk + rl)  # unique keys
+    pos = torch.empty(n, dtype=torch.int64, device=dev)
+    pos[u_perm] = torch.arange(n, device=dev)
+    i_perm = torch.sort(tile, stable=True).indices
+    udeg = torch.bincount(tile * BC + cl, minlength=ntile * BC).view(ntile, BC)
+    ideg = torch.bincount(tile * chunk + rl, minlength=ntile * chunk).view(ntile, chunk)
+    strips = (torch.arange(chunk, device=dev) // sub).expand(ntile, chunk)
+    u_off = _offsets(user_run, ntile * nsub * BC)
+    return Walk(
+        u_cell=((cl << _CELL_ITEM_BITS) | rl)[u_perm].to(torch.int32),
+        u_val=val[u_perm].contiguous(),
+        u_off=u_off,
+        u_order=_by_degree(torch.zeros_like(udeg), udeg, n),
+        i_user=cl[i_perm].to(torch.int32),
+        i_cell=pos[i_perm].to(torch.int32),
+        i_off=_offsets(tile * chunk + rl, ntile * chunk),
+        i_order=_by_degree(strips, ideg, n),
+        split=tuple(split),
+        sub=sub,
+        cap=int(torch.diff(u_off[::BC]).max()),
+    )
+
+
+def _cell_prod(a, b, precision: str):
+    """Elementwise a * b under ``precision``, as ``precision.dot`` forms
+    each product: bf16x3 ``(ah*bl + al*bh) + ah*bh``, default both bf16."""
+    if precision == "bf16x3":
+        (ah, al), (bh, bl) = bsplit(a), bsplit(b)
+        return (ah * bl + al * bh) + ah * bh
+    if precision == "default":
+        return round_bf16(a) * round_bf16(b)
+    return a * b
+
+
+def walk_train_plain(Lt, Rt, walk: Walk, *, iters: int, alpha2: float, precision: str = "highest"):
+    """Plain torch GD steps over the walk's tables: pred and e per rated
+    cell in user order, the dLt partials per item chunk from the user
+    order and the dRt partials per cluster from the item order, each
+    summed over its partials in ascending order.  The same function as
+    ``stream_train_plain``, its sums grouped as the sparse form groups
+    them (within a partial, in index_add's order)."""
+    G, C, chunk, S = walk.split
+    K, U = Lt.shape
+    I = Rt.shape[1]
+    BC = 128 // G
+    nb, nsub = U // BC, -(-chunk // walk.sub)
+    dev = Lt.device
+    mask = (1 << _CELL_ITEM_BITS) - 1
+    runs = torch.repeat_interleave(torch.arange(nb * S * nsub * BC, device=dev), torch.diff(walk.u_off.long()))
+    tile = runs // (nsub * BC)
+    uc = (tile % nb) * BC + (walk.u_cell.long() >> _CELL_ITEM_BITS)
+    ur = (tile // nb) * chunk + (walk.u_cell.long() & mask)
+    items = torch.repeat_interleave(torch.arange(nb * S * chunk, device=dev), torch.diff(walk.i_off.long()))
+    ic = (items // chunk % nb) * BC + walk.i_user.long()
+    ir = (items // (chunk * nb)) * chunk + items % chunk
+    cluster = (items // chunk % nb) // C
+    part_at = ((tile // nb) * U + uc, cluster * I + ir)
+    n_parts = (S, U // (BC * C))
+
+    def summed(x, idx, parts, n):
+        part = torch.zeros((K, parts * n), dtype=torch.float32, device=dev).index_add_(1, idx, x)
+        part = part.view(K, parts, n)
+        total = part[:, 0]
+        for s in range(1, parts):
+            total = total + part[:, s]
+        return total
+
+    with exact_f32(dev):
+        for _ in range(iters):
+            pred = _pred_cells(Rt[:, ur], Lt[:, uc], precision)
+            e = walk.u_val - pred
+            dLt = summed(_cell_prod(Rt[:, ur], e, precision), part_at[0], n_parts[0], U)
+            dRt = summed(_cell_prod(Lt[:, ic], e[walk.i_cell.long()], precision), part_at[1], n_parts[1], I)
+            Lt, Rt = Lt + alpha2 * dLt, Rt + alpha2 * dRt
+    return Lt, Rt
+
+
+def _pred_cells(y, x, precision: str):
+    """Per cell (column), the dot of two (K, n) tables under ``precision``."""
+    if precision == "bf16x3":
+        (yh, yl), (xh, xl) = bsplit(y), bsplit(x)
+        return (yh * xl + yl * xh).sum(0) + (yh * xh).sum(0)
+    if precision == "default":
+        return (round_bf16(y) * round_bf16(x)).sum(0)
+    return (y * x).sum(0)
 
 
 def stream_train_plain(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest"):
@@ -130,20 +291,66 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def stream_walk(At, K: int, grid: tuple[int, int] = _GRID) -> Walk:
+    """The sparse form's tables for A^T on its CUDA device, at the split
+    ``stream_train`` takes for K factors and ``grid``.  A caller that builds
+    them ahead (the engine, in its ``upload`` phase) passes them to
+    ``stream_train`` as ``walk``."""
+    I, U = At.shape
+    split = stream_split(K, U, I, _sms(At.device), grid)
+    return walk_tables(At, split, sub_strip(split[0]))
+
+
+def _walk_for(walk: Walk | None, At, K: int, split: tuple, grid=_GRID) -> Walk:
+    """``walk``, or the tables built now; raises when a given walk was
+    built for another split."""
+    if walk is None:
+        return stream_walk(At, K, grid)
+    if tuple(walk.split) != tuple(split):
+        raise ValueError(f"the walk was built for split {walk.split}, the kernel takes {split}")
+    return walk
+
+
 def stream_train(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest",
-                 grid: tuple[int, int] = _GRID):
-    """``iters`` stable-snapshot GD steps with A^T read once per step (port
-    of ``pallas_dense.stream_train`` :420).  Returns (Lt', Rt').  CPU
+                 grid: tuple[int, int] = _GRID, walk: Walk | None = None):
+    """``iters`` stable-snapshot GD steps (port of
+    ``pallas_dense.stream_train`` :420), the rated cells alone walked on the
+    card, bit for bit ``stream_train_dense``.  Returns (Lt', Rt').  CPU
     tensors go to the plain twin; CUDA tensors to the kernel, which counts
     each launch in ``.launches``.  ``grid`` (blocks per SM, largest
-    cluster) sizes the kernel's grid; the engine keeps the default, and
-    ``probes/stream_grid.py`` sweeps it."""
+    cluster) sizes the kernel's grid and so its order of sums; the engine
+    keeps the default, and ``probes/stream_grid.py`` sweeps it.  ``walk``
+    is ``stream_walk(At, K, grid)`` built ahead, else the call builds it."""
     K, U, I = _check(Lt, Rt, At, precision)
     if Lt.device.type == "cpu":
         return stream_train_plain(Lt, Rt, At, iters=iters, alpha2=alpha2, precision=precision)
     dev = _kernel_device(Lt)
     lib = _build.load()
     (G, C, chunk, S), outs, parts = _train_buffers(K, U, I, dev, grid)
+    walk = _walk_for(walk, At, K, (G, C, chunk, S), grid)
+    with torch.cuda.device(dev):
+        rc = lib.rs_stream_sparse_train(
+            *_ptrs(*walk.tables), walk.cap, *_ptrs(Lt, Rt, *outs, *parts), K, U, I, G, C, iters, float(alpha2),
+            _PRECISION_CODE[precision], chunk, S, walk.sub, _stream(dev),
+        )
+    if rc != 0:
+        raise RuntimeError(f"rs_stream_sparse_train failed: CUDA error {rc}")
+    stream_train.launches += 1
+    return outs[0], outs[1]
+
+
+def stream_train_dense(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest"):
+    """``stream_train`` in its dense form, every (user, item) cell of each
+    A^T tile walked (``rs_stream_train``): the baseline the sparse form
+    replaced, kept for ``probes/stream_sparse.py`` and P3's probe.  CPU
+    tensors go to the plain twin; CUDA tensors to the kernel
+    (``.launches``)."""
+    K, U, I = _check(Lt, Rt, At, precision)
+    if Lt.device.type == "cpu":
+        return stream_train_plain(Lt, Rt, At, iters=iters, alpha2=alpha2, precision=precision)
+    dev = _kernel_device(Lt)
+    lib = _build.load()
+    (G, C, chunk, S), outs, parts = _train_buffers(K, U, I, dev)
     with torch.cuda.device(dev):
         rc = lib.rs_stream_train(
             ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *outs, *parts),
@@ -151,7 +358,7 @@ def stream_train(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "hig
         )
     if rc != 0:
         raise RuntimeError(f"rs_stream_train failed: CUDA error {rc}")
-    stream_train.launches += 1
+    stream_train_dense.launches += 1
     return outs[0], outs[1]
 
 
@@ -191,11 +398,12 @@ def stream_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str =
     lib = _build.load()
     (G, C, chunk, S), outs, parts = _train_buffers(K, U, I, dev)
     (top_chunk, top_S), tops = _top1_buffers(K, U, I, dev)
+    walk = stream_walk(At, K)
     with torch.cuda.device(dev):
         rc = lib.rs_stream_train_top1(
-            ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *outs, *parts, *tops),
+            *_ptrs(*walk.tables), walk.cap, *_ptrs(At), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *outs, *parts, *tops),
             K, U, I, G, C, iters, float(alpha2), _PRECISION_CODE[precision], items_true,
-            chunk, S, top_chunk, top_S, _stream(dev),
+            chunk, S, walk.sub, top_chunk, top_S, _stream(dev),
         )
     if rc != 0:
         raise RuntimeError(f"rs_stream_train_top1 failed: CUDA error {rc}")
@@ -204,6 +412,7 @@ def stream_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str =
 
 
 stream_train.launches = 0
+stream_train_dense.launches = 0
 stream_top1.launches = 0
 stream_train_top1.launches = 0
 

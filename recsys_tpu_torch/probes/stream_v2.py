@@ -6,7 +6,8 @@ does a strip-packed R table change the streamed GD step's time?
 Run from the root of a checkout on a machine with a CUDA card.  It holds
 P3 (``ops/stream_v2.py``) against its twin within
 ``testing.STREAM_V2_RTOL``, with the `default` control rejected, and
-against B3 (``dense_stream.stream_train``) on the same factors bit for bit:
+against B3's dense form (``dense_stream.stream_train_dense``, which the
+engine's sparse form equals bit for bit) on the same factors bit for bit:
 P3 sums in B3's order, so this replaces the script's bitwise v1 = v2 check,
 which its drivers no longer run.  Then it times "v1 stream" (B3 on A^T)
 against "v2 packed" (P3 on A) by slope, the device time of ``iters`` steps
@@ -71,7 +72,7 @@ def check(name, spec, strip: int, device, iters: int = checks.FACTOR_ITERS, a_dt
     again = stream_v2.stream_v2_train(Lt, Rp, A, **kw)
     twin = stream_v2.stream_v2_train_plain(Lt, Rp, A, **kw)
     ctrl = checks.factor_rel(checks.stream_v2_default(Lt, Rp, A, **kw), twin)
-    b3 = dense_stream.stream_train(Lt, Rt, At, iters=iters, alpha2=kw["alpha2"])
+    b3 = dense_stream.stream_train_dense(Lt, Rt, At, iters=iters, alpha2=kw["alpha2"])
     K = Lt.shape[0]
     r = {"rel": checks.factor_rel(got, twin), "control": ctrl,
          "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, twin)),
@@ -94,7 +95,7 @@ def slope(name, spec, iters: int, device, strip: int = STRIP) -> dict:
     Lt, Rt, Rp, A, At = inputs(spec, strip, device)
     a2, lo = 2.0 * spec.alpha, iters // 3
     variants = {
-        "v1 stream": lambda n: dense_stream.stream_train(Lt, Rt, At, iters=n, alpha2=a2),
+        "v1 stream": lambda n: dense_stream.stream_train_dense(Lt, Rt, At, iters=n, alpha2=a2),
         "v2 packed": lambda n: stream_v2.stream_v2_train(Lt, Rp, A, iters=n, alpha2=a2, strip=strip),
     }
     out = {}

@@ -171,3 +171,37 @@ def bell_sum_then_add_train(L, R, tables, alpha2: float, meta, iters: int):
     for _ in range(iters):
         L, R = side(L, R, ub), side(R, L, ib)
     return L, R
+
+
+_BITS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def same_bits(a, b) -> bool:
+    """Two float tensors, or two sequences of them, alike bit for bit: the
+    raw bits compared, so -0.0 and +0.0 differ (``torch.equal`` takes them
+    as equal)."""
+    if isinstance(a, torch.Tensor):
+        a, b = (a,), (b,)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.contiguous().view(_BITS[x.element_size()]), y.contiguous().view(_BITS[y.element_size()]))
+        for x, y in zip(a, b))
+
+
+def hub_spec(features: int, seed: int = 0, *, users: int = 300, items: int = 2000, hub: int = 1500):
+    """A BELL spec whose user 0 rated ``hub`` items and every other user 1
+    to 20: one row far wider than the rest, alone in its bucket, and a few
+    popular items.  Ratings 1..5, some stored as 0 (real entries)."""
+    from recsys_tpu_torch.config import ProblemSpec
+
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for u in range(users):
+        n = hub if u == 0 else int(rng.integers(1, 21))
+        p = None if u == 0 else 1.0 / np.arange(1, items + 1) / np.sum(1.0 / np.arange(1, items + 1))
+        rows.append(np.full(n, u, np.int32))
+        cols.append(np.sort(rng.choice(items, n, replace=False, p=p)).astype(np.int32))
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    vals = rng.integers(0, 6, rows.size).astype(np.float64)
+    return ProblemSpec(iters=4, alpha=1e-4, features=features, users=users, items=items,
+                       rows=rows, cols=cols, vals=vals)

@@ -11,6 +11,7 @@ a no-op and adds nothing to the hot path.
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 
 import torch
@@ -95,6 +96,25 @@ def cuda_event_ms(fn, reps: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def alternating_ms(fns: dict, rounds: int = 5, warm: int = 2) -> dict:
+    """The median milliseconds of each ``fns[name]()`` by CUDA events, the
+    calls taking turns in one window: ``warm`` rounds unmeasured, then
+    ``rounds`` rounds whose order reverses each time (a, b, b, a, ...), so
+    every callable meets the card's clock in the same states."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for i in range(warm + rounds):
+        for name in names if i % 2 == 0 else names[::-1]:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[name]()
+            end.record()
+            end.synchronize()
+            if i >= warm:
+                times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(ts) for name, ts in times.items()}
 
 
 def device_ms(fn, reps: int, names=None) -> float:

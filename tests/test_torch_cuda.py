@@ -447,3 +447,77 @@ def test_run_coo_f64_matches_golden_on_card():
     spec = load_problem(str(FIXTURES / "inst30-40-10-2-10.in"))
     out, _ = trainer.run(spec, RunConfig(dtype="float64", path="coo"), "cuda")
     assert out == (FIXTURES / "inst30-40-10-2-10.out").read_text()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
+@pytest.mark.parametrize("k", [30, 40])
+def test_sparse_stream_equals_dense_bit_for_bit(k, precision, a_dtype):
+    # B3's sparse form walks the rated cells alone in the dense form's order
+    # of sums: the same bits, at k = 30 (G = 1) and k = 40 (G = 2).
+    dev = _cuda()
+    spec = generate_instance(200, 300, k, 2, 30, iters=checks.FACTOR_ITERS, alpha=0.001, seed=5)
+    Lt, Rt, (U, I, K) = dense_fused.pad_factors_for_pallas(spec)
+    A = dense_fused.device_dense_AT(spec, U, I, a_dtype, dev)
+    Lt, Rt = torch.from_numpy(Lt).to(dev), torch.from_numpy(Rt).to(dev)
+    kw = dict(iters=spec.iters, alpha2=2 * spec.alpha, precision=precision)
+    before = dense_stream.stream_train.launches, dense_stream.stream_train_dense.launches
+    sparse = dense_stream.stream_train(Lt, Rt, A, **kw)
+    dense = dense_stream.stream_train_dense(Lt, Rt, A, **kw)
+    twin = dense_stream.stream_train_plain(Lt, Rt, A, **kw)
+    torch.cuda.synchronize()
+    assert (dense_stream.stream_train.launches, dense_stream.stream_train_dense.launches) == (before[0] + 1,
+                                                                                            before[1] + 1)
+    assert checks.same_bits(sparse, dense)
+    assert checks.factor_rel(sparse, twin) <= checks.FACTOR_RTOL[precision]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("spec_name", ["k30", "k704 stored zeros", "hub k30", "hub k700"])
+def test_bell_block_form_equals_warp_form(spec_name, dtype):
+    # Low thresholds send the small specs' buckets to the block form; the
+    # hub specs hold one row far wider than the rest.
+    import numpy as np
+
+    from recsys_tpu_torch.ops import bell
+
+    dev = _cuda()
+    spec = {"k30": lambda: _bell_spec(30), "k704 stored zeros": lambda: _bell_spec(704, True),
+            "hub k30": lambda: checks.hub_spec(30), "hub k700": lambda: checks.hub_spec(700, 1)}[spec_name]()
+    data, L, R, t = _bell_inputs(spec, getattr(np, dtype), dev)
+    a2 = 2.0 * spec.alpha
+    warp = bell.bell_train(L, R, t, a2, data.meta, spec.iters, wide=bell.WARP_FORM)
+    twin = bell.bell_train_plain(L, R, t, a2, data.meta, spec.iters)
+    widest = max(w for side in (data.meta.user, data.meta.item) for *_, w in side.bounds)
+    for wide in (1, 16, bell.WIDE_MIN):
+        # A threshold at or under the widest bucket sends its rows to blocks.
+        blocks = bell.side_warps(data.meta.user, wide).blocks + bell.side_warps(data.meta.item, wide).blocks
+        assert (blocks > 0) == (widest >= wide)
+        got = bell.bell_train(L, R, t, a2, data.meta, spec.iters, wide=wide)
+        torch.cuda.synchronize()
+        assert checks.same_bits(got, warp)
+        assert checks.same_bits(got, twin)
+    # One side update in the block form, through the single-launch wrapper.
+    one = bell.bell_side_update(L, R, t.ucols, t.uvals, data.meta.user, a2, wide=1)
+    assert checks.same_bits(one, bell.bell_side_update_plain(L, R, t.ucols, t.uvals, data.meta.user, a2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
+def test_sparse_stream_with_empty_last_segments(precision):
+    # The last user block and the last 100 items hold no rated cell, so the
+    # walk's last segments are empty and start at nnz, the tables' end.
+    dev = _cuda()
+    g = torch.Generator().manual_seed(3)
+    At = torch.zeros((384, 256), dtype=torch.int8)
+    rated = torch.rand((284, 128), generator=g) < 0.05
+    At[:284, :128] = torch.randint(1, 11, rated.shape, generator=g, dtype=torch.int8) * rated
+    Lt, Rt = (0.1 * torch.rand((32, n), generator=g) for n in (256, 384))
+    At, Lt, Rt = At.to(dev), Lt.to(dev), Rt.to(dev)
+    kw = dict(iters=4, alpha2=0.002, precision=precision)
+    sparse = dense_stream.stream_train(Lt, Rt, At, **kw)
+    dense = dense_stream.stream_train_dense(Lt, Rt, At, **kw)
+    torch.cuda.synchronize()
+    assert checks.same_bits(sparse, dense)
