@@ -33,7 +33,14 @@ each printed as it runs:
    hub rows of ~20,000 slots, 1M-row buckets) against the twin, bit for
    bit in f64 and f32, two runs bit for bit, and one step of the block form
    against the warp form alone, bit for bit and timed in turns.
-5c. the redesigned forms against the ones they replaced: B3's sparse walk
+5c. the redesigned forms against the ones they replaced: B1's and B2's
+   sparse walk (the persistent kernel and the loop form) against their
+   dense form bit for bit (``probes/resident_sparse.py``: the small spec in
+   every A storage, k = 40 and 64, and the instML100k and gen-instML1M
+   shapes in every precision, 20 steps), the three forms' instML100k slopes
+   in every precision and the resident/stream line's slopes in turns; the
+   engine's B1 form must read a lower instML100k `highest` slope than the
+   dense form.  B3's sparse walk
    against its dense form bit for bit (``probes/stream_sparse.py``: the
    small spec in every A storage, k = 40, and gen-instML1M in every
    precision, 20 steps) and their slopes in turns; ``bell_side_update``'s
@@ -145,6 +152,7 @@ FORCE_RESIDENT = 1 << 62
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "resident_train_top1": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:663"),
     "resident_train": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:238"),
+    "resident_train_dense": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:238"),
     "stream_train": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:420"),
     "stream_train_dense": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:420"),
     "stream_top1": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:473"),
@@ -171,6 +179,8 @@ def _wrappers():
     return {
         "resident_train_top1": dense_fused.resident_train_top1,
         "resident_train": dense_fused.resident_train,
+        "resident_train_dense": dense_fused.resident_train_dense,
+        "resident_train_top1_dense": dense_fused.resident_train_top1_dense,
         "stream_train": dense_stream.stream_train,
         "stream_train_dense": dense_stream.stream_train_dense,
         "stream_top1": dense_stream.stream_top1,
@@ -885,15 +895,31 @@ def bell_kernel_phase(torch, dev, big):
 
 def redesign_phase(torch, dev, launches):
     """The redesigned forms against the forms they replaced, at the main
-    paths' shapes: B3's sparse walk against its dense form
+    paths' shapes: B1's and B2's sparse walk against their dense form
+    (``probes/resident_sparse.py``), B3's sparse walk against its dense form
     (``probes/stream_sparse.py``) and ``bell_side_update``'s block form
     against its warp form (``probes/bell_wide.py``), bit for bit, then
-    timed in turns.  Each engine form must be no slower.  The B3 probe runs
-    in one launch-count window.  Returns ({form: gen-instML1M slope and
-    time}, {threshold: instML100k f64 ms a step})."""
-    from recsys_tpu_torch.ops import bell
-    from recsys_tpu_torch.probes import bell_wide, stream_sparse
+    timed in turns.  Each engine form must be no slower (B1's: faster at
+    instML100k in `highest`).  The B1/B2 and B3 probes each run in one
+    launch-count window.  Returns the B1/B2 probe's {spec: readings}."""
+    from recsys_tpu_torch.ops import bell, dense_fused
+    from recsys_tpu_torch.probes import bell_wide, resident_sparse, stream_sparse
 
+    counts = {}
+    with counted(counts):
+        readings, r_slopes = resident_sparse.run(dev)
+    launches["B1/B2 sparse probe", "all shapes"] = counts
+    log(f"[probe] B1/B2 sparse probe launches: {_nonzero(counts)}")
+    b1 = {mode: {form: r["us_per_step"] for form, r in r_slopes[f"instML100k {mode}"].items()} for mode in MODES}
+    engine = dense_fused.ENGINE_FORM
+    b1_ok = b1["highest"][engine] < b1["highest"]["dense"]
+    for mode in MODES:
+        log(f"[redesign] instML100k B1 slope {mode}: dense {b1[mode]['dense']!r} us/iter, loop "
+            f"{b1[mode]['loop']!r}, persistent {b1[mode]['persistent']!r} (engine: {engine})")
+    for name in ("instML100k", "gen-instML1M"):
+        plans = r_slopes[f"plans {name}"]
+        log(f"[redesign] {name} resident/stream line (sparse forms, highest): resident "
+            f"{plans['resident']['us_per_step']!r} us/iter, stream {plans['stream']['us_per_step']!r}")
     counts = {}
     with counted(counts):
         _, slopes = stream_sparse.run(dev)
@@ -902,13 +928,15 @@ def redesign_phase(torch, dev, launches):
     sweep = bell_wide.run(dev)
     b3_ok = slopes["sparse"]["us_per_step"] <= slopes["dense"]["us_per_step"]
     bell_ok = sweep[bell.WIDE_MIN] <= sweep[bell.WARP_FORM]
+    log(f"[redesign] instML100k B1 slope highest: the engine's {engine} form {b1['highest'][engine]!r} us/iter "
+        f"against dense {b1['highest']['dense']!r} -> faster {b1_ok}")
     log(f"[redesign] gen-instML1M B3 slope: sparse {slopes['sparse']['us_per_step']!r} us/iter against dense "
         f"{slopes['dense']['us_per_step']!r} -> the engine's sparse form no slower {b3_ok}")
     log(f"[redesign] instML100k f64 bell step: block form from {bell.WIDE_MIN} slots {sweep[bell.WIDE_MIN]!r} ms "
         f"against the warp form alone {sweep[bell.WARP_FORM]!r} ms -> the engine's block form no slower {bell_ok}")
-    if not (b3_ok and bell_ok):
+    if not (b1_ok and b3_ok and bell_ok):
         raise AssertionError("an engine form is slower than the form it replaced")
-    return slopes, sweep
+    return readings
 
 
 def _golden_run(name, spec, golden, floor, dev, torch, launches, label, dtype, path="auto"):
@@ -1306,6 +1334,10 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     b2_plain = cuda_event_ms(lambda: df.resident_train_plain(Lt, Rt, A, **kw))
     add("resident_train", launches["instML100k checkpoint", "auto"]["resident_train"], errs["resident_train"],
         b2_ms, b2_plain, tr, a_b + 2 * f_b)
+    # The dense form left the main path: its launches are the B1/B2 probe's.
+    add("resident_train_dense", launches["B1/B2 sparse probe", "all shapes"]["resident_train_dense"],
+        errs["resident_train_dense"], cuda_event_ms(lambda: df.resident_train_dense(Lt, Rt, A, **kw)),
+        b2_plain, tr, a_b + 2 * f_b)
 
     plan, a_b, f_b, tr, tp = shapes(ml1m)
     Lt, Rt, A = _inputs(ml1m, plan.a_dtype, dev, torch)
@@ -1354,58 +1386,56 @@ def _bell_work(L, R, t, meta, nnz):
     return nbytes, 2 * 4.0 * k * nnz
 
 
-def bell_records(torch, dev, ml100k, launches, errs):
+def bell_records(torch, dev, ml100k, launches, errs, steps=100):
     """The kernels line's entries of ``bell_side_update`` (one step, its
     two launches, at instML100k in f64; 4*k f64 FLOP per rating and side),
     ``gather_rows`` and ``gather_err_grad`` (one launch at P2's shapes).
-    Kernel, twin and library times alike are the profiler's device time:
-    the kernel's own events, and every device event of a twin or library
-    call."""
+    Times are by CUDA events: a BELL step as the slope of ``bell_train``
+    between 3 * ``steps`` and ``steps`` steps in turns (the descriptors and
+    copies of a call cancel), a P2 kernel, twin or library call as the mean
+    of back-to-back calls."""
     import numpy as np
 
     from recsys_tpu_torch.models.mf import init_factors
     from recsys_tpu_torch.ops import bell, gather
     from recsys_tpu_torch.probes import mosaic_gather as mg
-    from recsys_tpu_torch.utils.timing import device_ms
+    from recsys_tpu_torch.utils.timing import alternating_ms, cuda_event_ms
 
     data, L, R, t = _bell_tensors(ml100k, np.float64, dev, torch,
                                   init_factors(ml100k.users, ml100k.items, ml100k.features))
     a2, k, m = 2.0 * ml100k.alpha, ml100k.features, data.meta
-    oL, oR = L.clone(), R.clone()
-
-    def bell_step(wide=bell.WIDE_MIN):
-        bell.bell_side_update(L, R, t.ucols, t.uvals, m.user, a2, out=oL, wide=wide)
-        bell.bell_side_update(R, L, t.irows, t.ivals, m.item, a2, out=oR, wide=wide)
+    forms = (bell.WIDE_MIN, bell.WARP_FORM)
+    ms = alternating_ms({(w, n): (lambda w=w, n=n: bell.bell_train(L, R, t, a2, m, n, wide=w))
+                         for w in forms for n in (3 * steps, steps)})
+    step_ms = {w: (ms[w, 3 * steps] - ms[w, steps]) / (2 * steps) for w in forms}
 
     nbytes, flops = _bell_work(L, R, t, m, ml100k.nnz)
     out = [_record("bell_side_update", launches["instML100k f64", "auto"]["bell_side_update"],
-                   errs["bell_side_update"], device_ms(bell_step, 200, ("side_update",)),
-                   device_ms(lambda: bell.bell_gd_step_plain(L, R, t, a2, m), 3),
+                   errs["bell_side_update"], step_ms[bell.WIDE_MIN],
+                   cuda_event_ms(lambda: bell.bell_gd_step_plain(L, R, t, a2, m), 3),
                    flops, nbytes, F64_FLOPS)]
     # The warp form alone, the form the block form replaced: the same entry
     # point with no row in a block (``bell.WARP_FORM``), timed alike.
     log(f"[redesign] bell_side_update at instML100k f64, one step: warp form alone "
-        f"{device_ms(lambda: bell_step(bell.WARP_FORM), 200, ('side_update',))!r} ms against the block form "
-        f"{out[0]['ms']!r} ms")
+        f"{step_ms[bell.WARP_FORM]!r} ms against the block form {out[0]['ms']!r} ms (in turns)")
     gathered = 8 * k * (t.ucols.numel() + t.irows.numel()) + 2 * 8 * k * (m.user.n_nz + m.item.n_nz)
     log(f"[kernels] bell_side_update at instML100k f64, counting every gathered row (the slots, "
         f"{t.ucols.numel()} + {t.irows.numel()}) and the own rows read and written: {gathered} B, "
         f"{_bound(flops, gathered, F64_FLOPS)[0]!r} ms")
-    del L, R, t, oL, oR
+    del L, R, t
 
     table, idx, vals = mg.inputs(dev)
     (S,), (N, K) = idx.shape, table.shape
     idx_long = idx.long()
     p2 = launches["P2 probe", "all variants"]
     out.append(_record("gather_rows", p2["gather_rows"], errs["gather_rows"],
-                       device_ms(lambda: gather.gather_rows(table, idx), 50, ("gather_rows",)),
-                       device_ms(lambda: gather.gather_rows_plain(table, idx), 50), 0.0,
+                       cuda_event_ms(lambda: gather.gather_rows(table, idx), 50),
+                       cuda_event_ms(lambda: gather.gather_rows_plain(table, idx), 50), 0.0,
                        4 * (N * K + S + S * K),
-                       library_ms=device_ms(lambda: table.index_select(0, idx_long), 50)))
+                       library_ms=cuda_event_ms(lambda: table.index_select(0, idx_long), 50)))
     out.append(_record("gather_err_grad", p2["gather_err_grad"], errs["gather_err_grad"],
-                       device_ms(lambda: gather.gather_err_grad(table, idx, vals, mg.BLK), 50,
-                                 ("gather_err_grad",)),
-                       device_ms(lambda: gather.gather_err_grad_plain(table, idx, vals, mg.BLK), 20),
+                       cuda_event_ms(lambda: gather.gather_err_grad(table, idx, vals, mg.BLK), 50),
+                       cuda_event_ms(lambda: gather.gather_err_grad_plain(table, idx, vals, mg.BLK), 20),
                        4.0 * S * K + 2.0 * S, 4 * (N * K + 2 * S + S * K)))
     return out
 
@@ -1413,16 +1443,16 @@ def bell_records(torch, dev, ml100k, launches, errs):
 def probe_records(torch, dev, launches, errs, p1_rows, p3):
     """The kernels line's entries of P1's kernels (one launch of T = 512
     steps at (8, 32768), from the probe's own timings: kernel, twin and
-    library loop by the profiler's device time) and P3's (300 steps at
-    gen-instML1M's probe shape, the probe's device time; its twin timed
-    here).  P1 counts 2 FLOP per gathered element and step, 3 per scanned
+    library loop by CUDA events) and P3's (300 steps at gen-instML1M's
+    probe shape, the probe's time by CUDA events; its twin timed here
+    alike).  P1 counts 2 FLOP per gathered element and step, 3 per scanned
     one (the scan's add, 0 * out and its add); bytes are the inputs read
     and the output written once.  Their shared-memory reads are logged
     beside, at 128 B a clock per SM."""
     from recsys_tpu_torch.ops import stream_v2
     from recsys_tpu_torch.probes import gather as pg
     from recsys_tpu_torch.probes import stream_v2 as ps
-    from recsys_tpu_torch.utils.timing import device_ms
+    from recsys_tpu_torch.utils.timing import cuda_event_ms
 
     p1 = launches["P1 probe", "all shapes"]
     out = []
@@ -1437,7 +1467,7 @@ def probe_records(torch, dev, launches, errs, p1_rows, p3):
     spec = dataclasses.replace(ps.shapes()["gen-instML1M"], iters=P3_ITERS)
     Lt, _, Rp, A, _ = ps.inputs(spec, ps.STRIP, dev)
     kw = dict(iters=P3_ITERS, alpha2=2.0 * spec.alpha, strip=ps.STRIP)
-    plain_ms = device_ms(lambda: stream_v2.stream_v2_train_plain(Lt, Rp, A, **kw), 1)
+    plain_ms = cuda_event_ms(lambda: stream_v2.stream_v2_train_plain(Lt, Rp, A, **kw))
     out.append(_record("stream_v2_train", launches["P3 probe", "all shapes"]["stream_v2_train"],
                        readings["gen-instML1M"]["max_abs_err"], timings["gen-instML1M"]["v2 packed"]["ms"], plain_ms,
                        6.0 * spec.nnz * spec.features * P3_ITERS, A.numel() + 2 * 4 * (Lt.numel() + Rp.numel())))
@@ -1471,7 +1501,8 @@ def main() -> int:
         errs["tiled_deltas"] = tiled_kernel_phase(torch, dev, big)
         errs["bell_side_update"] = bell_kernel_phase(torch, dev, big)
         launches = {}
-        redesign_phase(torch, dev, launches)
+        b1_readings = redesign_phase(torch, dev, launches)
+        errs["resident_train_dense"] = b1_readings["instML100k"]["highest"][3]
         ml100k, train1, plain1 = ml100k_phase(torch, dev, launches)
         ml1m, train2, plain2 = ml1m_phase(torch, dev, launches)
         checkpoint_phase(torch, dev, launches)

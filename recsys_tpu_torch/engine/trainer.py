@@ -186,9 +186,10 @@ def dense_plan(spec: ProblemSpec, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES, ti
       in its storage dtype takes at most ``a_max_bytes``, else ``stream``.
       Bytes: dense A^T, the six factor tables (input, output and ping-pong
       for each side), the training kernel's partial sums (for ``resident``
-      at their largest, one chunk per 32 reduction columns; for ``stream``
-      as ``dense_stream.stream_partial_bytes`` counts them on an H100) and
-      the top-1's.
+      at their largest, one chunk per 32 reduction columns, and the sparse
+      form's tables as ``dense_fused.walk_bytes`` counts them on an H100;
+      for ``stream`` as ``dense_stream.stream_partial_bytes`` counts them)
+      and the top-1's.
     * ``tiled`` for wider factors (K padded to 32, up to
       ``dense_tiled.MAX_K``), when the other kinds need more than
       ``DEVICE_BUDGET_BYTES``, or when ``tiled`` forces it.  Bytes: A and
@@ -206,7 +207,7 @@ def dense_plan(spec: ProblemSpec, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES, ti
     K = dense_fused.round_up(spec.features, 8)
     if not tiled and K <= dense_fused.MAX_K:
         kind = "resident" if a_bytes * U * I <= a_max_bytes else "stream"
-        partials = (4 * 2 * K * U * I // 32 if kind == "resident"
+        partials = (4 * 2 * K * U * I // 32 + dense_fused.walk_bytes(K, U, I, spec.nnz) if kind == "resident"
                     else dense_stream.stream_partial_bytes(K, U, I))
         need = a_bytes * U * I + 4 * 3 * K * (U + I) + partials + 8 * U * I // 32
         if need <= DEVICE_BUDGET_BYTES:
@@ -223,15 +224,19 @@ def dense_plan(spec: ProblemSpec, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES, ti
 
 def _dense_inputs(spec: ProblemSpec, plan: DensePlan, device, state: MFState | None = None):
     """(Lt, Rt, A^T, train keywords) on ``device`` in the plan's layout,
-    timed as the ``prep`` and ``upload`` phases.  On the card the stream
-    plan's keywords hold B3's walk of the rated cells, built here."""
+    timed as the ``prep`` and ``upload`` phases.  On the card the keywords
+    hold the training kernel's walk of the rated cells, built here: B3's
+    on ``stream``, B1's and B2's on ``resident``."""
     with phase("prep"):
         Lt, Rt, _ = dense_fused.pad_factors_for_pallas(spec, state=state)
     with phase("upload") as psync:
         A = dense_fused.device_dense_AT(spec, plan.U, plan.I, plan.a_dtype, device)
         Lt = torch.from_numpy(Lt).to(device)
         Rt = torch.from_numpy(Rt).to(device)
-        walk = dense_stream.stream_walk(A, Lt.shape[0]) if plan.kind == "stream" and A.is_cuda else None
+        walk = None
+        if A.is_cuda:  # the sparse walks' tables: B3's on stream, B1's and B2's on resident
+            build = dense_stream.stream_walk if plan.kind == "stream" else dense_fused.resident_walk
+            walk = build(A, Lt.shape[0])
         psync((A, Lt, Rt, walk.tables if walk else ()))
     return Lt, Rt, A, ({"walk": walk} if walk else {})
 

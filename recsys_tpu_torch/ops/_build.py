@@ -94,6 +94,14 @@ SIGNATURES = {
     # At, a_kind, Lt_in .. part_r (8 pointers), K, U, I, G, iters, alpha2,
     # precision, chunk_l, s_l, chunk_r, s_r, stream
     "rs_resident_train": [_P, _I, *[_P] * 8, *[_I] * 5, _F, _I, *[_I] * 4, _P],
+    # the walk's 9 tables, tickets, cap, Lt_in .. part_r (8 pointers), K, U,
+    # I, G, iters, alpha2, precision, chunk_l, s_l, chunk_r, s_r, SR, form,
+    # stream
+    "rs_resident_sparse_train": [*[_P] * 10, _I, *[_P] * 8, *[_I] * 5, _F, *[_I] * 7, _P],
+    # the walk's 9 tables, tickets, cap, At, a_kind, Lt_in .. part_r,
+    # top_val, top_idx, top1 (11 pointers), K, U, I, G, iters, alpha2,
+    # precision, items_true, chunk_l, s_l, chunk_r, s_r, SR, form, stream
+    "rs_resident_sparse_train_top1": [*[_P] * 10, _I, _P, _I, *[_P] * 11, *[_I] * 5, _F, *[_I] * 8, _P],
     # At, a_kind, Lt, Rt, top_val, top_idx, top1, K, U, I, G, precision,
     # items_true, chunk, S, stream
     "rs_stream_top1": [_P, _I, *[_P] * 5, *[_I] * 8, _P],

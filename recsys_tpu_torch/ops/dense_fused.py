@@ -7,9 +7,17 @@ stored TRANSPOSED (items x users) and K-major factors Lt (K, U), Rt (K, I);
 ``resident_train`` (:238) is the same loop without the top-1.  Here both
 are hand-written CUDA (``csrc/dense_fused.cu``) behind
 ``resident_train_top1`` (B1) and ``resident_train`` (B2), with plain torch
-twins of the same math.  The wrappers pick by the tensors' device: the
-plain twin for CPU tensors, the kernel for CUDA tensors, and an error for
-anything the kernel does not take -- never a fallback.
+twins of the same math.  Their steps run in the sparse form: a walk of the
+rated cells alone over tables that ``walk_tables`` builds once per A^T (the
+engine builds them in its ``upload`` phase), two launches a step
+(``form="loop"``, the engine's ``ENGINE_FORM``) or one persistent launch
+for all the steps (``form="persistent"``), bit for bit the dense form at
+the same split.  The dense form, every cell of each A^T tile walked, stays
+callable as ``resident_train_top1_dense`` and ``resident_train_dense``, the
+baseline of ``probes/resident_sparse.py``; ``walk_train_plain`` is a plain
+torch walk over the tables.  The wrappers pick by the tensors' device: the plain twin
+for CPU tensors, the kernel for CUDA tensors, and an error for anything the
+kernel does not take -- never a fallback.
 
 Also here, ported from the same JAX module: the host helpers that build
 the kernel's inputs (``round_up`` :52, ``pad_factors_for_pallas`` :751,
@@ -27,12 +35,13 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from recsys_tpu_torch.ops import _build
-from recsys_tpu_torch.ops.precision import dot, maybe_split, transpose
+from recsys_tpu_torch.ops.precision import cell_prod, dot, maybe_split, pred_cells, transpose
 
 # Widest K the kernel takes: a lane holds 32 factor values, and up to 8
 # lanes share one output column (csrc/dense_fused.cu, KC and G).
@@ -215,20 +224,233 @@ def _check(Lt, Rt, At, precision):
     return K, U, I
 
 
-def _resident_buffers(K, U, I, dev):
-    """((chunk_l, s_l, chunk_r, s_r), (Lt_out, Rt_out, Lt_tmp, Rt_tmp,
-    part_l, part_r)) of B1 and B2: each gradient side's reduction split so
-    its pass has about two blocks per SM."""
+# SMs of an H100 SXM, for the splits and byte counts made before any
+# device is chosen (the plan, the CPU tests).
+H100_SMS = 132
+# The form of the sparse steps the engine calls: "loop" (two launches a
+# step from the C loop) or "persistent" (every step in one cooperative
+# launch).  probes/resident_sparse.py times both in turns; on an H100 80GB
+# HBM3 at 700 W the loop form read faster at instML100k in every
+# precision (PERF.md §6).
+ENGINE_FORM = "loop"
+_FORM_CODE = {"persistent": 0, "loop": 1}
+# A walk's cell word packs the column within its block above the row
+# within its chunk.
+_CELL_ROW_BITS = 24
+# Columns of a sparse-form unit at G = 1 (csrc/dense_fused.cu, UNIT_COLS):
+# a unit is UNIT_COLS / G columns of one side over one chunk of the other.
+UNIT_COLS = 128
+
+
+def resident_split(K: int, U: int, I: int, sms: int = H100_SMS) -> tuple[int, int, int, int]:
+    """(chunk_l, s_l, chunk_r, s_r) of B1 and B2: each gradient side's
+    reduction split so its pass has about two blocks per SM in the dense
+    form.  Both forms take it; the sparse form keeps its order of sums."""
     G = _lanes_per_column(K)
-    target = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk_l, s_l = _split(U, I, G, target)
-    chunk_r, s_r = _split(I, U, G, target)
+    return (*_split(U, I, G, 2 * sms), *_split(I, U, G, 2 * sms))
+
+
+def sub_strip(G: int) -> int:
+    """Rows a block of a sparse form stages at a time (``csrc/dense_fused.cu``
+    and ``csrc/dense_stream.cu``, SR): 64, or 32 when a column spans G > 1
+    lanes, so shared memory stays under 227 KB at K = 256."""
+    return 64 if G == 1 else 32
+
+
+def _offsets(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """int32 (n + 1,) start of each key's run in an order sorted by key."""
+    off = torch.zeros(n + 1, dtype=torch.int64, device=keys.device)
+    off[1:] = torch.cumsum(torch.bincount(keys, minlength=n), 0)
+    return off.to(torch.int32)
+
+
+def _by_degree(groups: torch.Tensor, counts: torch.Tensor, n: int) -> torch.Tensor:
+    """Within each row of ``groups`` (rows, m), positions ordered by
+    (group, descending count, position): the stable sort of a composite
+    key."""
+    key = groups * (n + 1) + (n - counts)
+    return torch.sort(key, dim=1, stable=True).indices.to(torch.int32).reshape(-1)
+
+
+class Walk(NamedTuple):
+    """The sparse form's tables for one A^T and split (``walk_tables``).  Per
+    side (``l``: the dl side, user columns over item chunks; ``r``: the dr
+    side, item columns over user chunks) a unit is (chunk s, column block
+    cb), numbered s * (N / BC) + cb, and its cells split into sub-strips of
+    ``sub`` rows: a segment."""
+
+    l_cell: torch.Tensor  # int32 by (segment, column, row): column in block << 24 | row in chunk
+    l_val: torch.Tensor  # f32, same order: the dequantised rating
+    l_off: torch.Tensor  # int32 (units * nsub * BC + 1,): first cell of (segment, column)
+    l_order: torch.Tensor  # int32 (units * BC,): a unit's columns by descending degree
+    r_cell: torch.Tensor
+    r_val: torch.Tensor
+    r_off: torch.Tensor
+    r_order: torch.Tensor
+    units: torch.Tensor  # int32: every unit (the dl side's, then the dr side's) by descending cell count
+    split: tuple  # (G, chunk_l, s_l, chunk_r, s_r)
+    shape: tuple  # (I, U) of A^T
+    sub: int  # rows per sub-strip
+    cap: int  # the most cells of one segment, either side
+
+    @property
+    def tables(self) -> tuple:
+        return self[:9]
+
+
+def _side_tables(own, other, val, n_own: int, chunk: int, BC: int, sub: int, S: int):
+    """One side's (cell, val, off, order) and its segments' cell counts."""
+    ncb, nsub = n_own // BC, -(-chunk // sub)
+    units = S * ncb
+    cl, rl = own % BC, other % chunk
+    unit = (other // chunk) * ncb + own // BC
+    run = (unit * nsub + rl // sub) * BC + cl
+    perm = torch.argsort(run * chunk + rl)  # unique keys
+    off = _offsets(run, units * nsub * BC)
+    deg = torch.bincount(unit * BC + cl, minlength=units * BC).view(units, BC)
+    order = _by_degree(torch.zeros_like(deg), deg, own.numel())
+    cell = ((cl << _CELL_ROW_BITS) | rl)[perm].to(torch.int32)
+    return (cell, val[perm].contiguous(), off, order), torch.diff(off[::BC].long())
+
+
+def walk_tables(At, split: tuple, sub: int) -> Walk:
+    """The rated cells of A^T (I, U) as the sparse form walks them, built
+    with torch ops on At's device.  ``split`` is (G, chunk_l, s_l, chunk_r,
+    s_r), ``resident_split``'s with the lanes a column: it fixes the dense
+    form's order of sums, which the tables keep.  Each side's cells run by
+    (unit, sub-strip, column, row): a column's cells in a chunk in
+    ascending row order, the order of its chain in the dense form."""
+    G, chunk_l, s_l, chunk_r, s_r = split
+    I, U = At.shape
+    if max(U, I) >= 1 << _CELL_ROW_BITS:
+        raise ValueError(f"the sparse form takes fewer than 2^{_CELL_ROW_BITS} users and items; got {U}, {I}")
+    BC = UNIT_COLS // G
+    item, user = torch.nonzero(At, as_tuple=True)
+    val = load_at(At[item, user])
+    left, seg_l = _side_tables(user, item, val, U, chunk_l, BC, sub, s_l)
+    right, seg_r = _side_tables(item, user, val, I, chunk_r, BC, sub, s_r)
+    # Every unit's cells (a unit is a run of ceil(chunk / sub) segments).
+    cells = torch.cat([seg_l.view(-1, -(-chunk_l // sub)).sum(1), seg_r.view(-1, -(-chunk_r // sub)).sum(1)])
+    units = _by_degree(torch.zeros_like(cells)[None], cells[None], item.numel())
+    cap = int(torch.cat([seg_l, seg_r]).max())
+    return Walk(*left, *right, units=units, split=tuple(split), shape=(I, U), sub=sub, cap=cap)
+
+
+def walk_bytes(K: int, U: int, I: int, nnz: int, sms: int = H100_SMS) -> int:
+    """Device bytes of ``walk_tables``'s output for ``nnz`` rated cells at
+    ``resident_split``: per side, a cell word and a value per cell, an
+    offset per (segment, column) and a degree rank per (unit, column); and
+    the units' order."""
+    G = _lanes_per_column(K)
+    chunk_l, s_l, chunk_r, s_r = resident_split(K, U, I, sms)
+    sub = sub_strip(G)
+    runs = U * s_l * -(-chunk_l // sub) + I * s_r * -(-chunk_r // sub)
+    units = (U * s_l + I * s_r) // (UNIT_COLS // G)
+    return 4 * (2 * 2 * nnz + runs + 2 + U * s_l + I * s_r + units)
+
+
+def resident_walk(At, K: int, split: tuple | None = None) -> Walk:
+    """The sparse form's tables for A^T on its device, at ``split`` (default:
+    ``resident_split`` for the device's SMs, or an H100's on the CPU).  A
+    caller that builds them ahead (the engine, in its ``upload`` phase)
+    passes them to ``resident_train_top1`` and ``resident_train`` as
+    ``walk``."""
+    I, U = At.shape
+    split = _split_for(split, K, U, I, At.device)
+    G = _lanes_per_column(K)
+    return walk_tables(At, (G, *split), sub_strip(G))
+
+
+def walk_train_plain(Lt, Rt, walk: Walk, *, iters: int, alpha2: float, precision: str = "highest"):
+    """Plain torch GD steps over the walk's tables: per side, pred and e of
+    every rated cell, its products summed into the (chunk, column) partial
+    (index_add) and the partials summed in ascending chunk order.  The
+    function of ``resident_train_plain``, its sums grouped as the sparse
+    form groups them.  Returns (Lt', Rt')."""
+    G, chunk_l, s_l, chunk_r, s_r = walk.split
+    K, U = Lt.shape
+    I = Rt.shape[1]
+    BC, dev = UNIT_COLS // G, Lt.device
+    mask = (1 << _CELL_ROW_BITS) - 1
+    sides = []
+    for cell, val, off, N, chunk, S in ((walk.l_cell, walk.l_val, walk.l_off, U, chunk_l, s_l),
+                                        (walk.r_cell, walk.r_val, walk.r_off, I, chunk_r, s_r)):
+        ncb, nsub = N // BC, -(-chunk // walk.sub)
+        runs = torch.repeat_interleave(torch.arange(off.numel() - 1, device=dev), torch.diff(off.long()))
+        unit = runs // (nsub * BC)
+        own = (unit % ncb) * BC + (cell.long() >> _CELL_ROW_BITS)
+        other = (unit // ncb) * chunk + (cell.long() & mask)
+        sides.append((own, other, (unit // ncb) * N + own, S, N, val))
+
+    def summed(x, idx, parts, n):
+        part = torch.zeros((K, parts * n), dtype=torch.float32, device=dev).index_add_(1, idx, x).view(K, parts, n)
+        total = part[:, 0]
+        for s in range(1, parts):
+            total = total + part[:, s]
+        return total
+
+    with exact_f32(dev):
+        for _ in range(iters):
+            new = []
+            for (own, other, at, S, N, val), (X, Y) in zip(sides, ((Lt, Rt), (Rt, Lt))):
+                y = Y[:, other]
+                e = val - pred_cells(y, X[:, own], precision)
+                new.append(X + alpha2 * summed(cell_prod(y, e, precision), at, S, N))
+            Lt, Rt = new
+    return Lt, Rt
+
+
+def _split_for(split, K: int, U: int, I: int, dev) -> tuple[int, int, int, int]:
+    """``split``, checked, or ``resident_split`` for the device's SMs."""
+    if split is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else H100_SMS
+        return resident_split(K, U, I, sms)
+    split = tuple(int(x) for x in split)
+    chunk_l, s_l, chunk_r, s_r = split
+    if chunk_l % _BR or chunk_r % _BR or chunk_l <= 0 or chunk_r <= 0 \
+            or s_l != -(-I // chunk_l) or s_r != -(-U // chunk_r):
+        raise ValueError(f"split {split} does not cut I={I}, U={U} into chunks of multiples of {_BR}")
+    return split
+
+
+def _walk_for(walk: Walk | None, At, K: int, split: tuple) -> Walk:
+    """``walk``, or the tables built now; raises when a given walk was
+    built for another split or shape."""
+    G = _lanes_per_column(K)
+    if walk is None:
+        return walk_tables(At, (G, *split), sub_strip(G))
+    if tuple(walk.split) != (G, *split) or tuple(walk.shape) != tuple(At.shape):
+        raise ValueError(f"the walk was built for split {walk.split} and A^T {walk.shape}, "
+                         f"the kernel takes {(G, *split)} and {tuple(At.shape)}")
+    return walk
+
+
+def _form_code(form: str) -> int:
+    if form not in _FORM_CODE:
+        raise ValueError(f"unknown form {form!r}; one of {sorted(_FORM_CODE)}")
+    return _FORM_CODE[form]
+
+
+def _resident_buffers(K, U, I, dev, split):
+    """(Lt_out, Rt_out, Lt_tmp, Rt_tmp, part_l, part_r) of B1 and B2."""
+    chunk_l, s_l, chunk_r, s_r = split
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    bufs = (f32(K, U), f32(K, I), f32(K, U), f32(K, I), f32(s_l, K, U), f32(s_r, K, I))
-    return (chunk_l, s_l, chunk_r, s_r), bufs
+    return f32(K, U), f32(K, I), f32(K, U), f32(K, I), f32(s_l, K, U), f32(s_r, K, I)
+
+
+def _top1_buffers(U, s_l, dev):
+    """(top_val, top_idx, top1): the top-1 walks the items in the dl side's chunks."""
+    return (torch.empty((s_l, U), dtype=torch.float32, device=dev),
+            torch.empty((s_l, U), dtype=torch.int32, device=dev),
+            torch.empty((1, U), dtype=torch.int32, device=dev))
+
+
+def _tickets(dev):
+    """The persistent form's two unit counters, zeroed."""
+    return torch.zeros(2, dtype=torch.int32, device=dev)
 
 
 def _ptrs(*tensors):
@@ -241,68 +463,145 @@ def _kernel_device(Lt):
     return Lt.device
 
 
-def resident_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest", items_true: int):
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _cpu_check(At, K, split, walk=None):
+    """On the CPU the twin runs; a given split and walk are still checked."""
+    if walk is not None or split is not None:
+        I, U = At.shape
+        split = _split_for(split, K, U, I, At.device)
+        if walk is not None:
+            _walk_for(walk, At, K, split)
+
+
+def resident_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest", items_true: int,
+                        walk: Walk | None = None, split: tuple | None = None, form: str = ENGINE_FORM):
     """``iters`` stable-snapshot GD steps plus the masked top-1 (port of
     ``pallas_dense.resident_train_top1`` :662, minus the TPU-only
-    ``strip`` and ``interpret``).
+    ``strip`` and ``interpret``): the steps in the sparse form, bit for bit
+    ``resident_train_top1_dense`` at the same ``split``, then the dense
+    top-1.
 
     Lt (K, U), Rt (K, I) f32, At (I, U) int8 (2x rating) / bf16 / f32;
     U and I multiples of 128, K a multiple of 8 up to ``MAX_K``.  Items
-    at or past ``items_true`` never win the top-1.  Returns (Lt', Rt',
-    top1 (1, U) int32).  CPU tensors go to the plain twin; CUDA tensors
-    to the kernel, which counts each launch in ``.launches``.
+    at or past ``items_true`` never win the top-1.  ``walk`` is
+    ``resident_walk(At, K, split)`` built ahead, else the call builds it;
+    ``split`` defaults to ``resident_split``; ``form`` is "loop" or
+    "persistent".  Returns (Lt', Rt', top1 (1, U) int32).  CPU tensors go to
+    the plain twin; CUDA tensors to the kernel, which counts each launch in
+    ``.launches``.
     """
     K, U, I = _check(Lt, Rt, At, precision)
+    code = _form_code(form)
     if Lt.device.type == "cpu":
+        _cpu_check(At, K, split, walk)
         return resident_train_top1_plain(
             Lt, Rt, At, iters=iters, alpha2=alpha2, precision=precision, items_true=items_true
         )
     dev = _kernel_device(Lt)
     lib = _build.load()
-    split, bufs = _resident_buffers(K, U, I, dev)
-    # The top-1 pass walks the items in the dl side's chunks.
-    top_val = torch.empty((split[1], U), dtype=torch.float32, device=dev)
-    top_idx = torch.empty((split[1], U), dtype=torch.int32, device=dev)
-    top1 = torch.empty((1, U), dtype=torch.int32, device=dev)
+    split = _split_for(split, K, U, I, dev)
+    walk = _walk_for(walk, At, K, split)
+    bufs = _resident_buffers(K, U, I, dev, split)
+    tops = _top1_buffers(U, split[1], dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rs_resident_train_top1(
-            ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *bufs, top_val, top_idx, top1),
-            K, U, I, _lanes_per_column(K), iters, float(alpha2), _PRECISION_CODE[precision], items_true,
-            *split, ctypes.c_void_p(stream),
+        rc = lib.rs_resident_sparse_train_top1(
+            *_ptrs(*walk.tables, _tickets(dev)), walk.cap, ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype],
+            *_ptrs(Lt, Rt, *bufs, *tops), K, U, I, _lanes_per_column(K), iters, float(alpha2),
+            _PRECISION_CODE[precision], items_true, *split, walk.sub, code, _stream(dev),
         )
     if rc != 0:
-        raise RuntimeError(f"rs_resident_train_top1 failed: CUDA error {rc}")
+        raise RuntimeError(f"rs_resident_sparse_train_top1 ({form}) failed: CUDA error {rc}")
     resident_train_top1.launches += 1
-    return bufs[0], bufs[1], top1
+    return bufs[0], bufs[1], tops[2]
 
 
-resident_train_top1.launches = 0
-
-
-def resident_train(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest"):
+def resident_train(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest",
+                   walk: Walk | None = None, split: tuple | None = None, form: str = ENGINE_FORM):
     """``iters`` stable-snapshot GD steps (port of ``pallas_dense.resident_train``
-    :238): B1's kernels without the top-1, so its factors are B1's bit for
-    bit.  Same inputs as ``resident_train_top1``; returns (Lt', Rt').  CPU
-    tensors go to the plain twin; CUDA tensors to the kernel, which counts
-    each launch in ``.launches``."""
+    :238): B1's steps without the top-1, so its factors are B1's bit for
+    bit.  Same inputs and keywords as ``resident_train_top1``; returns
+    (Lt', Rt').  CPU tensors go to the plain twin; CUDA tensors to the
+    kernel, which counts each launch in ``.launches``."""
     K, U, I = _check(Lt, Rt, At, precision)
+    code = _form_code(form)
     if Lt.device.type == "cpu":
+        _cpu_check(At, K, split, walk)
         return resident_train_plain(Lt, Rt, At, iters=iters, alpha2=alpha2, precision=precision)
     dev = _kernel_device(Lt)
     lib = _build.load()
-    split, bufs = _resident_buffers(K, U, I, dev)
+    split = _split_for(split, K, U, I, dev)
+    walk = _walk_for(walk, At, K, split)
+    bufs = _resident_buffers(K, U, I, dev, split)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rs_resident_train(
-            ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *bufs),
-            K, U, I, _lanes_per_column(K), iters, float(alpha2), _PRECISION_CODE[precision],
-            *split, ctypes.c_void_p(stream),
+        rc = lib.rs_resident_sparse_train(
+            *_ptrs(*walk.tables, _tickets(dev)), walk.cap, *_ptrs(Lt, Rt, *bufs), K, U, I, _lanes_per_column(K),
+            iters, float(alpha2), _PRECISION_CODE[precision], *split, walk.sub, code, _stream(dev),
         )
     if rc != 0:
-        raise RuntimeError(f"rs_resident_train failed: CUDA error {rc}")
+        raise RuntimeError(f"rs_resident_sparse_train ({form}) failed: CUDA error {rc}")
     resident_train.launches += 1
     return bufs[0], bufs[1]
 
 
+def resident_train_top1_dense(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest",
+                              items_true: int, split: tuple | None = None):
+    """``resident_train_top1`` in its dense form, every cell of each A^T tile
+    walked (``grad_pass`` + ``apply_update``, two launches a step): the
+    baseline the sparse form replaced, kept for ``probes/resident_sparse.py``.
+    CPU tensors go to the plain twin; CUDA tensors to the kernel
+    (``.launches``)."""
+    K, U, I = _check(Lt, Rt, At, precision)
+    if Lt.device.type == "cpu":
+        _cpu_check(At, K, split)
+        return resident_train_top1_plain(
+            Lt, Rt, At, iters=iters, alpha2=alpha2, precision=precision, items_true=items_true
+        )
+    dev = _kernel_device(Lt)
+    lib = _build.load()
+    split = _split_for(split, K, U, I, dev)
+    bufs = _resident_buffers(K, U, I, dev, split)
+    tops = _top1_buffers(U, split[1], dev)
+    with torch.cuda.device(dev):
+        rc = lib.rs_resident_train_top1(
+            ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *bufs, *tops),
+            K, U, I, _lanes_per_column(K), iters, float(alpha2), _PRECISION_CODE[precision], items_true,
+            *split, _stream(dev),
+        )
+    if rc != 0:
+        raise RuntimeError(f"rs_resident_train_top1 failed: CUDA error {rc}")
+    resident_train_top1_dense.launches += 1
+    return bufs[0], bufs[1], tops[2]
+
+
+def resident_train_dense(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest",
+                         split: tuple | None = None):
+    """``resident_train`` in its dense form (``rs_resident_train``): the
+    steps of ``resident_train_top1_dense``.  CPU tensors go to the plain
+    twin; CUDA tensors to the kernel (``.launches``)."""
+    K, U, I = _check(Lt, Rt, At, precision)
+    if Lt.device.type == "cpu":
+        _cpu_check(At, K, split)
+        return resident_train_plain(Lt, Rt, At, iters=iters, alpha2=alpha2, precision=precision)
+    dev = _kernel_device(Lt)
+    lib = _build.load()
+    split = _split_for(split, K, U, I, dev)
+    bufs = _resident_buffers(K, U, I, dev, split)
+    with torch.cuda.device(dev):
+        rc = lib.rs_resident_train(
+            ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *bufs),
+            K, U, I, _lanes_per_column(K), iters, float(alpha2), _PRECISION_CODE[precision],
+            *split, _stream(dev),
+        )
+    if rc != 0:
+        raise RuntimeError(f"rs_resident_train failed: CUDA error {rc}")
+    resident_train_dense.launches += 1
+    return bufs[0], bufs[1]
+
+
+resident_train_top1.launches = 0
 resident_train.launches = 0
+resident_train_top1_dense.launches = 0
+resident_train_dense.launches = 0

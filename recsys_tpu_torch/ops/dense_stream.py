@@ -34,13 +34,16 @@ from typing import NamedTuple
 import torch
 
 from recsys_tpu_torch.ops import _build
-from recsys_tpu_torch.ops.precision import bsplit, round_bf16
+from recsys_tpu_torch.ops.precision import cell_prod, pred_cells
 from recsys_tpu_torch.ops.dense_fused import (
     _A_KIND,
     _PRECISION_CODE,
+    H100_SMS,
+    _by_degree,
     _check,
     _kernel_device,
     _lanes_per_column,
+    _offsets,
     _ptrs,
     _split,
     exact_f32,
@@ -48,6 +51,7 @@ from recsys_tpu_torch.ops.dense_fused import (
     plain_top1,
     plain_train,
     round_up,
+    sub_strip,
 )
 
 # Items per strip of the stream kernel (csrc/dense_stream.cu, BR).
@@ -56,9 +60,6 @@ _BR = 32
 # shared memory (a thread-block cluster), at most.  Hopper runs clusters
 # of 16 (8 is the portable size); 16 halves part_r at gen-instML1M.
 _MAX_CLUSTER = 16
-# SMs of an H100 SXM, for the partial-buffer sizes the plan counts before
-# any device is chosen.
-H100_SMS = 132
 # Blocks of the stream kernel's grid per SM.  At gen-instML1M, 3 took a
 # step from 262 to 215 us against 2 (4: 192 us, but 11.7 MB of partials)
 # on an H100 80GB HBM3 at 700 W (PERF.md).
@@ -89,13 +90,6 @@ def stream_partial_bytes(K: int, U: int, I: int, sms: int = H100_SMS,
     return 4 * K * (S * U + U * G // (128 * C) * I)
 
 
-def sub_strip(G: int) -> int:
-    """Items a block of the sparse form stages at a time
-    (``csrc/dense_stream.cu``, SR): 64, or 32 when a column spans G > 1
-    lanes, so its shared memory stays under 227 KB at K = 256."""
-    return 64 if G == 1 else 32
-
-
 # u_cell packs the user within its block above the item within its chunk.
 _CELL_ITEM_BITS = 24
 
@@ -120,21 +114,6 @@ class Walk(NamedTuple):
     @property
     def tables(self) -> tuple:
         return self[:8]
-
-
-def _offsets(keys: torch.Tensor, n: int) -> torch.Tensor:
-    """int32 (n + 1,) start of each key's run in an order sorted by key."""
-    off = torch.zeros(n + 1, dtype=torch.int64, device=keys.device)
-    off[1:] = torch.cumsum(torch.bincount(keys, minlength=n), 0)
-    return off.to(torch.int32)
-
-
-def _by_degree(groups: torch.Tensor, counts: torch.Tensor, n: int) -> torch.Tensor:
-    """Within each row of ``groups`` (rows, m), positions ordered by
-    (group, descending count, position): the stable sort of a composite
-    key."""
-    key = groups * (n + 1) + (n - counts)
-    return torch.sort(key, dim=1, stable=True).indices.to(torch.int32).reshape(-1)
 
 
 def walk_tables(At, split: tuple, sub: int) -> Walk:
@@ -179,17 +158,6 @@ def walk_tables(At, split: tuple, sub: int) -> Walk:
     )
 
 
-def _cell_prod(a, b, precision: str):
-    """Elementwise a * b under ``precision``, as ``precision.dot`` forms
-    each product: bf16x3 ``(ah*bl + al*bh) + ah*bh``, default both bf16."""
-    if precision == "bf16x3":
-        (ah, al), (bh, bl) = bsplit(a), bsplit(b)
-        return (ah * bl + al * bh) + ah * bh
-    if precision == "default":
-        return round_bf16(a) * round_bf16(b)
-    return a * b
-
-
 def walk_train_plain(Lt, Rt, walk: Walk, *, iters: int, alpha2: float, precision: str = "highest"):
     """Plain torch GD steps over the walk's tables: pred and e per rated
     cell in user order, the dLt partials per item chunk from the user
@@ -225,22 +193,12 @@ def walk_train_plain(Lt, Rt, walk: Walk, *, iters: int, alpha2: float, precision
 
     with exact_f32(dev):
         for _ in range(iters):
-            pred = _pred_cells(Rt[:, ur], Lt[:, uc], precision)
+            pred = pred_cells(Rt[:, ur], Lt[:, uc], precision)
             e = walk.u_val - pred
-            dLt = summed(_cell_prod(Rt[:, ur], e, precision), part_at[0], n_parts[0], U)
-            dRt = summed(_cell_prod(Lt[:, ic], e[walk.i_cell.long()], precision), part_at[1], n_parts[1], I)
+            dLt = summed(cell_prod(Rt[:, ur], e, precision), part_at[0], n_parts[0], U)
+            dRt = summed(cell_prod(Lt[:, ic], e[walk.i_cell.long()], precision), part_at[1], n_parts[1], I)
             Lt, Rt = Lt + alpha2 * dLt, Rt + alpha2 * dRt
     return Lt, Rt
-
-
-def _pred_cells(y, x, precision: str):
-    """Per cell (column), the dot of two (K, n) tables under ``precision``."""
-    if precision == "bf16x3":
-        (yh, yl), (xh, xl) = bsplit(y), bsplit(x)
-        return (yh * xl + yl * xh).sum(0) + (yh * xh).sum(0)
-    if precision == "default":
-        return (round_bf16(y) * round_bf16(x)).sum(0)
-    return (y * x).sum(0)
 
 
 def stream_train_plain(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest"):

@@ -63,3 +63,24 @@ def dot(a, b, precision: str) -> torch.Tensor:
     if precision == "highest":
         return a @ b
     raise ValueError(f"unknown precision {precision!r}")
+
+
+def cell_prod(a, b, precision: str):
+    """Elementwise a * b under ``precision``, as ``dot`` forms each
+    product: bf16x3 ``(ah*bl + al*bh) + ah*bh``, default both bf16."""
+    if precision == "bf16x3":
+        (ah, al), (bh, bl) = bsplit(a), bsplit(b)
+        return (ah * bl + al * bh) + ah * bh
+    if precision == "default":
+        return round_bf16(a) * round_bf16(b)
+    return a * b
+
+
+def pred_cells(y, x, precision: str):
+    """Per cell (column), the dot of two (K, n) tables under ``precision``."""
+    if precision == "bf16x3":
+        (yh, yl), (xh, xl) = bsplit(y), bsplit(x)
+        return (yh * xl + yl * xh).sum(0) + (yh * xh).sum(0)
+    if precision == "default":
+        return (round_bf16(y) * round_bf16(x)).sum(0)
+    return (y * x).sum(0)

@@ -10,13 +10,14 @@ full-width indices, then with one index row broadcast over the rows, each
 expecting 1.5 * g and equal to the twin bit for bit; and the scan against
 its twin within ``testing.LANE_CUMSUM_RTOL``, with its control rejected.
 Then each kernel at the script's shapes with T = 512 steps, its device
-time by ``torch.profiler`` beside its twin's and the library loop's (the
-same T steps around ``torch.gather(tab, 1, idx)`` or
-``torch.cumsum(x, 1)``), in G elem/s of S * W * T, and its time at T = 128
-and at T = 0 for the T-scaling (4x the steps must take about 4x the time,
-or the compiler hoisted the loop-invariant body; T = 0 is the launch and
-the row's load alone).  The three step counts are launched in turn in one
-profile and each read as a median (``interleaved_ms``).
+time by ``torch.profiler`` beside the time of its twin and of the library
+loop (the same T steps around ``torch.gather(tab, 1, idx)`` or
+``torch.cumsum(x, 1)``) by CUDA events, in G elem/s of S * W * T, and its
+time at T = 128 and at T = 0 for the T-scaling (4x the steps must take
+about 4x the time, or the compiler hoisted the loop-invariant body; T = 0
+is the launch and the row's load alone).  The three step counts are
+launched in turn in one profile and each read as a median
+(``interleaved_ms``).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 
 from recsys_tpu_torch import testing as checks
 from recsys_tpu_torch.ops import lane
-from recsys_tpu_torch.utils.timing import device_ms
+from recsys_tpu_torch.utils.timing import cuda_event_ms
 
 T = 512
 T_SHORT = 128
@@ -100,40 +101,49 @@ def _library_cumsum(x, t):
     return out
 
 
-def interleaved_ms(launch, steps, name: str, rounds: int = 30, warm_ms: float = 20.0) -> dict:
+def interleaved_ms(launch, steps, name: str, rounds: int = 30, warm_ms: float = 20.0,
+                   attempts: int = 3) -> dict:
     """The median device ms of one ``launch(t)`` for each t in ``steps``,
     from ``torch.profiler``'s events of the kernels whose name holds
     ``name``.  The step counts take turns, ``rounds`` times, behind about
     ``warm_ms`` of ``launch(steps[0])`` in the same profile: the card's
     clock changes between idle and busy, and this way every step count
-    meets it in the same state."""
+    meets it in the same state.  Each launch is read as the kernel's own
+    time, which CUDA events around a launch of a few µs cannot give.  A
+    profile can miss launches (see ``timing.cuda_event_ms``): one that
+    holds no more than the window's launches and more than the measured
+    ones counts, another is made in its place, and this raises after
+    ``attempts`` that do not."""
     cuda = torch.autograd.DeviceType.CUDA
     t0 = time.perf_counter()
     launch(steps[0])
     torch.cuda.synchronize()
     warm = max(3, int(warm_ms / ((time.perf_counter() - t0) * 1e3)))
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(warm):
-            launch(steps[0])
-        for _ in range(rounds):
-            for t in steps:
-                launch(t)
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == cuda and name in e.name),
-                    key=lambda e: e.time_range.start)
-    # The profiler may miss the first launch or two of a window: they are
-    # warm-up ones, and the measured launches are the last of the list.
     n = rounds * len(steps)
-    if not n < len(events) <= warm + n:
-        raise RuntimeError(f"the profiler saw {len(events)} launches of {name}, not {warm + n}")
-    us = [e.time_range.elapsed_us() for e in events[-n:]]
-    return {t: statistics.median(us[j :: len(steps)]) / 1e3 for j, t in enumerate(steps)}
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(warm):
+                launch(steps[0])
+            for _ in range(rounds):
+                for t in steps:
+                    launch(t)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == cuda and name in e.name),
+                        key=lambda e: e.time_range.start)
+        # The profiler may miss the first launch or two of a window: they are
+        # warm-up ones, and the measured launches are the last of the list.
+        if n < len(events) <= warm + n:
+            us = [e.time_range.elapsed_us() for e in events[-n:]]
+            return {t: statistics.median(us[j :: len(steps)]) / 1e3 for j, t in enumerate(steps)}
+        print(f"[probe] the profiler saw {len(events)} launches of {name}, not {warm + n}: profiling again",
+              flush=True)
+    raise RuntimeError(f"the profiler saw {len(events)} launches of {name}, not {warm + n}, {attempts} times")
 
 
 def time_kernels(device) -> list[dict]:
     """Each kernel at the script's shapes: device ms of the kernel at T,
     T_SHORT and 0 (``interleaved_ms``), the twin and the library loop at
-    T, and G elem/s."""
+    T (CUDA events, one call), and G elem/s."""
     rng = np.random.default_rng(0)
     rows = []
     for kind, shapes in (("gather", GATHER_SHAPES), ("cumsum", CUMSUM_SHAPES)):
@@ -148,8 +158,8 @@ def time_kernels(device) -> list[dict]:
             ms, ms_short, ms_zero = got[T], got[T_SHORT], got[0]
             row = {"kind": kind, "S": S, "W": W, "ms": ms, "ms_short": ms_short, "ms_zero": ms_zero,
                    "scaling": ms / ms_short, "scaling_net": (ms - ms_zero) / (ms_short - ms_zero),
-                   "plain_ms": device_ms(lambda: twin(*args, T), 1),
-                   "library_ms": device_ms(lambda: lib(*args, T), 1),
+                   "plain_ms": cuda_event_ms(lambda: twin(*args, T)),
+                   "library_ms": cuda_event_ms(lambda: lib(*args, T)),
                    "gelem_s": S * W * T / (ms * 1e-3) / 1e9}
             print(f"[probe] P1 {kind} (S={S}, W={W}): {ms!r} ms for {T} steps -> {row['gelem_s']!r} G elem/s; "
                   f"T={T_SHORT}: {ms_short!r} ms (x{row['scaling']!r}); T=0: {ms_zero!r} ms (net of it "

@@ -10,8 +10,8 @@ against B3's dense form (``dense_stream.stream_train_dense``, which the
 engine's sparse form equals bit for bit) on the same factors bit for bit:
 P3 sums in B3's order, so this replaces the script's bitwise v1 = v2 check,
 which its drivers no longer run.  Then it times "v1 stream" (B3 on A^T)
-against "v2 packed" (P3 on A) by slope, the device time of ``iters`` steps
-minus that of ``iters // 3`` over the difference, at the shapes of the
+against "v2 packed" (P3 on A) by slope, the time of ``iters`` steps (CUDA
+events) minus that of ``iters // 3`` over the difference, at the shapes of the
 script's ``time_shape`` (:181-193): gen-instML1M (U 6144, I 4096 in 8
 strips of 512, K 32) and inst200-10000-50-100-300 (U 256, I 10240 in 20
 strips, K 56), int8 A.
@@ -28,7 +28,7 @@ import torch
 
 from recsys_tpu_torch import testing as checks
 from recsys_tpu_torch.ops import dense_fused, dense_stream, dense_tiled, stream_v2
-from recsys_tpu_torch.utils.timing import device_ms
+from recsys_tpu_torch.utils.timing import cuda_event_ms
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STRIP = 512
@@ -91,7 +91,7 @@ def check(name, spec, strip: int, device, iters: int = checks.FACTOR_ITERS, a_dt
 
 def slope(name, spec, iters: int, device, strip: int = STRIP) -> dict:
     """ms per step of B3 on A^T ("v1 stream") and P3 on A ("v2 packed") by
-    slope between ``iters`` and ``iters // 3`` steps, device time."""
+    slope between ``iters`` and ``iters // 3`` steps, by CUDA events."""
     Lt, Rt, Rp, A, At = inputs(spec, strip, device)
     a2, lo = 2.0 * spec.alpha, iters // 3
     variants = {
@@ -100,7 +100,7 @@ def slope(name, spec, iters: int, device, strip: int = STRIP) -> dict:
     }
     out = {}
     for vname, fn in variants.items():
-        hi_ms, lo_ms = device_ms(lambda: fn(iters), 2), device_ms(lambda: fn(lo), 2)
+        hi_ms, lo_ms = cuda_event_ms(lambda: fn(iters), 2), cuda_event_ms(lambda: fn(lo), 2)
         out[vname] = {"ms": hi_ms, "per_step_ms": (hi_ms - lo_ms) / (iters - lo)}
         print(f"[probe] P3 {name} {vname}: {hi_ms!r} ms for {iters} steps, slope "
               f"{out[vname]['per_step_ms']!r} ms/step ({A.shape[1] // strip} strips)", flush=True)

@@ -86,7 +86,10 @@ def phase(name: str):
 
 def cuda_event_ms(fn, reps: int = 1) -> float:
     """Mean milliseconds of ``fn()`` on the current CUDA stream over
-    ``reps`` calls after one warm-up call, by CUDA events."""
+    ``reps`` calls after one warm-up call, by CUDA events.  Kernel times
+    are read so, and not from ``torch.profiler``'s device events: on an
+    H100 (torch 2.11, CUDA 12.8) a profile can miss some or all of the
+    launches in its window, with nothing to tell it did."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -115,22 +118,3 @@ def alternating_ms(fns: dict, rounds: int = 5, warm: int = 2) -> dict:
             if i >= warm:
                 times[name].append(start.elapsed_time(end))
     return {name: statistics.median(ts) for name, ts in times.items()}
-
-
-def device_ms(fn, reps: int, names=None) -> float:
-    """Mean device milliseconds per call of ``fn()`` from ``torch.profiler``,
-    after one warm-up call: the time of the device events (kernels,
-    copies) whose name holds one of ``names``, or of all of them when
-    ``names`` is None.  Raises where the profiler sees none."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if e.device_type == cuda and (names is None or any(n in e.key for n in names)))
-    if total <= 0:
-        raise RuntimeError(f"the profiler saw no device time of {names or 'any kernel'}")
-    return total / reps / 1e3

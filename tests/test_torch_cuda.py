@@ -521,3 +521,88 @@ def test_sparse_stream_with_empty_last_segments(precision):
     dense = dense_stream.stream_train_dense(Lt, Rt, At, **kw)
     torch.cuda.synchronize()
     assert checks.same_bits(sparse, dense)
+
+
+def _resident_forms(Lt, Rt, A, kw, items_true, split=None):
+    """B1 in its three forms and B2 in the engine's, one walk between them:
+    {form: (Lt', Rt', top1)} and B2's (Lt', Rt')."""
+    walk = dense_fused.resident_walk(A, Lt.shape[0], split)
+    top = dict(items_true=items_true, split=split)
+    forms = {
+        "persistent": dense_fused.resident_train_top1(Lt, Rt, A, **kw, **top, walk=walk, form="persistent"),
+        "loop": dense_fused.resident_train_top1(Lt, Rt, A, **kw, **top, walk=walk, form="loop"),
+        "dense": dense_fused.resident_train_top1_dense(Lt, Rt, A, **kw, **top),
+    }
+    b2 = dense_fused.resident_train(Lt, Rt, A, **kw, walk=walk, split=split)
+    torch.cuda.synchronize()
+    return forms, b2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
+@pytest.mark.parametrize("k", [10, 40, 64])
+def test_sparse_resident_equals_dense_bit_for_bit(k, precision, a_dtype):
+    # B1's and B2's sparse form walks the rated cells alone in the dense
+    # form's order of sums: the same raw bits at k = 10 (G = 1) and k = 40
+    # and 64 (G = 2), in the persistent kernel and in the loop form.
+    dev = _cuda()
+    spec = generate_instance(200, 300, k, 2, 30, iters=checks.FACTOR_ITERS, alpha=0.001, seed=5)
+    Lt, Rt, (U, I, K) = dense_fused.pad_factors_for_pallas(spec)
+    A = dense_fused.device_dense_AT(spec, U, I, a_dtype, dev)
+    Lt, Rt = torch.from_numpy(Lt).to(dev), torch.from_numpy(Rt).to(dev)
+    kw = dict(iters=spec.iters, alpha2=2 * spec.alpha, precision=precision)
+    wrappers = (dense_fused.resident_train_top1, dense_fused.resident_train_top1_dense, dense_fused.resident_train)
+    before = [f.launches for f in wrappers]
+    forms, b2 = _resident_forms(Lt, Rt, A, kw, spec.items)
+    # Each wrapper counts one a call: two sparse B1 calls, one dense, one B2.
+    assert [f.launches for f in wrappers] == [before[0] + 2, before[1] + 1, before[2] + 1]
+    dense = forms["dense"]
+    for form in ("persistent", "loop"):
+        assert checks.same_bits(forms[form][:2], dense[:2]) and torch.equal(forms[form][2], dense[2]), form
+    assert checks.same_bits(b2, dense[:2])  # B2 = B1's factors
+    # B4 on B1's factors is B1's top-1.
+    b4 = dense_stream.stream_top1(*forms["persistent"][:2], A, precision=precision, items_true=spec.items)
+    assert torch.equal(b4, forms["persistent"][2])
+    twin = dense_fused.resident_train_plain(Lt, Rt, A, **kw)
+    assert checks.factor_rel(forms["persistent"][:2], twin) <= checks.FACTOR_RTOL[precision]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
+def test_sparse_resident_equals_dense_at_instml100k_shape(precision):
+    dev = _cuda()
+    spec = load_problem(str(FIXTURES / "instML100k.in"))
+    Lt, Rt, (U, I, K) = dense_fused.pad_factors_for_pallas(spec)
+    A = dense_fused.device_dense_AT(spec, U, I, torch.int8, dev)
+    Lt, Rt = torch.from_numpy(Lt).to(dev), torch.from_numpy(Rt).to(dev)
+    kw = dict(iters=checks.FACTOR_ITERS, alpha2=2 * spec.alpha, precision=precision)
+    forms, b2 = _resident_forms(Lt, Rt, A, kw, spec.items)
+    dense = forms["dense"]
+    for form in ("persistent", "loop"):
+        assert checks.same_bits(forms[form][:2], dense[:2]) and torch.equal(forms[form][2], dense[2]), form
+    assert checks.same_bits(b2, dense[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
+def test_sparse_resident_with_empty_columns_chunks_and_last_segments(precision):
+    # User 5, users 156 on, one item chunk and items 284 on hold no rated
+    # cell (tests/test_torch_resident_sparse.py::_edge_At): those partials
+    # are +0, and the last segments start at nnz, the tables' end.
+    dev = _cuda()
+    g = torch.Generator().manual_seed(3)
+    At = torch.zeros((384, 256), dtype=torch.int8)
+    rated = torch.rand((284, 156), generator=g) < 0.08
+    At[:284, :156] = torch.randint(1, 11, rated.shape, generator=g, dtype=torch.int8) * rated
+    At[:, 5] = 0
+    At[64:128] = 0
+    Lt, Rt = (0.1 * torch.rand((32, n), generator=g) for n in (256, 384))
+    At, Lt, Rt = At.to(dev), Lt.to(dev), Rt.to(dev)
+    kw = dict(iters=4, alpha2=0.002, precision=precision)
+    forms, b2 = _resident_forms(Lt, Rt, At, kw, 284, split=(64, 6, 64, 4))
+    dense = forms["dense"]
+    for form in ("persistent", "loop"):
+        assert checks.same_bits(forms[form][:2], dense[:2]) and torch.equal(forms[form][2], dense[2]), form
+    assert checks.same_bits(b2, dense[:2])
+    assert torch.equal(b2[0][:, 5], Lt[:, 5]) and torch.equal(b2[1][:, 64:128], Rt[:, 64:128])
