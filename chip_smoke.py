@@ -21,10 +21,18 @@ each printed as it runs:
    controls at gen-instML1M's shape, and the identities B2 = B1's factors,
    B4 = B1's top-1 and B6 = B3 then B4, bit for bit; B3 within the factor
    limit of B2; the tie case for B4 and B6.
-5. B5 vs its twin, every precision x A storage, on the small instance and
-   at the gen-instML1M and gen-inst1e6-100-700-1-3 shapes (20 steps): the
-   same readings, two runs bit for bit, the controls at both large shapes,
-   and B5's training within the factor limit of B3's at gen-instML1M's.
+5. B5 (its fused step, as ``tiled_train`` runs it) vs its twin, every
+   precision x A storage, on the small instance and at the gen-instML1M
+   and gen-inst1e6-100-700-1-3 shapes (20 steps): the same readings, two
+   runs bit for bit, the controls at both large shapes, and B5's training
+   within the factor limit of B3's at gen-instML1M's.  Then (``[redesign]``)
+   the fused step against the composition it replaced, B5's raw deltas
+   and the torch update (``probes/tiled_fused.py``): equal in raw bits in
+   each form of its L pass, every precision x A storage, at the small
+   spec (k = 10, 700, 1000) and both large shapes, the raw deltas against
+   the twin's, and both timed in turns at gen-inst1e6 (ms a step) and
+   gen-instML1M (us a step); the fused step must be no slower at
+   gen-inst1e6.
 5b. ``bell_side_update`` (P2's engine form) vs its twin, bit for bit, in
    f64 and f32, on small specs (stored 0 ratings and k = 700 among them)
    and at instML100k (20 steps), two runs bit for bit; in f64 against
@@ -58,11 +66,11 @@ each printed as it runs:
 8. main path, ``--checkpoint``: the CLI on instML100k in chunks of 1000
    iterations (B2) against an unchunked ``factorize`` + ``recommend``.
 9. main path, gen-inst1e6-100-700-1-3 (k = 700, built in memory): ``run``
-   with ``path="pallas"`` in every mode on the auto plan (tiled: B5 once
-   per step, then ``recommend`` on the factors left on the card) against
-   the golden ``.out``, with launch counts and phase times; then one
-   tiled step's device time by kernel (``torch.profiler``) at its shape
-   and at gen-instML1M's.
+   with ``path="pallas"`` in every mode on the auto plan (tiled: B5's fused
+   step once per step, then ``recommend`` on the factors left on the card)
+   against the golden ``.out``, with launch counts and phase times; then
+   one tiled step's device time by kernel (``torch.profiler``), fused and
+   as the old composition, at its shape and at gen-instML1M's.
 10. main path, exact f64: instML100k through ``run()`` on the auto route
    (``bell``, 2 launches a step) byte for byte against its golden, with
    phases, the slope and one twin step's time; ``--path dense`` f64 once;
@@ -158,6 +166,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "stream_top1": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:473"),
     "stream_train_top1": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:433"),
     "tiled_deltas": ("recsys_tpu_torch/csrc/dense_tiled.cu", "recsys_tpu/ops/pallas_dense.py:566"),
+    "tiled_step": ("recsys_tpu_torch/csrc/dense_tiled.cu", "recsys_tpu/ops/pallas_dense.py:566"),
     "bell_side_update": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
     "gather_rows": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:118"),
     "gather_err_grad": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
@@ -186,6 +195,7 @@ def _wrappers():
         "stream_top1": dense_stream.stream_top1,
         "stream_train_top1": dense_stream.stream_train_top1,
         "tiled_deltas": dense_tiled.tiled_deltas,
+        "tiled_step": dense_tiled.tiled_step,
         "bell_side_update": bell.bell_side_update,
         "gather_rows": gather.gather_rows,
         "gather_err_grad": gather.gather_err_grad,
@@ -461,12 +471,12 @@ def stream_kernels_phase(torch, dev):
 
 
 def tiled_kernel_phase(torch, dev, big):
-    """B5 against its twin, every precision x A storage, on the small
+    """B5's fused step (``tiled_train``, ``tiled_gd_step``) against its twin, every precision x A storage, on the small
     instance and at the gen-instML1M and gen-inst1e6 (``big``) shapes, 20
     steps: the factor and probe-update readings, two runs bit for bit, the
     controls at both large shapes, and B5's training against B3's at
-    gen-instML1M's shape.  Returns B5's max abs error in highest at
-    gen-inst1e6's shape."""
+    gen-instML1M's shape.  Returns the fused step's max abs error in
+    highest at gen-inst1e6's shape."""
     from recsys_tpu_torch import testing as checks
     from recsys_tpu_torch.ops import dense_fused as df
     from recsys_tpu_torch.ops import dense_stream as ds
@@ -668,8 +678,10 @@ def ml1m_phase(torch, dev, launches):
     counts = launches["gen-instML1M", "auto"]
     if counts["stream_train"] <= 0 or counts["stream_top1"] <= 0:
         raise AssertionError(f"the gen-instML1M main path did not launch B3 and B4: {counts}")
-    if launches["gen-instML1M", "tiled forced"]["tiled_deltas"] <= 0:
-        raise AssertionError("gen-instML1M with the tiled kind forced did not launch B5")
+    tiled = launches["gen-instML1M", "tiled forced"]
+    if tiled["tiled_step"] != len(MODES) * (spec.iters + 1000) or tiled["tiled_deltas"]:
+        raise AssertionError(f"gen-instML1M with the tiled kind forced must launch B5's fused step once a step "
+                             f"and the raw deltas never: {tiled}")
 
     Lt, Rt, A = _inputs(spec, plan.a_dtype, dev, torch)
     want = golden.splitlines()
@@ -731,21 +743,29 @@ def inst1e6_phase(torch, dev, launches, spec):
         f"plan={plan}")
     if plan.kind != "tiled":
         raise AssertionError(f"{INST1E6} must take the tiled plan, got {plan.kind!r}")
+    def one(precision, label=""):
+        torch.cuda.reset_peak_memory_stats(dev)
+        reserved, retries = torch.cuda.memory_reserved(dev), torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+        out, wall, ph = _run(spec, precision, dev, torch, path="pallas")
+        agree, lines = _agreement(out, want)
+        retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0) - retries
+        log(f"[main] {INST1E6} auto plan=tiled {precision}{label}: agreement {agree!r} lines {lines} | wall {wall!r} s "
+            f"prep {ph['prep']!r} upload {ph['upload']!r} train {ph['train']!r} top1 {ph['top1']!r} "
+            f"| peak device memory {torch.cuda.max_memory_allocated(dev)!r} B, reserved before {reserved!r} B, "
+            f"allocator retries {retries}")
+        if lines != len(want) or agree < INST1E6_FLOOR[precision]:
+            raise AssertionError(f"{INST1E6} {precision}: agreement {agree} below {INST1E6_FLOOR[precision]}")
+
     counts = {}
     with counted(counts):
         for precision in MODES:
-            torch.cuda.reset_peak_memory_stats(dev)
-            out, wall, ph = _run(spec, precision, dev, torch, path="pallas")
-            agree, lines = _agreement(out, want)
-            log(f"[main] {INST1E6} auto plan=tiled {precision}: agreement {agree!r} lines {lines} | wall {wall!r} s "
-                f"prep {ph['prep']!r} upload {ph['upload']!r} train {ph['train']!r} top1 {ph['top1']!r} "
-                f"| peak device memory {torch.cuda.max_memory_allocated(dev)!r} B")
-            if lines != len(want) or agree < INST1E6_FLOOR[precision]:
-                raise AssertionError(f"{INST1E6} {precision}: agreement {agree} below {INST1E6_FLOOR[precision]}")
+            one(precision)
     log(f"[main] {INST1E6} auto launches in the main-path runs: {counts}")
+    one("highest", " (again, after the three)")  # is the first run's train phase longer for its place?
     launches[INST1E6, "auto"] = counts
-    if counts["tiled_deltas"] != len(MODES) * spec.iters:
-        raise AssertionError(f"{INST1E6} must launch B5 {spec.iters} times per run: {counts}")
+    if counts["tiled_step"] != len(MODES) * spec.iters or counts["tiled_deltas"]:
+        raise AssertionError(f"{INST1E6} must launch B5's fused step {spec.iters} times per run and the raw "
+                             f"deltas never: {counts}")
 
 
 def _bell_small_specs():
@@ -777,13 +797,15 @@ def _bell_big_readings(torch, dev, spec):
     """``bell_train`` against ``bell_train_plain`` at ``spec``'s shape
     (gen-inst1e6: 100 item rows of ~20,000 slots, one warp each, and
     1M-row user buckets), ``INST1E6_BELL_STEPS`` steps, bit for bit in f64
-    and f32, and two runs bit for bit.  The factors are drawn on the card
-    from a seed, at the glibc init's scale (the route's own init is read
-    in ``inst1e6_bell_phase``).  Returns the failed readings."""
+    and f32, and two runs bit for bit, and one twin step's time.  The
+    factors are drawn on the card from a seed, at the glibc init's scale
+    (the route's own init is read in ``inst1e6_bell_phase``).  Returns the
+    failed readings."""
     import numpy as np
 
     from recsys_tpu_torch.ops import bell
     from recsys_tpu_torch.probes import bell_wide
+    from recsys_tpu_torch.utils.timing import cuda_event_ms
 
     g = torch.Generator(device=dev).manual_seed(0)
     L64, R64 = (torch.rand((n + 1, spec.features), generator=g, dtype=torch.float64, device=dev)
@@ -814,6 +836,9 @@ def _bell_big_readings(torch, dev, spec):
         if bad:
             failed.append(f"{INST1E6} {np.dtype(dtype).name}: {bad}")
         del got
+        twin_ms = cuda_event_ms(lambda: bell.bell_train_plain(L, R, t, a2, data.meta, 1), 1)
+        log(f"[kernels] bell_side_update's plain twin at {INST1E6} {np.dtype(dtype).name}, one step: {twin_ms!r} ms "
+            f"(CUDA events, after one unmeasured step)")
         # The block form (the engine's) against the warp form alone, one
         # step, bit for bit (raises otherwise) and in turns.
         bell_wide.compare(INST1E6, L, R, t, data.meta, a2, 1, twin=False)
@@ -937,6 +962,33 @@ def redesign_phase(torch, dev, launches):
     if not (b1_ok and b3_ok and bell_ok):
         raise AssertionError("an engine form is slower than the form it replaced")
     return readings
+
+
+def tiled_redesign_phase(torch, dev, launches, big):
+    """B5's fused step against the composition it replaced
+    (``probes/tiled_fused.py``, one launch-count window): raw bits in every
+    form, precision and A storage at the small spec and the gen-instML1M and
+    gen-inst1e6 (``big``) shapes, then the steps in turns.  The engine's
+    form must be no slower than the composition at gen-inst1e6.  Returns
+    (the probe's readings, its timings)."""
+    from recsys_tpu_torch.probes import tiled_fused
+
+    counts = {}
+    with counted(counts):
+        readings, times = tiled_fused.run(dev, big=big)
+    launches["B5 fused probe", "all shapes"] = counts
+    log(f"[probe] B5 fused probe launches: {_nonzero(counts)}")
+    base = tiled_fused.BASELINE
+    for name, unit in ((INST1E6, "ms"), ("gen-instML1M", "us")):
+        t = times[name]
+        forms = ", ".join(f"{f} {t[f]['per_step']!r}" for f in t if f not in ("auto", base))
+        log(f"[redesign] {name} tiled step in turns: {base} {t[base]['per_step']!r} {unit}/step against fused "
+            f"{forms} (engine: {t['auto']['per_step']!r})")
+    ok = times[INST1E6]["auto"]["per_step"] <= times[INST1E6][base]["per_step"]
+    log(f"[redesign] {INST1E6} B5 fused step no slower than {base}: {ok}")
+    if not ok:
+        raise AssertionError("B5's fused step is slower than the composition it replaced")
+    return readings, times
 
 
 def _golden_run(name, spec, golden, floor, dev, torch, launches, label, dtype, path="auto"):
@@ -1275,12 +1327,17 @@ def _step_profile(torch, label, step, reps=5):
 
 
 def tiled_step_profile(torch, dev, spec, name):
-    """One ``tiled_gd_step`` at ``spec``'s shape (tiled plan, `highest`) by
-    kernel: B5's passes beside the torch update."""
+    """One step at ``spec``'s shape (tiled plan, `highest`) by kernel: B5's
+    fused step (``tiled_gd_step``, the engine's form of its L pass), then
+    the composition it replaced, B5's raw deltas beside the torch update."""
     from recsys_tpu_torch.ops import dense_tiled as dt
 
     L, R, A, At = _timing_inputs(spec, dev, torch)
-    _step_profile(torch, f"B5 step at {name}", lambda: dt.tiled_gd_step(L, R, A, alpha2=2.0 * spec.alpha, At=At))
+    a2 = 2.0 * spec.alpha
+    form = dt.step_form(L.shape[1], R.shape[0], A.dtype)
+    _step_profile(torch, f"B5 fused step ({form}) at {name}", lambda: dt.tiled_gd_step(L, R, A, alpha2=a2, At=At))
+    _step_profile(torch, f"B5 deltas+apply at {name}",
+                  lambda: dt._apply(L, R, *dt.tiled_deltas(L, R, A, At=At), a2))
     del L, R, A, At
 
 
@@ -1304,8 +1361,10 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     """The kernels line: every number measured in this run, in `highest`.
     The train kernels' bound counts 6*k FLOP per rated cell and step, the
     top-1's 2*k per (user, item); bytes count each input tensor read once
-    and each output written once.  B5's numbers are one launch, one step's
-    deltas, at gen-inst1e6's shape (``big``); then ``bell_records``."""
+    and each output written once.  B5's raw deltas are one launch, one
+    step's deltas, and its fused step one step (the B5 probe's slope in
+    turns), both at gen-inst1e6's shape (``big``) and bound alike; then
+    ``bell_records``."""
     from recsys_tpu_torch.engine import trainer
     from recsys_tpu_torch.ops import dense_fused as df
     from recsys_tpu_torch.ops import dense_stream as ds
@@ -1362,7 +1421,12 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     L, R, A, At = _timing_inputs(big, dev, torch)
     b5_ms = cuda_event_ms(lambda: dt.tiled_deltas(L, R, A, At=At), 10)
     b5_plain = cuda_event_ms(lambda: dt.tiled_deltas_plain(L, R, A), 5)
-    add("tiled_deltas", launches[INST1E6, "auto"]["tiled_deltas"], errs["tiled_deltas"], b5_ms, b5_plain,
+    # The raw deltas left the main path: their launches are the B5 probe's.
+    add("tiled_deltas", launches["B5 fused probe", "all shapes"]["tiled_deltas"], errs["tiled_deltas"], b5_ms,
+        b5_plain, 6.0 * big.nnz * big.features, a_b + 2 * f_b)
+    # The fused step: ms a step from the probe's slope in turns.
+    step_plain = cuda_event_ms(lambda: dt.tiled_train_plain(L, R, A, iters=1, alpha2=2.0 * big.alpha), 5)
+    add("tiled_step", launches[INST1E6, "auto"]["tiled_step"], errs["tiled_step"], times["B5 step"], step_plain,
         6.0 * big.nnz * big.features, a_b + 2 * f_b)
     log(f"[kernels] tiled_deltas dense count at {INST1E6}: 8*U*I*K = {8.0 * plan.U * plan.I * plan.K!r} FLOP, "
         f"{_bound(8.0 * plan.U * plan.I * plan.K, a_b + 2 * f_b)[0]!r} ms at the f32 peak")
@@ -1498,9 +1562,11 @@ def main() -> int:
         errs = {"B1": kernel_vs_plain_phase(torch, dev)["highest"]}
         errs.update(stream_kernels_phase(torch, dev))
         big = _inst1e6_spec()
-        errs["tiled_deltas"] = tiled_kernel_phase(torch, dev, big)
-        errs["bell_side_update"] = bell_kernel_phase(torch, dev, big)
+        errs["tiled_step"] = tiled_kernel_phase(torch, dev, big)
         launches = {}
+        b5_readings, b5_times = tiled_redesign_phase(torch, dev, launches, big)
+        errs["tiled_deltas"] = b5_readings["deltas"]
+        errs["bell_side_update"] = bell_kernel_phase(torch, dev, big)
         b1_readings = redesign_phase(torch, dev, launches)
         errs["resident_train_dense"] = b1_readings["instML100k"]["highest"][3]
         ml100k, train1, plain1 = ml100k_phase(torch, dev, launches)
@@ -1520,6 +1586,7 @@ def main() -> int:
         coo_phase(torch, dev, launches)
         times = {"B1": (train1["auto", "highest"], plain1["highest"]),
                  "B3": (train2["auto", "highest"], plain2["highest"])}
+        times["B5 step"] = b5_times[INST1E6]["auto"]["per_step"]
         kernels = kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows, p3)
     except Exception as e:  # noqa: BLE001 - report any failed phase, exit non-zero
         import traceback

@@ -12,8 +12,9 @@ Routes, chosen by ``choose_path`` in the JAX engine's decision order:
   ``dense_fused.resident_train_top1`` for ``run``, B2
   ``dense_fused.resident_train`` for ``factorize``), ``stream`` (B3
   ``dense_stream.stream_train``, then B4 ``dense_stream.stream_top1`` in
-  ``run``) or ``tiled`` (B5 ``dense_tiled.tiled_deltas`` once per step,
-  then ``recommend`` on the factors left on the device in ``run``).
+  ``run``) or ``tiled`` (B5's fused step ``dense_tiled.tiled_step`` once
+  per step, then ``recommend`` on the factors left on the device in
+  ``run``).
 * ``bell``   -- the degree-bucketed sparse route in f32 or exact f64:
   ``bell.bell_side_update`` (P2's engine form) twice per step, then
   ``recommend`` on the factors left on the device in ``run``.  In f64 it
@@ -192,11 +193,11 @@ def dense_plan(spec: ProblemSpec, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES, ti
       and the top-1's.
     * ``tiled`` for wider factors (K padded to 32, up to
       ``dense_tiled.MAX_K``), when the other kinds need more than
-      ``DEVICE_BUDGET_BYTES``, or when ``tiled`` forces it.  Bytes: A and
-      its transpose, L and R as input, current and next step with the
-      deltas beside them, the dR partial sums as ``dense_tiled`` counts them
-      on an H100, and ``recommend``'s (users, block) f32 tile with its
-      masked copy.
+      ``DEVICE_BUDGET_BYTES``, or when ``tiled`` forces it.  Bytes: what
+      ``dense_tiled.tiled_train`` holds (``dense_tiled.train_bytes``: A and
+      its transpose, L and R as input and two sets of next factors, the dR
+      partial sums on an H100), and ``recommend``'s (users, block) f32 tile
+      with its masked copy.
 
     A plan above ``DEVICE_BUDGET_BYTES`` raises.  It does not depend on the
     device, so CPU runs take the card's routes.
@@ -215,8 +216,7 @@ def dense_plan(spec: ProblemSpec, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES, ti
     K = dense_fused.round_up(spec.features, dense_tiled.K_ALIGN)
     if K > dense_tiled.MAX_K:
         raise NotImplementedError(f"k={spec.features} exceeds the tiled kernel's K <= {dense_tiled.MAX_K}")
-    need = (2 * a_bytes * U * I + 4 * 4 * K * (U + I) + dense_tiled.partial_bytes(U, I, K)
-            + 8 * spec.users * _top1_block(spec, RunConfig.block_items))
+    need = dense_tiled.train_bytes(U, I, K, a_dtype) + 8 * spec.users * _top1_block(spec, RunConfig.block_items)
     if need > DEVICE_BUDGET_BYTES:
         raise NotImplementedError(f"the tiled plan needs {need} B > DEVICE_BUDGET_BYTES; no dense plan fits")
     return DensePlan(kind="tiled", a_dtype=a_dtype, U=U, I=I, K=K, device_bytes=need)
@@ -264,7 +264,7 @@ def _pallas_fused_top1(spec: ProblemSpec, plan: DensePlan, precision: str, devic
 def _tiled_train(spec: ProblemSpec, plan: DensePlan, precision: str, device, state: MFState | None = None):
     """The tiled route's ``prep``, ``upload`` and ``train`` phases
     (trainer.py:543-562): lane-major factors and A on ``device``, then
-    ``dense_tiled.tiled_train``.  ``default`` runs as ``highest`` here, as
+    ``dense_tiled.tiled_train`` (one fused ``tiled_step`` a step).  ``default`` runs as ``highest`` here, as
     the JAX engine does (:550-559); an explicit ``bf16x3`` is honoured.
     Returns the padded (L, R) on ``device``."""
     with phase("prep"):
@@ -419,7 +419,7 @@ def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", st
 
     The ``host`` route runs the native f64 trajectory; the ``pallas`` route
     runs the plan's training kernel, B2 ``resident_train``, B3
-    ``stream_train`` or B5 ``tiled_deltas``, and returns f32 factors at
+    ``stream_train`` or B5's fused ``tiled_step``, and returns f32 factors at
     their true shapes; the ``bell`` and ``dense`` routes return factors in
     the run's dtype, as does ``coo``.  ``a_max_bytes`` and ``tiled`` force a plan kind, as in
     ``run``.

@@ -117,6 +117,9 @@ SIGNATURES = {
     "rs_stream_train_top1": [*[_P] * 8, _I, _P, _I, *[_P] * 11, *[_I] * 6, _F, *[_I] * 7, _P],
     # A, At, a_kind, L, R, dL, dR, part, U, I, K, precision, chunk, S, stream
     "rs_tiled_deltas": [_P, _P, _I, *[_P] * 5, *[_I] * 6, _P],
+    # A, At, a_kind, L, R, Lout, Rout, part, U, I, K, precision, chunk, S,
+    # alpha2, form, stream
+    "rs_tiled_step": [_P, _P, _I, *[_P] * 5, *[_I] * 6, _F, _I, _P],
     # own, other, out, idx, vals, narrow, nb_narrow, warps, wide, nb_wide,
     # blocks, escr, k, pad, alpha2, f64, stream
     "rs_bell_side_update": [*[_P] * 6, _I, _LL, _P, _I, _LL, _P, _I, _I, _D, _I, _P],

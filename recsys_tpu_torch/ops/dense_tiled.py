@@ -10,13 +10,27 @@ applies ``L + 2a*dL`` outside the kernel and ``tiled_train`` (:704) loops it.
 The same deltas are the sharded engine's per-shard step
 (``parallel/step.py:106``), which sums them across the mesh before applying.
 
-Here ``tiled_deltas`` (B5) is hand-written CUDA (``csrc/dense_tiled.cu``),
-with the plain torch twin ``tiled_deltas_plain`` of ``_dl_kernel`` /
-``_dr_kernel``'s math; ``tiled_gd_step`` and ``tiled_train`` are the JAX
-module's host compositions, and ``tiled_train_plain`` is the twin's.  The
-wrapper picks by the tensors' device: the plain twin for CPU tensors, the
-kernel for CUDA tensors, and an error for anything the kernel does not take
--- never a fallback.
+Here both are hand-written CUDA (``csrc/dense_tiled.cu``):
+
+* ``tiled_deltas`` (B5) returns the raw (dL, dR), for the sharded engine
+  and as the baseline; ``tiled_train_deltas`` composes it with the torch
+  update ``_apply`` step by step, as this module did before the fused step.
+* ``tiled_step`` is the whole step in one call of three launches: the L
+  pass writes L' = L + a2*dL and the R reduction writes R' = R + a2*dR,
+  so dL and dR never reach device memory.  It keeps the composition's
+  bits (the product rounded, then the sum, a2 = alpha2 in f32).  Its L
+  pass has two forms (``FORMS``): ``ring``, persistent, streaming L rows
+  and A lines through shared memory, and ``warp``, a warp per user as in
+  B5; ``step_form`` picks one for a shape.
+* ``tiled_gd_step`` returns new tensors from one ``tiled_step``;
+  ``tiled_train`` allocates two sets of next factors once per run and
+  steps between them, never writing the caller's tensors.
+
+The plain torch twins are ``tiled_deltas_plain`` (``_dl_kernel`` /
+``_dr_kernel``'s math) and ``tiled_train_plain``.  The wrappers pick by the
+tensors' device: the plain twin for CPU tensors, the kernel for CUDA
+tensors, and an error for anything the kernel does not take -- never a
+fallback.
 
 Layout, the port's own (the JAX kernels' (U, K128) lanes and bu/bi tiles
 are TPU VMEM facts): lane-major f32 L (U, K), R (I, K) and A (U, I) in its
@@ -56,6 +70,13 @@ MAX_K = 1024
 K_ALIGN = 32
 # Warps of the dR pass per SM that the split of the users aims for.
 _DR_WARPS_PER_SM = 64
+# The fused step's forms of the L pass (csrc/dense_tiled.cu, Form).
+FORMS = {"warp": 0, "ring": 1}
+# The ring form's stages a warp and warps a block (RING, WARPS), and the
+# shared memory a block may take on an H100.
+_RING, _WARPS, _SMEM_MAX = 4, 8, 232_448
+# The longest A line (bytes) the engine streams through the ring.
+RING_MAX_A_BYTES = 1024
 
 
 def pad_factors_lane_major(spec, state=None):
@@ -147,6 +168,15 @@ def _check(L, R, A, precision):
     return U, I, K
 
 
+def _transpose_for(A, At, U, I):
+    """A's transpose (I, U) for the dR pass: made here, or checked."""
+    if At is None:
+        return A.t().contiguous()
+    if tuple(At.shape) != (I, U) or At.dtype != A.dtype or At.device != A.device or not At.is_contiguous():
+        raise ValueError(f"At must be A's contiguous transpose ({I}, {U}) {A.dtype} on {A.device}")
+    return At
+
+
 def tiled_deltas(L, R, A, *, precision: str = "highest", At=None):
     """Raw gradient sums (dL, dR) of one stable-snapshot step, no update
     applied (port of ``pallas_dense.tiled_deltas`` :566, minus the TPU-only
@@ -155,18 +185,15 @@ def tiled_deltas(L, R, A, *, precision: str = "highest", At=None):
     L (U, K), R (I, K) f32, A (U, I) int8 (2x rating) / bf16 / f32; U and
     I multiples of 128, K a multiple of 32 up to ``MAX_K``.  ``At`` is A's
     transpose (I, U), which the kernel's dR pass walks; a caller that takes
-    many steps passes it once made (``tiled_train`` does), else the wrapper
-    makes it.  CPU tensors go to the plain twin; CUDA tensors to the kernel,
-    which counts each launch in ``.launches``.
+    many steps passes it once made, else the wrapper makes it.  CPU tensors
+    go to the plain twin; CUDA tensors to the kernel, which counts each
+    launch in ``.launches``.
     """
     U, I, K = _check(L, R, A, precision)
     if L.device.type == "cpu":
         return tiled_deltas_plain(L, R, A, precision=precision)
     dev = _kernel_device(L)
-    if At is None:
-        At = A.t().contiguous()
-    elif tuple(At.shape) != (I, U) or At.dtype != A.dtype or At.device != A.device or not At.is_contiguous():
-        raise ValueError(f"At must be A's contiguous transpose ({I}, {U}) {A.dtype} on {A.device}")
+    At = _transpose_for(A, At, U, I)
     lib = _build.load()
     chunk, S = dr_split(U, I, _sms(dev))
     dL = torch.empty((U, K), dtype=torch.float32, device=dev)
@@ -186,17 +213,136 @@ def tiled_deltas(L, R, A, *, precision: str = "highest", At=None):
 tiled_deltas.launches = 0
 
 
-def tiled_gd_step(L, R, A, *, alpha2: float, precision: str = "highest", At=None):
-    """One GD step (``pallas_dense.tiled_gd_step`` :614): ``tiled_deltas``,
-    then ``L + 2a*dL`` and ``R + 2a*dR`` as torch ops.  Returns (L', R')."""
-    return _apply(L, R, *tiled_deltas(L, R, A, precision=precision, At=At), alpha2)
+def ring_bytes(K: int, I: int, a_dtype: torch.dtype) -> int:
+    """Shared memory a block of the ring form takes: ``_RING`` stages of an
+    L row (4*K bytes) and an A line (I cells) for each of its warps."""
+    return _WARPS * _RING * (4 * K + I * torch.empty((), dtype=a_dtype).element_size())
 
 
-def tiled_train(L, R, A, *, iters: int, alpha2: float, precision: str = "highest"):
-    """``iters`` GD steps (``pallas_dense.tiled_train`` :704): one
-    ``tiled_gd_step``, so one B5 launch, per step, with A's transpose made
-    once for all of them on a CUDA device.  Returns (L', R')."""
+def step_form(K: int, I: int, a_dtype: torch.dtype) -> str:
+    """The L pass's form for a shape: ``ring`` while an A line takes at
+    most ``RING_MAX_A_BYTES``, else ``warp`` (long lines fill the ring with
+    A and leave no room for users ahead)."""
+    a_line = I * torch.empty((), dtype=a_dtype).element_size()
+    return "ring" if a_line <= RING_MAX_A_BYTES and ring_bytes(K, I, a_dtype) <= _SMEM_MAX else "warp"
+
+
+def step_buffers(U: int, I: int, K: int, device) -> tuple:
+    """The fused step's (chunk, S, scratch) on ``device``: the dR split
+    and partial sums (S, I, K), or None with one chunk (the dR pass then
+    writes R' itself).  Off the card the split is an H100's."""
+    device = torch.device(device)
+    chunk, S = dr_split(U, I, _sms(device) if device.type == "cuda" else H100_SMS)
+    part = torch.empty((S, I, K), dtype=torch.float32, device=device) if S > 1 else None
+    return chunk, S, part
+
+
+def train_buffers(L, R, A, iters: int) -> tuple:
+    """What ``tiled_train`` allocates once for a run, on L's device: A's
+    transpose, ``step_buffers`` and the sets of next factors (two, or one
+    for a single step)."""
+    U, K = L.shape
+    sets = [(torch.empty_like(L), torch.empty_like(R)) for _ in range(min(iters, 2))]
+    return A.t().contiguous(), step_buffers(U, R.shape[0], K, L.device), sets
+
+
+def train_bytes(U: int, I: int, K: int, a_dtype: torch.dtype, sms: int = H100_SMS) -> int:
+    """Device bytes of a ``tiled_train`` run of two steps or more: A and
+    its transpose, L and R as given, ``train_buffers``' two sets of next
+    factors and the dR partial sums (``partial_bytes``)."""
+    a_bytes = torch.empty((), dtype=a_dtype).element_size()
+    return 2 * a_bytes * U * I + 3 * 4 * K * (U + I) + partial_bytes(U, I, K, sms)
+
+
+def tiled_step(L, R, A, Lout, Rout, *, alpha2: float, precision: str = "highest", At=None, form: str = "auto",
+               scratch=None):
+    """One fused step on the card: L' = L + a2*dL into ``Lout`` and R' = R +
+    a2*dR into ``Rout``, bit for bit ``tiled_deltas`` then ``_apply``, in
+    three launches (the L pass, the dR pass, the R reduction; two with one
+    dR chunk).  ``Lout`` and ``Rout`` are contiguous f32 tensors of L's and
+    R's shapes on their device that share no memory with L or R.
+    ``form``: ``warp``, ``ring`` or ``auto`` (``step_form``).  ``At`` as
+    ``tiled_deltas``; ``scratch`` is ``step_buffers``' result, made here if
+    not given.  CUDA tensors only (the CPU's step is ``tiled_gd_step``'s
+    twin); counts each call in ``.launches``.  Returns (Lout, Rout)."""
+    U, I, K = _check(L, R, A, precision)
+    for name, out, like in (("Lout", Lout, L), ("Rout", Rout, R)):
+        if (out.shape != like.shape or out.dtype != torch.float32 or out.device != L.device
+                or not out.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous f32 {tuple(like.shape)} tensor on {L.device}")
+    for out in (Lout, Rout):
+        for inp in (L, R):
+            if _overlaps(out, inp):
+                raise ValueError("Lout and Rout must not share memory with L or R")
+    if form == "auto":
+        form = step_form(K, I, A.dtype)
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r}; one of {sorted(FORMS)} or 'auto'")
+    if form == "ring" and ring_bytes(K, I, A.dtype) > _SMEM_MAX:
+        raise ValueError(f"the ring form needs {ring_bytes(K, I, A.dtype)} B of shared memory a block "
+                         f"at K={K} I={I} {A.dtype}; at most {_SMEM_MAX}")
+    dev = _kernel_device(L)
+    At = _transpose_for(A, At, U, I)
+    chunk, S, part = scratch if scratch is not None else step_buffers(U, I, K, dev)
+    if not ((S - 1) * chunk < U <= S * chunk and (part is None if S == 1 else tuple(part.shape) == (S, I, K))):
+        raise ValueError(f"scratch (chunk {chunk}, S {S}) is not a dR split of U={U} I={I} K={K}")
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.rs_tiled_step(
+            ctypes.c_void_p(A.data_ptr()), ctypes.c_void_p(At.data_ptr()), _A_KIND[A.dtype],
+            *_ptrs(L, R, Lout, Rout), ctypes.c_void_p(part.data_ptr() if part is not None else 0),
+            U, I, K, _PRECISION_CODE[precision], chunk, S, float(alpha2), FORMS[form], _stream(dev),
+        )
+    if rc != 0:
+        raise RuntimeError(f"rs_tiled_step ({form}) failed: CUDA error {rc}")
+    tiled_step.launches += 1
+    return Lout, Rout
+
+
+tiled_step.launches = 0
+
+
+def _overlaps(a, b) -> bool:
+    """Whether two tensors' bytes overlap (tensors without storage, as on
+    the meta device, never do)."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return bool(a0 and b0) and a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+
+
+def tiled_gd_step(L, R, A, *, alpha2: float, precision: str = "highest", At=None, form: str = "auto"):
+    """One GD step (``pallas_dense.tiled_gd_step`` :614) into new tensors:
+    one ``tiled_step`` on CUDA tensors, the twin's deltas and ``_apply`` on
+    CPU tensors.  L and R are not changed.  Returns (L', R')."""
+    _check(L, R, A, precision)
+    if L.device.type == "cpu":
+        return _apply(L, R, *tiled_deltas_plain(L, R, A, precision=precision), alpha2)
+    return tiled_step(L, R, A, torch.empty_like(L), torch.empty_like(R), alpha2=alpha2, precision=precision,
+                      At=At, form=form)
+
+
+def tiled_train(L, R, A, *, iters: int, alpha2: float, precision: str = "highest", form: str = "auto"):
+    """``iters`` GD steps (``pallas_dense.tiled_train`` :704).  On CUDA
+    tensors: one ``tiled_step`` a step, A's transpose, the dR scratch and
+    two sets of next factors made once for the run, each step reading one
+    set and writing the other, so the caller's L and R are never written
+    and nothing factor-sized is allocated per step.  CPU tensors take
+    ``tiled_train_plain``.  Returns (L', R')."""
+    _check(L, R, A, precision)
+    if L.device.type == "cpu":
+        return tiled_train_plain(L, R, A, iters=iters, alpha2=alpha2, precision=precision)
+    At, scratch, sets = train_buffers(L, R, A, iters)
+    for n in range(iters):
+        L, R = tiled_step(L, R, A, *sets[n % 2], alpha2=alpha2, precision=precision, At=At, form=form,
+                          scratch=scratch)
+    return L, R
+
+
+def tiled_train_deltas(L, R, A, *, iters: int, alpha2: float, precision: str = "highest"):
+    """``iters`` steps as this module composed them before the fused step:
+    ``tiled_deltas`` (one B5 launch) and then ``_apply`` as torch ops, with
+    fresh factors each step.  The baseline the fused step is held to, bit
+    for bit and in time.  Returns (L', R')."""
     At = A.t().contiguous() if A.device.type == "cuda" else None
     for _ in range(iters):
-        L, R = tiled_gd_step(L, R, A, alpha2=alpha2, precision=precision, At=At)
+        L, R = _apply(L, R, *tiled_deltas(L, R, A, precision=precision, At=At), alpha2)
     return L, R

@@ -199,12 +199,12 @@ def test_tiled_kernel_matches_twin(precision, a_dtype):
     spec = generate_instance(**_K300)
     L, R, A = _tiled_inputs(dev, spec, a_dtype)
     kw = dict(iters=spec.iters, alpha2=2 * spec.alpha, precision=precision)
-    before = dense_tiled.tiled_deltas.launches
+    before = dense_tiled.tiled_step.launches
     got = dense_tiled.tiled_train(L, R, A, **kw)
     twin = dense_tiled.tiled_train_plain(L, R, A, **kw)
     again = dense_tiled.tiled_train(L, R, A, **kw)
     torch.cuda.synchronize()
-    assert dense_tiled.tiled_deltas.launches == before + 2 * spec.iters
+    assert dense_tiled.tiled_step.launches == before + 2 * spec.iters
     assert checks.factor_rel(got, twin) <= checks.TILED_FACTOR_RTOL[precision]
     # No float atomics: two runs give the same bits.
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
@@ -245,10 +245,49 @@ def test_run_tiled_matches_oracle_on_card(precision):
 
     _cuda()
     spec = generate_instance(40, 130, 300, 2, 12, iters=20, alpha=0.01, seed=21)
-    before = dense_tiled.tiled_deltas.launches
+    before = dense_tiled.tiled_step.launches, dense_tiled.tiled_deltas.launches
     out, _ = trainer.run(spec, RunConfig(dtype="float32", path="pallas", precision=precision), "cuda")
-    assert dense_tiled.tiled_deltas.launches == before + spec.iters
+    # The engine takes the fused step once a step, never the raw deltas.
+    assert (dense_tiled.tiled_step.launches, dense_tiled.tiled_deltas.launches) == (before[0] + spec.iters,
+                                                                                   before[1])
     assert out == run_oracle(spec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["warp", "ring"])
+@pytest.mark.parametrize("a_dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
+def test_tiled_fused_step_keeps_the_composition_bits(precision, a_dtype, form):
+    # The fused step against B5's raw deltas and the torch update, in raw
+    # bits (a -0.0 against +0.0 fails), in each form of its L pass.
+    dev = _cuda()
+    spec = generate_instance(**_K300)
+    L, R, A = _tiled_inputs(dev, spec, a_dtype)
+    kw = dict(iters=spec.iters, alpha2=2 * spec.alpha, precision=precision)
+    before = dense_tiled.tiled_deltas.launches
+    base = dense_tiled.tiled_train_deltas(L, R, A, **kw)
+    assert dense_tiled.tiled_deltas.launches == before + spec.iters
+    L0, R0 = L.clone(), R.clone()
+    got = dense_tiled.tiled_train(L, R, A, form=form, **kw)
+    torch.cuda.synchronize()
+    assert checks.same_bits(got, base)
+    assert torch.equal(L, L0) and torch.equal(R, R0)
+    one = dense_tiled.tiled_gd_step(L, R, A, alpha2=kw["alpha2"], precision=precision, form=form)
+    assert checks.same_bits(one, dense_tiled.tiled_train_deltas(L, R, A, **{**kw, "iters": 1}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 700, 1000])
+@pytest.mark.parametrize("form", ["warp", "ring"])
+def test_tiled_fused_step_two_runs_same_bits(form, k):
+    # K = 32, 704 and 1024; no float atomics in any launch.
+    dev = _cuda()
+    spec = generate_instance(2000, 100, k, 1, 3, iters=5, alpha=1e-5, seed=42)
+    L, R, A = _tiled_inputs(dev, spec)
+    kw = dict(iters=spec.iters, alpha2=2 * spec.alpha, form=form)
+    first, second = dense_tiled.tiled_train(L, R, A, **kw), dense_tiled.tiled_train(L, R, A, **kw)
+    assert checks.same_bits(first, second)
+    assert checks.same_bits(first, dense_tiled.tiled_train_deltas(L, R, A, iters=spec.iters, alpha2=kw["alpha2"]))
 
 
 def _bell_spec(k, stored_zero=False):

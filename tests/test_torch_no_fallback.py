@@ -24,6 +24,7 @@ import contextlib, io, os, sys, tempfile
 import chip_smoke
 import recsys_tpu_torch, recsys_tpu_torch.cli, recsys_tpu_torch.convert, recsys_tpu_torch.probes.mosaic_gather
 import recsys_tpu_torch.probes.gather, recsys_tpu_torch.probes.stream_v2
+import recsys_tpu_torch.probes.tiled_fused, recsys_tpu_torch.probes.tiled_clocks
 from recsys_tpu_torch.ops import coo, device_rng, lane, stream_v2
 from recsys_tpu_torch.config import RunConfig
 from recsys_tpu_torch.engine import trainer

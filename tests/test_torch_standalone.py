@@ -9,6 +9,7 @@ would show as a golden mismatch.
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import pytest
@@ -96,11 +97,29 @@ def test_format_recommendations_byte_equal():
     assert writers.format_mats_block("Matrix L", mat) == jax_writers.format_mats_block("Matrix L", mat)
 
 
+def _jax_serial_gd(spec, L, R, attempts=5, wait_s=1.0):
+    """``recsys_tpu.io._native.serial_gd``, retried while its library is
+    being built.  That loader compiles ``native/librecsys_native.so`` in
+    place, so under several test workers one process can load another's
+    half-written file: the load fails, the module sets ``_failed`` and
+    ``serial_gd`` returns None for the rest of the process.  Each retry
+    waits, clears the module's cached outcome and loads again; the result
+    stays None only if every attempt failed."""
+    for _ in range(attempts):
+        out = jax_native.serial_gd(spec, L.copy(), R.copy())
+        if out is not None:
+            return out
+        time.sleep(wait_s)
+        with jax_native._lock:
+            jax_native._lib, jax_native._failed = None, False
+    return None
+
+
 def test_serial_gd_bit_equal():
     spec = parser.load_problem(str(FIXTURES / "inst0.in"))
     st = mf.init_factors(spec.users, spec.items, spec.features)
     got = _native.serial_gd(spec, st.L.copy(), st.R.copy())
-    want = jax_native.serial_gd(spec, st.L.copy(), st.R.copy())
+    want = _jax_serial_gd(spec, st.L, st.R)
     assert got is not None and want is not None
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
