@@ -54,8 +54,12 @@ each printed as it runs:
    precision, 20 steps) and their slopes in turns; ``bell_side_update``'s
    block form against its warp form bit for bit (``probes/bell_wide.py``:
    instML100k and a hub-row spec in f64 and f32) and one step at several
-   thresholds in turns.  Each engine form must be no slower than the form
-   it replaced at the main path's shape.
+   thresholds in turns; B4's tiled form against its dense form in raw
+   bits of each user's index and best score (``probes/top1_tiled.py``: the
+   small spec at k = 10, 40 and 256, instML100k and gen-instML1M, every
+   precision x A storage, and the tie case) and both timed in turns at
+   gen-instML1M in `highest` (CUDA graph replays).  Each engine form must
+   be no slower than the form it replaced at the main path's shape.
 6. main path, instML100k: ``trainer.run`` in highest, bf16x3 and default on
    the auto plan (resident) and with the stream kind forced, held against
    the golden ``.out`` with launch counts, phase times, the slope and the
@@ -91,10 +95,13 @@ each printed as it runs:
    rejected, then the probe's timings and each kernel's T-scaling (T = 512
    against T = 128, 3.5-4.5x at the widest shape, net of the T = 0 launch
    at every shape).
-14. the P3 probe (``probes/stream_v2.py``): ``stream_v2_train`` against its
-   twin (control rejected), two runs and against B3 bit for bit, at the
-   small spec and at gen-instML1M's and inst200-10000's shapes, then the
-   slopes of B3 ("v1") and P3 ("v2").
+14. the P3 probe (``probes/stream_v2.py``): ``stream_v2_train`` (B3's sparse
+   walk on the packed layout) against its twin (control rejected), and in
+   raw bits against itself (two runs), its dense form and B3 in both forms,
+   at the small spec (every A storage, k = 40) and at gen-instML1M's and
+   inst200-10000's shapes, then the four slopes in turns: B3 dense and
+   sparse ("v1"), P3 dense and sparse ("v2").  P3's sparse form must be no
+   slower than its dense form at gen-instML1M.
 15. main path, ``--path coo``: instML100k through ``run()`` in f32 (prefix
    sums) and f64 (segment sums) against the golden, two ``factorize`` runs
    bit for bit in each, phases and slope, one step's device time by kernel.
@@ -164,6 +171,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "stream_train": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:420"),
     "stream_train_dense": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:420"),
     "stream_top1": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:473"),
+    "stream_top1_dense": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:473"),
     "stream_train_top1": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:433"),
     "tiled_deltas": ("recsys_tpu_torch/csrc/dense_tiled.cu", "recsys_tpu/ops/pallas_dense.py:566"),
     "tiled_step": ("recsys_tpu_torch/csrc/dense_tiled.cu", "recsys_tpu/ops/pallas_dense.py:566"),
@@ -172,7 +180,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "gather_err_grad": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
     "lane_gather": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:40"),
     "lane_cumsum": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:57"),
-    "stream_v2_train": ("recsys_tpu_torch/csrc/stream_v2.cu", "scripts/probe_stream_v2.py:89"),
+    "stream_v2_train": ("recsys_tpu_torch/csrc/dense_stream.cu", "scripts/probe_stream_v2.py:89"),
+    "stream_v2_train_dense": ("recsys_tpu_torch/csrc/stream_v2.cu", "scripts/probe_stream_v2.py:89"),
 }
 # The T-scaling of the P1 kernels: T = 512 against T = 128 steps.
 T_SCALING = (3.5, 4.5)
@@ -193,6 +202,7 @@ def _wrappers():
         "stream_train": dense_stream.stream_train,
         "stream_train_dense": dense_stream.stream_train_dense,
         "stream_top1": dense_stream.stream_top1,
+        "stream_top1_dense": dense_stream.stream_top1_dense,
         "stream_train_top1": dense_stream.stream_train_top1,
         "tiled_deltas": dense_tiled.tiled_deltas,
         "tiled_step": dense_tiled.tiled_step,
@@ -202,6 +212,7 @@ def _wrappers():
         "lane_gather": lane.lane_gather_loop,
         "lane_cumsum": lane.lane_cumsum_loop,
         "stream_v2_train": stream_v2.stream_v2_train,
+        "stream_v2_train_dense": stream_v2.stream_v2_train_dense,
     }
 
 
@@ -368,7 +379,7 @@ def stream_kernels_phase(torch, dev):
     """B2, B3 (both forms), B4 and B6 against their twins and against each
     other.  Returns {kernel: max abs error in highest at the shape its main
     path gives it}: instML100k's for B2 (``--checkpoint``), gen-instML1M's
-    for B3, its dense form, B4 and B6."""
+    for B3, B4, B6 and the dense forms of B3 and B4 (on the same factors)."""
     from recsys_tpu_torch import testing as checks
     from recsys_tpu_torch.io.parser import load_problem
     from recsys_tpu_torch.ops import dense_fused as df
@@ -396,6 +407,7 @@ def stream_kernels_phase(torch, dev):
                 b3 = ds.stream_train(Lt, Rt, A, precision=precision, **kw)
                 b3d = ds.stream_train_dense(Lt, Rt, A, precision=precision, **kw)
                 b4 = ds.stream_top1(*b3, A, precision=precision, items_true=spec.items)
+                b4d = ds.stream_top1_dense(*b3, A, precision=precision, items_true=spec.items)
                 b6 = ds.stream_train_top1(Lt, Rt, A, precision=precision, items_true=spec.items, **kw)
                 twin2 = df.resident_train_plain(Lt, Rt, A, precision=precision, **kw)
                 twin = ds.stream_train_plain(Lt, Rt, A, precision=precision, **kw)
@@ -421,6 +433,7 @@ def stream_kernels_phase(torch, dev):
                     "B3 vs B2": r32 <= checks.FACTOR_RTOL[precision],
                     "B3=dense form": same(b3, b3d),
                     "B4=twin": torch.equal(b4, twin_top),
+                    "B4 dense=twin": torch.equal(b4d, twin_top),
                     "B4=B1 top-1": torch.equal(b4, b1_top),
                     "B6=B3+B4": same(b6, (*b3, b4)),
                     "finite": finite,
@@ -432,6 +445,7 @@ def stream_kernels_phase(torch, dev):
                     f"(limits {checks.FACTOR_RTOL[precision]} / {checks.UPDATE_RTOL[precision]}) "
                     f"dense form max_abs_err={err3d!r} = sparse bit for bit {checks_ok['B3=dense form']} | "
                     f"B2=B1 {checks_ok['B2=B1 factors']} B4=twin {checks_ok['B4=twin']} "
+                    f"B4 dense form=twin {checks_ok['B4 dense=twin']} "
                     f"B4=B1 {checks_ok['B4=B1 top-1']} B6=B3+B4 {checks_ok['B6=B3+B4']} "
                     f"{'ok' if not bad else 'FAIL ' + ','.join(bad)}")
                 if bad:
@@ -443,6 +457,8 @@ def stream_kernels_phase(torch, dev):
                     worst["stream_train_dense"] = max(worst.get("stream_train_dense", 0.0), err3d)
                     worst["stream_top1"] = max(worst.get("stream_top1", 0.0),
                                                float((b4 - twin_top).abs().max()))
+                    worst["stream_top1_dense"] = max(worst.get("stream_top1_dense", 0.0),
+                                                     float((b4d - twin_top).abs().max()))
                     worst["stream_train_top1"] = max(worst.get("stream_train_top1", 0.0), err3)
 
     def factor_control(kp, tp):
@@ -922,13 +938,16 @@ def redesign_phase(torch, dev, launches):
     """The redesigned forms against the forms they replaced, at the main
     paths' shapes: B1's and B2's sparse walk against their dense form
     (``probes/resident_sparse.py``), B3's sparse walk against its dense form
-    (``probes/stream_sparse.py``) and ``bell_side_update``'s block form
-    against its warp form (``probes/bell_wide.py``), bit for bit, then
+    (``probes/stream_sparse.py``), ``bell_side_update``'s block form
+    against its warp form (``probes/bell_wide.py``) and B4's tiled form
+    against its dense form (``probes/top1_tiled.py``), bit for bit, then
     timed in turns.  Each engine form must be no slower (B1's: faster at
-    instML100k in `highest`).  The B1/B2 and B3 probes each run in one
-    launch-count window.  Returns the B1/B2 probe's {spec: readings}."""
+    instML100k in `highest`).  The B1/B2 and B3 probes and B4's bit checks
+    each run in one launch-count window (B4's timings replay CUDA graphs,
+    whose launches no wrapper counts).  Returns (the B1/B2 probe's {spec: readings}, the
+    B4 probe's {form: ms a call})."""
     from recsys_tpu_torch.ops import bell, dense_fused
-    from recsys_tpu_torch.probes import bell_wide, resident_sparse, stream_sparse
+    from recsys_tpu_torch.probes import bell_wide, resident_sparse, stream_sparse, top1_tiled
 
     counts = {}
     with counted(counts):
@@ -951,17 +970,26 @@ def redesign_phase(torch, dev, launches):
     launches["B3 sparse probe", "all shapes"] = counts
     log(f"[probe] B3 sparse probe launches: {_nonzero(counts)}")
     sweep = bell_wide.run(dev)
+    counts = {}
+    with counted(counts):  # the bit checks: the timings replay CUDA graphs, which no wrapper counts
+        top1_tiled.bits(dev)
+    launches["B4 tiled probe", "all shapes"] = counts
+    log(f"[probe] B4 tiled probe launches (bit checks): {_nonzero(counts)}")
+    b4 = top1_tiled.timings(resident_sparse.ml1m_spec(), dev)
     b3_ok = slopes["sparse"]["us_per_step"] <= slopes["dense"]["us_per_step"]
     bell_ok = sweep[bell.WIDE_MIN] <= sweep[bell.WARP_FORM]
+    b4_ok = b4["tiled"] <= b4["dense"]
     log(f"[redesign] instML100k B1 slope highest: the engine's {engine} form {b1['highest'][engine]!r} us/iter "
         f"against dense {b1['highest']['dense']!r} -> faster {b1_ok}")
     log(f"[redesign] gen-instML1M B3 slope: sparse {slopes['sparse']['us_per_step']!r} us/iter against dense "
         f"{slopes['dense']['us_per_step']!r} -> the engine's sparse form no slower {b3_ok}")
     log(f"[redesign] instML100k f64 bell step: block form from {bell.WIDE_MIN} slots {sweep[bell.WIDE_MIN]!r} ms "
         f"against the warp form alone {sweep[bell.WARP_FORM]!r} ms -> the engine's block form no slower {bell_ok}")
-    if not (b1_ok and b3_ok and bell_ok):
+    log(f"[redesign] gen-instML1M B4 (highest): tiled {b4['tiled']!r} ms a call against dense {b4['dense']!r} "
+        f"-> the engine's tiled form no slower {b4_ok}")
+    if not (b1_ok and b3_ok and bell_ok and b4_ok):
         raise AssertionError("an engine form is slower than the form it replaced")
-    return readings
+    return readings, b4
 
 
 def tiled_redesign_phase(torch, dev, launches, big):
@@ -1156,8 +1184,10 @@ def p1_probe_phase(torch, dev, launches):
 
 def p3_probe_phase(torch, dev, launches):
     """P3's probe (``probes/stream_v2.py``, 300 steps) in one launch-count
-    window: the kernel against its twin, itself and B3 at the small spec and
-    both probe shapes, then the slopes.  Returns (readings, timings)."""
+    window: the sparse form against its twin, itself, its dense form and B3
+    at the small spec and both probe shapes, then the four slopes in turns.
+    The sparse form must be no slower than the dense one at gen-instML1M.
+    Returns (readings, timings)."""
     from recsys_tpu_torch.probes import stream_v2 as probe
 
     counts = {}
@@ -1165,8 +1195,15 @@ def p3_probe_phase(torch, dev, launches):
         readings, timings = probe.run(dev, P3_ITERS)
     launches["P3 probe", "all shapes"] = counts
     log(f"[probe] P3 launches: {_nonzero(counts)}")
-    if counts["stream_v2_train"] <= 0:
-        raise AssertionError(f"the P3 probe did not launch stream_v2_train: {counts}")
+    if counts["stream_v2_train"] <= 0 or counts["stream_v2_train_dense"] <= 0:
+        raise AssertionError(f"the P3 probe did not launch both forms of stream_v2_train: {counts}")
+    t = timings["gen-instML1M"]
+    ok = t["v2 sparse"]["per_step_ms"] <= t["v2 dense"]["per_step_ms"]
+    log(f"[redesign] gen-instML1M P3 slope: sparse {t['v2 sparse']['per_step_ms']!r} ms/step against dense "
+        f"{t['v2 dense']['per_step_ms']!r} (B3 sparse {t['v1 sparse']['per_step_ms']!r}, dense "
+        f"{t['v1 dense']['per_step_ms']!r}) -> P3's sparse form no slower {ok}")
+    if not ok:
+        raise AssertionError("P3's sparse form is slower than its dense form")
     return readings, timings
 
 
@@ -1409,9 +1446,15 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     add("stream_train_dense", launches["B3 sparse probe", "all shapes"]["stream_train_dense"],
         errs["stream_train_dense"], cuda_event_ms(lambda: ds.stream_train_dense(Lt, Rt, A, **kw)),
         times["B3"][1] * 1e3, tr, a_b + 2 * f_b)
-    b4_ms = cuda_event_ms(lambda: ds.stream_top1(Lf, Rf, A, precision="highest", items_true=ml1m.items), 20)
+    # B4's forms: ms a call from the B4 probe (graph replays in turns).
     b4_plain = cuda_event_ms(lambda: ds.stream_top1_plain(Lf, Rf, A, precision="highest", items_true=ml1m.items), 5)
-    add("stream_top1", counts["stream_top1"], errs["stream_top1"], b4_ms, b4_plain, tp, a_b + f_b + 4 * plan.U)
+    add("stream_top1", counts["stream_top1"], errs["stream_top1"], times["B4"]["tiled"], b4_plain, tp,
+        a_b + f_b + 4 * plan.U)
+    # The dense form left the main path: its launches are the B4 probe's bit checks'.
+    add("stream_top1_dense", launches["B4 tiled probe", "all shapes"]["stream_top1_dense"],
+        errs["stream_top1_dense"], times["B4"]["dense"], b4_plain, tp, a_b + f_b + 4 * plan.U)
+    log(f"[kernels] stream_top1 reference composition torch.mm (true f32) + where + argmax: "
+        f"{times['B4']['torch.mm + where + argmax']!r} ms (no single call computes the function: library none)")
     b6_ms = cuda_event_ms(lambda: ds.stream_train_top1(Lt, Rt, A, items_true=ml1m.items, **kw))
     b6_plain = cuda_event_ms(lambda: ds.stream_train_top1_plain(Lt, Rt, A, items_true=ml1m.items, **kw))
     add("stream_train_top1", counts["stream_train_top1"], errs["stream_train_top1"], b6_ms, b6_plain,
@@ -1532,9 +1575,12 @@ def probe_records(torch, dev, launches, errs, p1_rows, p3):
     Lt, _, Rp, A, _ = ps.inputs(spec, ps.STRIP, dev)
     kw = dict(iters=P3_ITERS, alpha2=2.0 * spec.alpha, strip=ps.STRIP)
     plain_ms = cuda_event_ms(lambda: stream_v2.stream_v2_train_plain(Lt, Rp, A, **kw))
-    out.append(_record("stream_v2_train", launches["P3 probe", "all shapes"]["stream_v2_train"],
-                       readings["gen-instML1M"]["max_abs_err"], timings["gen-instML1M"]["v2 packed"]["ms"], plain_ms,
-                       6.0 * spec.nnz * spec.features * P3_ITERS, A.numel() + 2 * 4 * (Lt.numel() + Rp.numel())))
+    p3_counts = launches["P3 probe", "all shapes"]
+    for name, form, err in (("stream_v2_train", "v2 sparse", "max_abs_err"),
+                            ("stream_v2_train_dense", "v2 dense", "dense_max_abs_err")):
+        out.append(_record(name, p3_counts[name], readings["gen-instML1M"][err],
+                           timings["gen-instML1M"][form]["ms"], plain_ms, 6.0 * spec.nnz * spec.features * P3_ITERS,
+                           A.numel() + 2 * 4 * (Lt.numel() + Rp.numel())))
     del Lt, Rp, A
     return out
 
@@ -1567,7 +1613,7 @@ def main() -> int:
         b5_readings, b5_times = tiled_redesign_phase(torch, dev, launches, big)
         errs["tiled_deltas"] = b5_readings["deltas"]
         errs["bell_side_update"] = bell_kernel_phase(torch, dev, big)
-        b1_readings = redesign_phase(torch, dev, launches)
+        b1_readings, b4_times = redesign_phase(torch, dev, launches)
         errs["resident_train_dense"] = b1_readings["instML100k"]["highest"][3]
         ml100k, train1, plain1 = ml100k_phase(torch, dev, launches)
         ml1m, train2, plain2 = ml1m_phase(torch, dev, launches)
@@ -1587,6 +1633,7 @@ def main() -> int:
         times = {"B1": (train1["auto", "highest"], plain1["highest"]),
                  "B3": (train2["auto", "highest"], plain2["highest"])}
         times["B5 step"] = b5_times[INST1E6]["auto"]["per_step"]
+        times["B4"] = b4_times
         kernels = kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows, p3)
     except Exception as e:  # noqa: BLE001 - report any failed phase, exit non-zero
         import traceback

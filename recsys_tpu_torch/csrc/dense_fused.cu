@@ -104,15 +104,40 @@
 // gather), the same with a cp.async ring of rows, and this one with a
 // unit's own columns in its first sub-strip's round trip.
 //
-// The top-1 (top1_pass + top1_reduce, shared with B4 through rs_stream_top1)
-// stays dense: it visits every unrated cell.
-//  * The same walk over item chunks keeping a running (best, index), then a
-//    strictly-greater merge of the chunks in ascending order -- equal to
-//    one ascending walk over all items.
-//  * Precision is a template parameter, with the operand rounding of
-//    pallas_dense._dot (:122): HIGHEST is IEEE f32 FMA (never TF32), DEFAULT
-//    rounds both operands to bf16 (products exact in f32, f32 sums), BF16X3
-//    splits every operand hi + lo and sums (ah*bl + al*bh) + ah*bh.
+// The top-1 (B4, rs_stream_top1; B1's and B6's last pass) visits every
+// unrated cell, in two forms with the same bits.
+//  * Both: the strictly-greater running max of each chunk of items, then
+//    top1_reduce's strictly-greater merge of the chunks in ascending order
+//    -- equal to one ascending walk over all items.  Precision is a
+//    template parameter, with the operand rounding of pallas_dense._dot
+//    (:122): HIGHEST is IEEE f32 FMA (never TF32), DEFAULT rounds both
+//    operands to bf16 (products exact in f32, f32 sums), BF16X3 splits
+//    every operand hi + lo and sums (ah*bl + al*bh) + ah*bh.
+//  * The dense form (top1_pass; the B1 dense entry's, and the baseline of
+//    probes/top1_tiled.py): the gradient walk above with a running max in
+//    place of the sums.  A thread (G lanes for K > 32) owns one user and
+//    makes one score an item step: every 4 FMAs wait on one 16-byte load
+//    of the item's row, and no value is reused across users in registers.
+//  * The tiled form (top1_tiled; the engine's, behind B1's sparse entry,
+//    B4 and B6): a block owns 64 users and walks its item chunk in tiles
+//    of 64 items (32 in BF16X3 or for K > 64), each tile's Rt slice and A
+//    tile (as stored) coming in by cp.async while the previous tile is
+//    used, the block's Lt staged once.  A thread holds a 4 x 4 (or 4 x 2)
+//    micro-tile of scores, so each staged value feeds four FMAs.  A score
+//    keeps the dense form's bits: per 32-k slice the four fmaf chains by
+//    j mod 4 in ascending j, combined (c0 + c1) + (c2 + c3), then the G
+//    slices in the xor butterfly's tree (pairs G/2 apart first: the slices
+//    come in bit-reversed order and a binary counter of partial sums merges
+//    them); padding k adds exact zeros to sums that never reach -0.0, so
+//    skipping it keeps every bit.  DEFAULT's and BF16X3's rounded operands
+//    come from one elementwise pass (top1_operands).  A thread's running
+//    (best, index) advances on a strictly greater score over ascending
+//    items, reading the A tile only where a score beats it; the 16 threads
+//    of a user merge by (higher score, then lower index), which is the
+//    ascending walk's answer for any order of the merge.
+// What bounds the top-1: 2 * K FLOP per (user, item), 1.56 GFLOP at
+// gen-instML1M, 23 us at the f32 CUDA-core peak; its bytes (A^T once, 24.4
+// MB in int8) take 7.3 us.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -374,8 +399,10 @@ __global__ void __launch_bounds__(BLOCK) top1_pass(const T* __restrict__ At, Sid
   }
 }
 
+// Both forms' merge: the chunks' (best, index) in ascending chunk order,
+// strictly greater; `best_out` (may be null) takes each column's best score.
 __global__ void top1_reduce(const float* __restrict__ pval, const int* __restrict__ pidx, int S,
-                            int N, int* __restrict__ top1) {
+                            int N, int* __restrict__ top1, float* __restrict__ best_out) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= N) return;
   float best = -INFINITY;
@@ -388,6 +415,323 @@ __global__ void top1_reduce(const float* __restrict__ pval, const int* __restric
     }
   }
   top1[c] = bi;
+  if (best_out != nullptr) best_out[c] = best;
+}
+
+// ---------------------------------------------------------------------------
+// B4's tiled form (top1_tiled, then top1_reduce): the engine's top-1.
+
+constexpr int TBLOCK = 256;   // threads of top1_tiled: 16 x 16 micro-tiles
+constexpr int TU = 4;         // users a thread
+constexpr int TBU = 16 * TU;  // users a block
+constexpr int TBI_MAX = 64;   // items of a block's tile, at most: chunks are multiples of it
+constexpr int TMINB = 2;      // blocks an SM at least (__launch_bounds__): at most 128 registers
+
+// A thread's TU x TI cells; TI = 2 where BF16X3's second chain or the
+// slices' tree (G >= 4) would hold too many sums in registers.  Shared
+// memory holds NS (hi, and lo in BF16X3) slices of KC rows of X (TBU users)
+// and Y (BI items), two stages, and two A tiles (BI, TBU) as stored.
+template <int P, int G>
+struct TopTile {
+  static constexpr int TI = (P == BF16X3 || G >= 4) ? 2 : 4;
+  static constexpr int BI = 16 * TI;
+  static constexpr int NS = P == BF16X3 ? 2 : 1;
+  static constexpr int SX = NS * KC * TBU;
+  static constexpr int SY = NS * KC * BI;
+  static constexpr int STAGE = (G == 1 ? 0 : SX) + SY;  // G == 1: X is staged once
+  static constexpr int LG = G == 1 ? 0 : G == 2 ? 1 : G == 4 ? 2 : 3;
+};
+
+template <int P, int G>
+size_t tiled_smem_bytes(int esz) {
+  using S = TopTile<P, G>;
+  return sizeof(float) * ((G == 1 ? S::SX : 0) + 2 * static_cast<size_t>(S::STAGE)) +
+         2 * static_cast<size_t>(S::BI) * TBU * esz;
+}
+
+// The tiled form's operands: X = Lt (K, U) and Y = Rt (K, I) as the dot
+// reads them: the factors themselves in HIGHEST; in DEFAULT their bf16
+// roundings and in BF16X3 their hi and lo parts, from top1_operands.
+struct TopOps {
+  const float *xh, *xl, *yh, *yl;
+};
+
+// ops: hi of Lt then Rt, and in BF16X3 lo of Lt then Rt.
+template <int P>
+__global__ void top1_operands(const float* __restrict__ Lt, size_t nl, const float* __restrict__ Rt,
+                              size_t nr, float* __restrict__ ops) {
+  for (size_t idx = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; idx < nl + nr;
+       idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const float v = idx < nl ? __ldg(Lt + idx) : __ldg(Rt + idx - nl);
+    if (P == BF16X3) {
+      bsplit(v, ops[idx], ops[nl + nr + idx]);
+    } else {
+      ops[idx] = round_bf16(v);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// `rows` rows of W floats from src (row stride ld) to dst (row stride W).
+template <int W>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, size_t ld, int rows) {
+  constexpr int PER = W / 4;  // 16-byte copies a row
+  for (int idx = threadIdx.x; idx < rows * PER; idx += TBLOCK) {
+    const int r = idx / PER, c = idx - r * PER;
+    cp_async16(dst + r * W + 4 * c, src + r * ld + 4 * c);
+  }
+}
+
+// N (even) consecutive floats of shared memory, 16 bytes a load.
+template <int N>
+__device__ __forceinline__ void lds(float (&v)[N], const float* p) {
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 f = *reinterpret_cast<const float4*>(p + 4 * q);
+    v[4 * q] = f.x, v[4 * q + 1] = f.y, v[4 * q + 2] = f.z, v[4 * q + 3] = f.w;
+  }
+  if constexpr (N % 4 == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p + N - 2);
+    v[N - 2] = f.x, v[N - 1] = f.y;
+  }
+}
+
+// One fmaf chain of the thread's cells: k = m, m + 4, ... of the slice
+// (nt steps, ascending), from +0; pb the hi*hi chain, ps in BF16X3 the
+// cross terms (yh*xl then yl*xh), as walk() forms them.
+template <int P, int TI, int BI>
+__device__ __forceinline__ void top_chain(const float* xh, const float* xl, const float* yh, const float* yl,
+                                          int m, int nt, float (&pb)[TU][TI], float (&ps)[TU][TI]) {
+#pragma unroll
+  for (int u = 0; u < TU; ++u)
+#pragma unroll
+    for (int i = 0; i < TI; ++i) pb[u][i] = ps[u][i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < KC / 4; ++s) {
+    if (s < nt) {
+      const int k = m + 4 * s;
+      float x[TU], y[TI], xlo[TU], ylo[TI];
+      lds(x, xh + k * TBU);
+      lds(y, yh + k * BI);
+      if (P == BF16X3) {
+        lds(xlo, xl + k * TBU);
+        lds(ylo, yl + k * BI);
+      }
+#pragma unroll
+      for (int u = 0; u < TU; ++u)
+#pragma unroll
+        for (int i = 0; i < TI; ++i) {
+          if (P == BF16X3) {
+            ps[u][i] = fmaf(y[i], xlo[u], ps[u][i]);
+            ps[u][i] = fmaf(ylo[i], x[u], ps[u][i]);
+          }
+          pb[u][i] = fmaf(y[i], x[u], pb[u][i]);
+        }
+    }
+  }
+}
+
+template <int TI>
+__device__ __forceinline__ void add_to(float (&a)[TU][TI], const float (&b)[TU][TI]) {
+#pragma unroll
+  for (int u = 0; u < TU; ++u)
+#pragma unroll
+    for (int i = 0; i < TI; ++i) a[u][i] = a[u][i] + b[u][i];
+}
+
+// A slice's sums: the four chains by j mod 4 as (c0 + c1) + (c2 + c3).
+template <int P, int TI, int BI>
+__device__ __forceinline__ void slice_sums(const float* xh, const float* xl, const float* yh, const float* yl,
+                                           int nt, float (&sb)[TU][TI], float (&ss)[TU][TI]) {
+  float b[TU][TI], bs[TU][TI], c[TU][TI], cs[TU][TI];
+  top_chain<P, TI, BI>(xh, xl, yh, yl, 0, nt, sb, ss);
+  top_chain<P, TI, BI>(xh, xl, yh, yl, 1, nt, b, bs);
+  add_to(sb, b);
+  if (P == BF16X3) add_to(ss, bs);
+  top_chain<P, TI, BI>(xh, xl, yh, yl, 2, nt, b, bs);
+  top_chain<P, TI, BI>(xh, xl, yh, yl, 3, nt, c, cs);
+  add_to(b, c);
+  add_to(sb, b);
+  if (P == BF16X3) {
+    add_to(bs, cs);
+    add_to(ss, bs);
+  }
+}
+
+// The stored A values of a thread's TU users at one item: rated or not
+// (a != 0 on the dequantised value is a != +-0 on the stored one).
+__device__ __forceinline__ void rated(const unsigned char* p, int lesz, bool (&r)[TU]) {
+#pragma unroll
+  for (int g = 0; g < TU / 4; ++g) {  // four users a load
+    const unsigned char* q = p + ((4 * g) << lesz);
+    bool* rg = r + 4 * g;
+    if (lesz == 0) {
+      const unsigned v = *reinterpret_cast<const unsigned*>(q);
+      rg[0] = v & 0xffu, rg[1] = (v >> 8) & 0xffu, rg[2] = (v >> 16) & 0xffu, rg[3] = v >> 24;
+    } else if (lesz == 1) {
+      const uint2 v = *reinterpret_cast<const uint2*>(q);
+      rg[0] = v.x & 0x7fffu, rg[1] = (v.x >> 16) & 0x7fffu, rg[2] = v.y & 0x7fffu, rg[3] = (v.y >> 16) & 0x7fffu;
+    } else {
+      const uint4 v = *reinterpret_cast<const uint4*>(q);
+      rg[0] = v.x & 0x7fffffffu, rg[1] = v.y & 0x7fffffffu, rg[2] = v.z & 0x7fffffffu, rg[3] = v.w & 0x7fffffffu;
+    }
+  }
+}
+
+__device__ __forceinline__ bool takes(float v, int i, float best, int best_i) {
+  return v > best || (v == best && i < best_i);
+}
+
+// The masked top-1 of a chunk of items for a block of TBU users.  Thread
+// (tx, ty) owns users ty*TU + [0, TU) and, in each item tile of BI, items
+// tx*TI + [0, TI); a warp is 8 tx x 4 ty, so each staged X and Y value
+// reaches several threads in one load.  Per tile, the G slices of K (in
+// the order of the xor butterfly's tree) pass through the two stages.
+template <int P, int G>
+__global__ void __launch_bounds__(TBLOCK, TMINB)
+    top1_tiled(const unsigned char* __restrict__ At, int lesz, TopOps op, int K, int U, int I,
+               int items_true, int chunk, float* __restrict__ pval, int* __restrict__ pidx) {
+  using S = TopTile<P, G>;
+  constexpr int TI = S::TI, BI = S::BI, LG = S::LG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xres = reinterpret_cast<float*>(smem_raw);  // G == 1: X, staged once
+  float* stages = xres + (G == 1 ? S::SX : 0);
+  unsigned char* sa = reinterpret_cast<unsigned char*>(stages + 2 * S::STAGE);
+  const int arow = TBU << lesz;  // bytes of an A tile row
+
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int tx = (w & 1) * 8 + (lane & 7), ty = (w >> 1) * 4 + (lane >> 3);
+  const int u0 = blockIdx.x * TBU;
+  const int i_begin = blockIdx.y * chunk, i_end = min(I, i_begin + chunk);
+  const int nq = (i_end - i_begin) / BI * G;  // stages: (tile, slice)
+
+  // Stage q: slice n = q mod G of tile q / G, and with slice 0 the tile's A.
+  auto issue = [&](int q) {
+    const int j = q >> LG, n = q & (G - 1);
+    const int kb = (LG == 0 ? 0 : __brev(n) >> (32 - LG)) * KC, nk = min(KC, K - kb);
+    const int i0 = i_begin + j * BI;
+    float* st = stages + (q & 1) * S::STAGE;
+    if (nk > 0) {
+      float* sy = st + (G == 1 ? 0 : S::SX);
+      if (G > 1) stage_rows<TBU>(st, op.xh + static_cast<size_t>(kb) * U + u0, U, nk);
+      stage_rows<BI>(sy, op.yh + static_cast<size_t>(kb) * I + i0, I, nk);
+      if (P == BF16X3) {
+        if (G > 1) stage_rows<TBU>(st + KC * TBU, op.xl + static_cast<size_t>(kb) * U + u0, U, nk);
+        stage_rows<BI>(sy + KC * BI, op.yl + static_cast<size_t>(kb) * I + i0, I, nk);
+      }
+    }
+    if (n == 0) {
+      unsigned char* dst = sa + (j & 1) * BI * arow;
+      const unsigned char* src = At + (static_cast<size_t>(i0) * U + u0) * (1u << lesz);
+      const int per = arow >> 4;  // 16-byte copies a row
+      for (int idx = t; idx < BI * per; idx += TBLOCK) {
+        const int r = idx / per, c = idx - r * per;
+        cp_async16(dst + r * arow + 16 * c, src + static_cast<size_t>(r) * (static_cast<size_t>(U) << lesz) + 16 * c);
+      }
+    }
+  };
+
+  float best[TU];
+  int best_i[TU];
+#pragma unroll
+  for (int u = 0; u < TU; ++u) best[u] = -INFINITY, best_i[u] = 0;
+  float stk_b[LG > 0 ? LG : 1][TU][TI], stk_s[LG > 0 ? LG : 1][TU][TI];  // the tree's pending sums
+
+  if (G == 1) {
+    stage_rows<TBU>(xres, op.xh + u0, U, min(KC, K));
+    if (P == BF16X3) stage_rows<TBU>(xres + KC * TBU, op.xl + u0, U, min(KC, K));
+  }
+  if (nq > 0) issue(0);
+  cp_async_commit();
+  for (int q0 = 0; q0 < nq; q0 += G) {
+    const int j = q0 >> LG, i0 = i_begin + j * BI;
+#pragma unroll
+    for (int n = 0; n < G; ++n) {
+      const int q = q0 + n;
+      if (q + 1 < nq) issue(q + 1);
+      cp_async_commit();
+      cp_async_wait1();
+      __syncthreads();
+      const float* st = stages + (q & 1) * S::STAGE;
+      const float* sx = G == 1 ? xres : st;
+      const float* sy = st + (G == 1 ? 0 : S::SX);
+      const int kb = (LG == 0 ? 0 : __brev(n) >> (32 - LG)) * KC, nk = min(KC, K - kb);
+      float sb[TU][TI], ss[TU][TI];
+      slice_sums<P, TI, BI>(sx + ty * TU, sx + KC * TBU + ty * TU, sy + tx * TI, sy + KC * BI + tx * TI,
+                            nk > 0 ? nk / 4 : 0, sb, ss);
+      // Leaf n of the tree: pairs G/2 apart first, so a binary counter
+      // over the slices in bit-reversed order merges them as the
+      // butterfly does.
+      bool carry = true;
+#pragma unroll
+      for (int lv = 0; lv < LG; ++lv) {
+        if (carry && ((n >> lv) & 1)) {
+          add_to(sb, stk_b[lv]);
+          if (P == BF16X3) add_to(ss, stk_s[lv]);
+        } else if (carry) {
+#pragma unroll
+          for (int u = 0; u < TU; ++u)
+#pragma unroll
+            for (int i = 0; i < TI; ++i) stk_b[lv][u][i] = sb[u][i], stk_s[lv][u][i] = ss[u][i];
+          carry = false;
+        }
+      }
+      if (n == G - 1) {  // the tile's scores: mask, then the running max over ascending items
+        const unsigned char* at = sa + (j & 1) * BI * arow + (tx * TI) * arow + ((ty * TU) << lesz);
+#pragma unroll
+        for (int i = 0; i < TI; ++i) {
+          const int item = i0 + tx * TI + i;
+          float v[TU];
+          bool any = false;
+#pragma unroll
+          for (int u = 0; u < TU; ++u) {
+            v[u] = P == BF16X3 ? ss[u][i] + sb[u][i] : sb[u][i];
+            any |= v[u] > best[u];
+          }
+          if (any && item < items_true) {  // A is read only where a score could win
+            bool r[TU];
+            rated(at + i * arow, lesz, r);
+#pragma unroll
+            for (int u = 0; u < TU; ++u)
+              if (!r[u] && v[u] > best[u]) best[u] = v[u], best_i[u] = item;
+          }
+        }
+      }
+      __syncthreads();  // stage q (and at a tile's end its A) is consumed
+    }
+  }
+
+  // Merge the 16 threads of a user row: lowest index among equal bests.
+#pragma unroll
+  for (int u = 0; u < TU; ++u)
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(FULL, best[u], o);
+      const int oi = __shfl_xor_sync(FULL, best_i[u], o);
+      if (takes(ov, oi, best[u], best_i[u])) best[u] = ov, best_i[u] = oi;
+    }
+  float* rv = reinterpret_cast<float*>(smem_raw);
+  int* ri = reinterpret_cast<int*>(rv + TBU);
+  if ((w & 1) && (lane & 7) == 0) {
+#pragma unroll
+    for (int u = 0; u < TU; ++u) rv[ty * TU + u] = best[u], ri[ty * TU + u] = best_i[u];
+  }
+  __syncthreads();
+  if (!(w & 1) && (lane & 7) == 0) {
+#pragma unroll
+    for (int u = 0; u < TU; ++u) {
+      const int c = ty * TU + u;
+      if (takes(rv[c], ri[c], best[u], best_i[u])) best[u] = rv[c], best_i[u] = ri[c];
+      pval[static_cast<size_t>(blockIdx.y) * U + u0 + c] = best[u];
+      pidx[static_cast<size_t>(blockIdx.y) * U + u0 + c] = best_i[u];
+    }
+  }
 }
 
 struct Args {
@@ -400,7 +744,12 @@ struct Args {
   float alpha2;
   int chunk_l, s_l, chunk_r, s_r;
   cudaStream_t stream;
+  float* top_ops;   // the tiled top-1's operands: K * (U + I) floats in DEFAULT, twice that in BF16X3
+  float* top_best;  // each user's best score, or null
+  int top_form;     // the top-1's form: DENSE_TOP1 or TILED_TOP1
 };
+
+enum TopForm { DENSE_TOP1 = 0, TILED_TOP1 = 1 };
 
 int log2_lanes(int G) {
   int lg = 0;
@@ -449,22 +798,71 @@ int train(const Args& a) {
   return cudaSuccess;
 }
 
+// A kernel's dynamic shared memory limit, raised once per kernel and size,
+// so a top-1 captured into a CUDA graph (probes/top1_tiled.py times it so)
+// makes no call outside the stream.
+template <auto Kernel>
+cudaError_t raise_smem(size_t smem) {
+  static size_t done = 0;
+  if (smem <= done) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) done = smem;
+  return err;
+}
+
+// The tiled top-1 over item chunks (chunk_l, s_l), multiples of TBI_MAX.
+template <int P, int G>
+int top1_tiled_run(const Args& a, const float* Lt, const float* Rt, int lesz) {
+  if (a.U % TBU || a.I % TBI_MAX || a.chunk_l <= 0 || a.chunk_l % TBI_MAX ||
+      a.s_l != (a.I + a.chunk_l - 1) / a.chunk_l || a.K > KC * G)
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  TopOps op{Lt, nullptr, Rt, nullptr};
+  const size_t nl = static_cast<size_t>(a.K) * a.U, nr = static_cast<size_t>(a.K) * a.I;
+  if (P != HIGHEST) {
+    if (a.top_ops == nullptr) return cudaErrorInvalidValue;
+    top1_operands<P><<<static_cast<int>(std::min<size_t>((nl + nr + 255) / 256, 4096)), 256, 0, a.stream>>>(
+        Lt, nl, Rt, nr, a.top_ops);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const bool lo = P == BF16X3;
+    op = {a.top_ops, lo ? a.top_ops + nl + nr : nullptr, a.top_ops + nl, lo ? a.top_ops + 2 * nl + nr : nullptr};
+  }
+  const size_t smem = tiled_smem_bytes<P, G>(1 << lesz);
+  if ((err = raise_smem<top1_tiled<P, G>>(smem)) != cudaSuccess) return err;
+  top1_tiled<P, G><<<dim3(a.U / TBU, a.s_l), TBLOCK, smem, a.stream>>>(
+      static_cast<const unsigned char*>(a.At), lesz, op, a.K, a.U, a.I, a.items_true, a.chunk_l, a.top_val,
+      a.top_idx);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  top1_reduce<<<(a.U + 255) / 256, 256, 0, a.stream>>>(a.top_val, a.top_idx, a.s_l, a.U, a.top1, a.top_best);
+  return cudaGetLastError();
+}
+
 // The masked top-1 from the factors (Lt, Rt), walking the items in the dl
-// side's chunks (chunk_l, s_l).
+// side's chunks (chunk_l, s_l): the dense form, or the tiled form.
 template <typename T, int P>
 int top1(const Args& a, const float* Lt, const float* Rt) {
+  if (a.top_form == TILED_TOP1) {
+    const int lesz = sizeof(T) == 1 ? 0 : sizeof(T) == 2 ? 1 : 2;
+    switch (a.G) {
+      case 1: return top1_tiled_run<P, 1>(a, Lt, Rt, lesz);
+      case 2: return top1_tiled_run<P, 2>(a, Lt, Rt, lesz);
+      case 4: return top1_tiled_run<P, 4>(a, Lt, Rt, lesz);
+      case 8: return top1_tiled_run<P, 8>(a, Lt, Rt, lesz);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (a.top_form != DENSE_TOP1) return cudaErrorInvalidValue;
   const T* At = static_cast<const T*>(a.At);
   const int lg = log2_lanes(a.G);
   const size_t smem = smem_bytes(lg, P);
-  cudaError_t err = cudaFuncSetAttribute(top1_pass<T, P>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = raise_smem<top1_pass<T, P>>(smem);
   if (err != cudaSuccess) return err;
   Side st{Lt, Rt, a.U, a.I, 0, a.chunk_l, a.s_l, nullptr};
   top1_pass<T, P><<<side_blocks(st, lg), BLOCK, smem, a.stream>>>(
       At, st, a.K, lg, a.items_true, a.top_val, a.top_idx);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  top1_reduce<<<(a.U + 255) / 256, 256, 0, a.stream>>>(a.top_val, a.top_idx, a.s_l, a.U, a.top1);
+  top1_reduce<<<(a.U + 255) / 256, 256, 0, a.stream>>>(a.top_val, a.top_idx, a.s_l, a.U, a.top1, a.top_best);
   return cudaGetLastError();
 }
 
@@ -1027,15 +1425,21 @@ extern "C" int rs_resident_train(const void* At, int a_kind, const float* Lt_in,
 }
 
 // B4: the masked top-1 alone, from final factors (pallas_dense.py:473
-// stream_top1).  top1_pass reads each A^T cell once; with the same factors
-// it is B1's top-1, bit for bit.
-extern "C" int rs_stream_top1(const void* At, int a_kind, const float* Lt, const float* Rt,
-                              float* top_val, int* top_idx, int* top1, int K, int U, int I,
-                              int G, int precision, int items_true, int chunk, int S,
+// stream_top1), over item chunks (chunk, S).  form 1 (TILED_TOP1, the
+// engine's): top1_tiled, chunks multiples of 64 items, ops K * (U + I)
+// floats of scratch in DEFAULT, 2 * K * (U + I) in BF16X3 (else may be
+// null); form 0
+// (DENSE_TOP1, the probe's baseline): top1_pass, chunks multiples of 32.
+// Both then top1_reduce, which writes each user's best score to `best`
+// unless it is null.  With the same factors either form is B1's top-1, and
+// the two give the same indices and best scores, bit for bit.
+extern "C" int rs_stream_top1(const void* At, int a_kind, const float* Lt, const float* Rt, float* ops,
+                              float* top_val, int* top_idx, int* top1, float* best, int K, int U, int I,
+                              int G, int precision, int items_true, int chunk, int S, int form,
                               void* stream) {
   const Args a{At, Lt, Rt, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, top_val,
                top_idx, top1, K, U, I, G, 0, items_true, 0.f, chunk, S, 0, 0,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream), ops, best, form};
   return dispatch(a, a_kind, precision, TOP1);
 }
 
@@ -1071,21 +1475,21 @@ extern "C" int rs_resident_sparse_train(const int* l_cell, const float* l_val, c
   return sparse_dispatch(a, G, precision, form, static_cast<cudaStream_t>(stream));
 }
 
-// B1: the sparse steps, then the dense top-1 over the items in the dl side's
-// chunks, as rs_resident_train_top1 ends.
+// B1: the sparse steps, then the tiled top-1 (B4's engine form) over item
+// chunks (top_chunk, top_S); ops as rs_stream_top1's.
 extern "C" int rs_resident_sparse_train_top1(
     const int* l_cell, const float* l_val, const int* l_off, const int* l_order, const int* r_cell,
     const float* r_val, const int* r_off, const int* r_order, const int* units, int* tickets, int cap,
     const void* At, int a_kind,
     const float* Lt_in, const float* Rt_in, float* Lt_out, float* Rt_out, float* Lt_tmp, float* Rt_tmp,
-    float* part_l, float* part_r, float* top_val, int* top_idx, int* top1, int K, int U, int I, int G,
-    int iters, float alpha2, int precision, int items_true, int chunk_l, int s_l, int chunk_r, int s_r,
-    int SR, int form, void* stream) {
+    float* part_l, float* part_r, float* ops, float* top_val, int* top_idx, int* top1, int K, int U, int I,
+    int G, int iters, float alpha2, int precision, int items_true, int chunk_l, int s_l, int chunk_r, int s_r,
+    int SR, int form, int top_chunk, int top_S, void* stream) {
   const int err = rs_resident_sparse_train(l_cell, l_val, l_off, l_order, r_cell, r_val, r_off, r_order, units,
                                            tickets, cap, Lt_in, Rt_in, Lt_out, Rt_out, Lt_tmp, Rt_tmp, part_l,
                                            part_r, K, U, I, G, iters, alpha2, precision, chunk_l, s_l, chunk_r,
                                            s_r, SR, form, stream);
   if (err != 0) return err;
-  return rs_stream_top1(At, a_kind, Lt_out, Rt_out, top_val, top_idx, top1, K, U, I, G, precision,
-                        items_true, chunk_l, s_l, stream);
+  return rs_stream_top1(At, a_kind, Lt_out, Rt_out, ops, top_val, top_idx, top1, nullptr, K, U, I, G, precision,
+                        items_true, top_chunk, top_S, TILED_TOP1, stream);
 }

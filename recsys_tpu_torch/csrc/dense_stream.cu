@@ -97,6 +97,10 @@
 //    lanes finish together; a chain's order never changes.
 //  * 51 KB of shared memory and at most 64 registers a thread at K <= 128,
 //    so four blocks fit an SM and gen-instML1M's 432 blocks run in one wave.
+//  * The same body serves P3 (scripts/probe_stream_v2.py): sparse_pass
+//    with PACKED reads R, and writes its dR partials, in P3's strip-packed
+//    layout (r_at); nothing else differs, so P3's sparse form gives P3's
+//    dense form's (csrc/stream_v2.cu) and B3's bits (rs_stream_v2_sparse_train).
 // What bounds the sparse form: 6 * nnz * k FLOP a step (2.66 us at
 // gen-instML1M) is far below what its latencies cost.  Each sub-strip is a
 // chain of dependent phases (loads, A, B and C, the cluster barrier, the
@@ -531,14 +535,26 @@ struct ItemCells {
   __device__ float e(int x) const { return es[x & 0xffff]; }
 };
 
+// Where item i's value of factor k lives in the R table (and in part_r's
+// slices): K-major Rt (K, I), B3's; or, PACKED, P3's strip-packed Rp
+// (I / strip * K, strip), rows s*K .. s*K + K-1 holding strip s.
+template <bool PACKED>
+__device__ __forceinline__ size_t r_at(int k, int i, int I, int K, int strip) {
+  if (!PACKED) return static_cast<size_t>(k) * I + i;
+  const int s = i / strip;
+  return (static_cast<size_t>(s) * K + k) * strip + (i - s * strip);
+}
+
 // One step's gradient partials from the rated cells alone, bit for bit
-// stream_pass's.  Grid (U / BC, S), clusters of C blocks along x.  `cap`
-// is the largest segment's cell count (walk_tables).
-template <int P, int G>
+// stream_pass's (and, PACKED, v2_pass's in csrc/stream_v2.cu: only where
+// an R value is read and a dR partial written differs).  Grid (U / BC, S),
+// clusters of C blocks along x.  `cap` is the largest segment's cell count
+// (walk_tables).
+template <int P, int G, bool PACKED>
 __global__ void __launch_bounds__(SBLOCK, G == 8 ? 2 : 4)
     sparse_pass(Walk w, const float* __restrict__ Lt, const float* __restrict__ Rt,
                 float* __restrict__ part_l, float* __restrict__ part_r, int K, int U, int I,
-                int chunk, int SR, int cap) {
+                int chunk, int SR, int cap, int strip) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -608,7 +624,7 @@ __global__ void __launch_bounds__(SBLOCK, G == 8 ? 2 : 4)
 #pragma unroll
       for (int u = 0; u < NY; ++u) {
         const int idx = t + u * SBLOCK, k = idx / SR, r = idx - k * SR;
-        yv[u] = idx < KP * SR && k < K && r < len ? __ldg(Rt + static_cast<size_t>(k) * I + r0 + r) : 0.f;
+        yv[u] = idx < KP * SR && k < K && r < len ? __ldg(Rt + r_at<PACKED>(k, r0 + r, I, K, strip)) : 0.f;
       }
       const int o_u = t <= BC ? __ldg(w.u_off + seg * BC + t) : 0;
       const int o_i = t <= len ? __ldg(w.i_off + it0 + t) : 0;
@@ -746,7 +762,7 @@ __global__ void __launch_bounds__(SBLOCK, G == 8 ? 2 : 4)
       float sum = v[0];
 #pragma unroll
       for (int rho = 1; rho < 16; ++rho) if (rho < C) sum = sum + v[rho];
-      part_r[(static_cast<size_t>(cu) * K + k) * I + r0 + r] = sum;
+      part_r[static_cast<size_t>(cu) * K * I + r_at<PACKED>(k, r0 + r, I, K, strip)] = sum;
     }
   }
   cluster.sync();  // no block leaves while another reads its shared memory
@@ -875,28 +891,30 @@ int train_prec(const Args& a, const void* At, int precision) {
   return cudaErrorInvalidValue;
 }
 
-template <int P, int G>
-int sparse_train(const Args& a, const Walk& w, int SR, int cap) {
+// The sparse steps; PACKED: R and its partials in P3's packed layout
+// (strip items a strip), else K-major (strip unused).
+template <int P, int G, bool PACKED>
+int sparse_train(const Args& a, const Walk& w, int SR, int cap, int strip) {
   if (SR % BR || SR <= 0 || SR > (G == 1 ? 64 : 32) || a.I > CELL_ITEM_MASK || cap < 0 ||
-      cap > (BLOCK / G) * SR || cap >= 1 << 16)
+      cap > (BLOCK / G) * SR || cap >= 1 << 16 || (PACKED && (strip < 1 || a.I % strip)))
     return cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  int err = pass_config(sparse_pass<P, G>, a, SBLOCK, sparse_smem_bytes(G, P, a.K, SR, cap), attr, &cfg);
+  int err = pass_config(sparse_pass<P, G, PACKED>, a, SBLOCK, sparse_smem_bytes(G, P, a.K, SR, cap), attr, &cfg);
   if (err != cudaSuccess) return err;
   return steps(a, [&](const float* lc, const float* rc) {
-    return cudaLaunchKernelEx(&cfg, sparse_pass<P, G>, w, lc, rc, a.part_l, a.part_r, a.K, a.U, a.I,
-                              a.chunk, SR, cap);
+    return cudaLaunchKernelEx(&cfg, sparse_pass<P, G, PACKED>, w, lc, rc, a.part_l, a.part_r, a.K, a.U, a.I,
+                              a.chunk, SR, cap, strip);
   });
 }
 
-template <int P>
-int sparse_lanes(const Args& a, const Walk& w, int SR, int cap) {
+template <int P, bool PACKED = false>
+int sparse_lanes(const Args& a, const Walk& w, int SR, int cap, int strip = 0) {
   switch (a.G) {
-    case 1: return sparse_train<P, 1>(a, w, SR, cap);
-    case 2: return sparse_train<P, 2>(a, w, SR, cap);
-    case 4: return sparse_train<P, 4>(a, w, SR, cap);
-    case 8: return sparse_train<P, 8>(a, w, SR, cap);
+    case 1: return sparse_train<P, 1, PACKED>(a, w, SR, cap, strip);
+    case 2: return sparse_train<P, 2, PACKED>(a, w, SR, cap, strip);
+    case 4: return sparse_train<P, 4, PACKED>(a, w, SR, cap, strip);
+    case 8: return sparse_train<P, 8, PACKED>(a, w, SR, cap, strip);
   }
   return cudaErrorInvalidValue;
 }
@@ -912,10 +930,10 @@ int sparse_prec(const Args& a, const Walk& w, int SR, int cap, int precision) {
 
 }  // namespace
 
-// B4, in csrc/dense_fused.cu.
-extern "C" int rs_stream_top1(const void* At, int a_kind, const float* Lt, const float* Rt,
-                              float* top_val, int* top_idx, int* top1, int K, int U, int I,
-                              int G, int precision, int items_true, int chunk, int S,
+// B4, in csrc/dense_fused.cu (form 1: the tiled form, the engine's).
+extern "C" int rs_stream_top1(const void* At, int a_kind, const float* Lt, const float* Rt, float* ops,
+                              float* top_val, int* top_idx, int* top1, float* best, int K, int U, int I,
+                              int G, int precision, int items_true, int chunk, int S, int form,
                               void* stream);
 
 // a_kind: 0 int8 (2x rating), 1 bf16, 2 f32.  precision: 0 highest,
@@ -958,15 +976,33 @@ extern "C" int rs_stream_sparse_train(const int* u_cell, const float* u_val, con
   return sparse_prec(a, w, SR, cap, precision);
 }
 
-// B6: B3's steps (the sparse form), then B4's pass over the final factors,
-// in one host call (pallas_dense.py:433 stream_train_top1).  Bit for bit
-// B3 then B4.
+// P3 in the sparse form (ops/stream_v2.py::stream_v2_train): B3's sparse
+// walk on A's rated cells (the tables of A^T, walk_tables(A.T)) with R and
+// its partials in the strip-packed layout, Rp (I / strip * K, strip);
+// `highest` only, as the TPU probe.  Bit for bit rs_stream_v2_train (its
+// dense form, csrc/stream_v2.cu) and B3 at the same split.
+extern "C" int rs_stream_v2_sparse_train(const int* u_cell, const float* u_val, const int* u_off,
+                                         const int* u_order, const int* i_user, const int* i_cell,
+                                         const int* i_off, const int* i_order, int cap, const float* Lt_in,
+                                         const float* Rp_in, float* Lt_out, float* Rp_out, float* Lt_tmp,
+                                         float* Rp_tmp, float* part_l, float* part_r, int K, int U, int I,
+                                         int strip, int G, int C, int iters, float alpha2, int chunk, int S,
+                                         int SR, void* stream) {
+  const Args a{Lt_in, Rp_in, Lt_out, Rp_out, Lt_tmp, Rp_tmp, part_l, part_r, K, U, I, G, C,
+               iters, alpha2, chunk, S, static_cast<cudaStream_t>(stream)};
+  const Walk w{u_cell, u_val, u_off, u_order, i_user, i_cell, i_off, i_order};
+  return sparse_lanes<HIGHEST, true>(a, w, SR, cap, strip);
+}
+
+// B6: B3's steps (the sparse form), then B4's tiled form over the final
+// factors and item chunks (top_chunk, top_S), in one host call
+// (pallas_dense.py:433 stream_train_top1).  Bit for bit B3 then B4.
 extern "C" int rs_stream_train_top1(const int* u_cell, const float* u_val, const int* u_off,
                                     const int* u_order, const int* i_user, const int* i_cell,
                                     const int* i_off, const int* i_order, int cap, const void* At,
                                     int a_kind, const float* Lt_in, const float* Rt_in,
                                     float* Lt_out, float* Rt_out, float* Lt_tmp, float* Rt_tmp,
-                                    float* part_l, float* part_r, float* top_val, int* top_idx,
+                                    float* part_l, float* part_r, float* ops, float* top_val, int* top_idx,
                                     int* top1, int K, int U, int I, int G, int C, int iters,
                                     float alpha2, int precision, int items_true, int chunk, int S,
                                     int SR, int top_chunk, int top_S, void* stream) {
@@ -975,6 +1011,6 @@ extern "C" int rs_stream_train_top1(const int* u_cell, const float* u_val, const
                                          part_l, part_r, K, U, I, G, C, iters, alpha2, precision,
                                          chunk, S, SR, stream);
   if (err != 0) return err;
-  return rs_stream_top1(At, a_kind, Lt_out, Rt_out, top_val, top_idx, top1, K, U, I, G,
-                        precision, items_true, top_chunk, top_S, stream);
+  return rs_stream_top1(At, a_kind, Lt_out, Rt_out, ops, top_val, top_idx, top1, nullptr, K, U, I, G,
+                        precision, items_true, top_chunk, top_S, 1, stream);
 }

@@ -29,6 +29,11 @@
 // `highest` (IEEE f32 FMA, no TF32) is built, the probe's only precision.
 // Bound, as B3: 3 * U * I * K multiply-adds a step on the CUDA cores; the
 // work the ratings need is 6 * nnz * k FLOP a step.
+//
+// This is P3's dense form (rs_stream_v2_train, ops/stream_v2.py::
+// stream_v2_train_dense), kept as the probe's baseline.  P3's own form walks
+// the rated cells alone: B3's sparse walk on this layout, sparse_pass in
+// csrc/dense_stream.cu (rs_stream_v2_sparse_train), with the same bits.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>

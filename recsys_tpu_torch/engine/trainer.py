@@ -186,11 +186,13 @@ def dense_plan(spec: ProblemSpec, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES, ti
     * K (k padded to 8) up to ``dense_fused.MAX_K``: ``resident`` when A^T
       in its storage dtype takes at most ``a_max_bytes``, else ``stream``.
       Bytes: dense A^T, the six factor tables (input, output and ping-pong
-      for each side), the training kernel's partial sums (for ``resident``
-      at their largest, one chunk per 32 reduction columns, and the sparse
-      form's tables as ``dense_fused.walk_bytes`` counts them on an H100;
-      for ``stream`` as ``dense_stream.stream_partial_bytes`` counts them)
-      and the top-1's.
+      for each side), the training kernel's partial sums and the sparse
+      walk's tables (for ``resident`` the sums at their largest, one chunk
+      per 32 reduction columns, and the tables as ``dense_fused.walk_bytes``
+      counts them on an H100; for ``stream`` as
+      ``dense_stream.stream_partial_bytes`` and ``stream_walk_bytes`` count
+      them), and the tiled top-1's buffers in `bf16x3`, the precision that
+      needs the most (``dense_fused.top1_bytes``).
     * ``tiled`` for wider factors (K padded to 32, up to
       ``dense_tiled.MAX_K``), when the other kinds need more than
       ``DEVICE_BUDGET_BYTES``, or when ``tiled`` forces it.  Bytes: what
@@ -209,8 +211,8 @@ def dense_plan(spec: ProblemSpec, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES, ti
     if not tiled and K <= dense_fused.MAX_K:
         kind = "resident" if a_bytes * U * I <= a_max_bytes else "stream"
         partials = (4 * 2 * K * U * I // 32 + dense_fused.walk_bytes(K, U, I, spec.nnz) if kind == "resident"
-                    else dense_stream.stream_partial_bytes(K, U, I))
-        need = a_bytes * U * I + 4 * 3 * K * (U + I) + partials + 8 * U * I // 32
+                    else dense_stream.stream_partial_bytes(K, U, I) + dense_stream.stream_walk_bytes(K, U, I, spec.nnz))
+        need = a_bytes * U * I + 4 * 3 * K * (U + I) + partials + dense_fused.top1_bytes(K, U, I, "bf16x3")
         if need <= DEVICE_BUDGET_BYTES:
             return DensePlan(kind=kind, a_dtype=a_dtype, U=U, I=I, K=K, device_bytes=need)
     K = dense_fused.round_up(spec.features, dense_tiled.K_ALIGN)

@@ -98,23 +98,27 @@ SIGNATURES = {
     # I, G, iters, alpha2, precision, chunk_l, s_l, chunk_r, s_r, SR, form,
     # stream
     "rs_resident_sparse_train": [*[_P] * 10, _I, *[_P] * 8, *[_I] * 5, _F, *[_I] * 7, _P],
-    # the walk's 9 tables, tickets, cap, At, a_kind, Lt_in .. part_r,
-    # top_val, top_idx, top1 (11 pointers), K, U, I, G, iters, alpha2,
-    # precision, items_true, chunk_l, s_l, chunk_r, s_r, SR, form, stream
-    "rs_resident_sparse_train_top1": [*[_P] * 10, _I, _P, _I, *[_P] * 11, *[_I] * 5, _F, *[_I] * 8, _P],
-    # At, a_kind, Lt, Rt, top_val, top_idx, top1, K, U, I, G, precision,
-    # items_true, chunk, S, stream
-    "rs_stream_top1": [_P, _I, *[_P] * 5, *[_I] * 8, _P],
+    # the walk's 9 tables, tickets, cap, At, a_kind, Lt_in .. part_r, ops,
+    # top_val, top_idx, top1 (12 pointers), K, U, I, G, iters, alpha2,
+    # precision, items_true, chunk_l, s_l, chunk_r, s_r, SR, form,
+    # top_chunk, top_S, stream
+    "rs_resident_sparse_train_top1": [*[_P] * 10, _I, _P, _I, *[_P] * 12, *[_I] * 5, _F, *[_I] * 10, _P],
+    # At, a_kind, Lt, Rt, ops, top_val, top_idx, top1, best, K, U, I, G,
+    # precision, items_true, chunk, S, form, stream
+    "rs_stream_top1": [_P, _I, *[_P] * 7, *[_I] * 9, _P],
     # At, a_kind, Lt_in .. part_r (8 pointers), K, U, I, G, C, iters, alpha2,
     # precision, chunk, S, stream
     "rs_stream_train": [_P, _I, *[_P] * 8, *[_I] * 6, _F, *[_I] * 3, _P],
     # the walk's 8 tables, cap, Lt_in .. part_r (8 pointers), K, U, I, G,
     # C, iters, alpha2, precision, chunk, S, SR, stream
     "rs_stream_sparse_train": [*[_P] * 8, _I, *[_P] * 8, *[_I] * 6, _F, *[_I] * 4, _P],
-    # the walk's 8 tables, cap, At, a_kind, Lt_in .. part_r, top_val,
-    # top_idx, top1 (11 pointers), K, U, I, G, C, iters, alpha2, precision,
+    # the walk's 8 tables, cap, At, a_kind, Lt_in .. part_r, ops, top_val,
+    # top_idx, top1 (12 pointers), K, U, I, G, C, iters, alpha2, precision,
     # items_true, chunk, S, SR, top_chunk, top_S, stream
-    "rs_stream_train_top1": [*[_P] * 8, _I, _P, _I, *[_P] * 11, *[_I] * 6, _F, *[_I] * 7, _P],
+    "rs_stream_train_top1": [*[_P] * 8, _I, _P, _I, *[_P] * 12, *[_I] * 6, _F, *[_I] * 7, _P],
+    # the walk's 8 tables, cap, Lt_in, Rp_in .. part_r (8 pointers), K, U,
+    # I, strip, G, C, iters, alpha2, chunk, S, SR, stream
+    "rs_stream_v2_sparse_train": [*[_P] * 8, _I, *[_P] * 8, *[_I] * 7, _F, *[_I] * 3, _P],
     # A, At, a_kind, L, R, dL, dR, part, U, I, K, precision, chunk, S, stream
     "rs_tiled_deltas": [_P, _P, _I, *[_P] * 5, *[_I] * 6, _P],
     # A, At, a_kind, L, R, Lout, Rout, part, U, I, K, precision, chunk, S,

@@ -175,16 +175,28 @@ def plain_train(Lt, Rt, At, iters, alpha2, precision):
     return Lt, Rt
 
 
+def plain_scores(Lt, Rt, At, precision, items_true):
+    """B^T = Rt^T . Lt (I, U) in plain torch with rated cells and items at
+    or past ``items_true`` at -inf: what the top-1 maximises."""
+    a = load_at(At)
+    b = dot(Rt.T, Lt, precision)
+    item = torch.arange(b.shape[0], device=b.device)[:, None]
+    return torch.where((a != 0) | (item >= items_true), -torch.inf, b)
+
+
 def plain_top1(Lt, Rt, At, precision, items_true):
     """The masked top-1 from final factors in plain torch (B1's last pass,
     B4): (1, U) int32, rated cells and items at or past ``items_true`` at
     -inf, lowest index on ties."""
-    a = load_at(At)
-    b = dot(Rt.T, Lt, precision)
-    item = torch.arange(b.shape[0], device=b.device)[:, None]
-    b = torch.where((a != 0) | (item >= items_true), -torch.inf, b)
     # argmax returns the first maximum: the lowest-index tie-break.
-    return torch.argmax(b, dim=0).to(torch.int32)[None, :]
+    return torch.argmax(plain_scores(Lt, Rt, At, precision, items_true), dim=0).to(torch.int32)[None, :]
+
+
+def plain_top1_scores(Lt, Rt, At, precision, items_true):
+    """``plain_top1`` and each user's best score: ((1, U) int32, (1, U) f32)."""
+    b = plain_scores(Lt, Rt, At, precision, items_true)
+    top = torch.argmax(b, dim=0)
+    return top.to(torch.int32)[None, :], b.gather(0, top[None, :])
 
 
 def _lanes_per_column(K: int) -> int:
@@ -234,6 +246,21 @@ H100_SMS = 132
 # precision (PERF.md §6).
 ENGINE_FORM = "loop"
 _FORM_CODE = {"persistent": 0, "loop": 1}
+# Users of a block of B4's tiled form, and the multiple of items its chunks
+# come in (csrc/dense_fused.cu, TBU and TBI_MAX).
+TOP1_USERS = 64
+TOP1_ITEMS = 64
+# Blocks of the tiled top-1 resident on an SM: 80 registers and 32 KB of
+# shared memory a block of 256 threads in `highest` (nvcc -Xptxas -v).  Its
+# grid aims at one wave of them (four item chunks at gen-instML1M).
+_TOP1_BLOCKS_PER_SM = 3
+# The top-1's forms (rs_stream_top1's form argument): "tiled" the engine's,
+# "dense" the form it replaced, kept as the probe's baseline.
+TOP1_FORMS = {"dense": 0, "tiled": 1}
+# Operand tables of K * (U + I) floats the tiled top-1 reads from scratch
+# (csrc/dense_fused.cu, top1_operands): the factors' bf16 roundings in
+# `default`, their hi and lo parts in `bf16x3`; `highest` reads the factors.
+_TOP1_OPERANDS = {"highest": 0, "default": 1, "bf16x3": 2}
 # A walk's cell word packs the column within its block above the row
 # within its chunk.
 _CELL_ROW_BITS = 24
@@ -255,6 +282,45 @@ def sub_strip(G: int) -> int:
     and ``csrc/dense_stream.cu``, SR): 64, or 32 when a column spans G > 1
     lanes, so shared memory stays under 227 KB at K = 256."""
     return 64 if G == 1 else 32
+
+
+def top1_split(U: int, I: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """(chunk, S) of the tiled top-1: the items cut into S chunks of
+    ``chunk`` (a multiple of ``TOP1_ITEMS``) so its grid (U / TOP1_USERS, S)
+    fills about one wave of the card's resident blocks."""
+    tiles = I // TOP1_ITEMS
+    s = max(1, min(tiles, round(_TOP1_BLOCKS_PER_SM * sms / (U // TOP1_USERS))))
+    chunk = -(-tiles // s) * TOP1_ITEMS
+    return chunk, -(-I // chunk)
+
+
+def top1_split_for(K: int, U: int, I: int, dev, form: str = "tiled") -> tuple[int, int]:
+    """(chunk, S) of a top-1 form on ``dev`` (an H100's on the CPU):
+    ``top1_split`` for "tiled", the dl side's chunks (``_split``) for
+    "dense"."""
+    if form not in TOP1_FORMS:
+        raise ValueError(f"unknown top-1 form {form!r}; one of {sorted(TOP1_FORMS)}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else H100_SMS
+    return top1_split(U, I, sms) if form == "tiled" else _split(U, I, _lanes_per_column(K), 2 * sms)
+
+
+def top1_bytes(K: int, U: int, I: int, precision: str, sms: int = H100_SMS) -> int:
+    """Device bytes of the tiled top-1's buffers (``top1_buffers``) at
+    ``top1_split``: its operands, the (S, U) partial bests and indices and
+    the (1, U) result."""
+    S = top1_split(U, I, sms)[1]
+    return 4 * (_TOP1_OPERANDS[precision] * K * (U + I) + 2 * S * U + U)
+
+
+def top1_buffers(K: int, U: int, I: int, S: int, dev, precision: str, form: str = "tiled"):
+    """(ops, top_val, top_idx, top1) of a top-1 over S item chunks: ops
+    holds the tiled form's operands (``_TOP1_OPERANDS``; empty in the
+    dense form)."""
+    n_ops = _TOP1_OPERANDS[precision] * K * (U + I) if form == "tiled" else 0
+    return (torch.empty(n_ops, dtype=torch.float32, device=dev),
+            torch.empty((S, U), dtype=torch.float32, device=dev),
+            torch.empty((S, U), dtype=torch.int32, device=dev),
+            torch.empty((1, U), dtype=torch.int32, device=dev))
 
 
 def _offsets(keys: torch.Tensor, n: int) -> torch.Tensor:
@@ -441,13 +507,6 @@ def _resident_buffers(K, U, I, dev, split):
     return f32(K, U), f32(K, I), f32(K, U), f32(K, I), f32(s_l, K, U), f32(s_r, K, I)
 
 
-def _top1_buffers(U, s_l, dev):
-    """(top_val, top_idx, top1): the top-1 walks the items in the dl side's chunks."""
-    return (torch.empty((s_l, U), dtype=torch.float32, device=dev),
-            torch.empty((s_l, U), dtype=torch.int32, device=dev),
-            torch.empty((1, U), dtype=torch.int32, device=dev))
-
-
 def _tickets(dev):
     """The persistent form's two unit counters, zeroed."""
     return torch.zeros(2, dtype=torch.int32, device=dev)
@@ -489,8 +548,9 @@ def resident_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str
     at or past ``items_true`` never win the top-1.  ``walk`` is
     ``resident_walk(At, K, split)`` built ahead, else the call builds it;
     ``split`` defaults to ``resident_split``; ``form`` is "loop" or
-    "persistent".  Returns (Lt', Rt', top1 (1, U) int32).  CPU tensors go to
-    the plain twin; CUDA tensors to the kernel, which counts each launch in
+    "persistent".  The top-1 is B4's tiled form (``top1_split``'s chunks).
+    Returns (Lt', Rt', top1 (1, U) int32).  CPU tensors go to the plain
+    twin; CUDA tensors to the kernel, which counts each launch in
     ``.launches``.
     """
     K, U, I = _check(Lt, Rt, At, precision)
@@ -505,17 +565,18 @@ def resident_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str
     split = _split_for(split, K, U, I, dev)
     walk = _walk_for(walk, At, K, split)
     bufs = _resident_buffers(K, U, I, dev, split)
-    tops = _top1_buffers(U, split[1], dev)
+    top_split = top1_split_for(K, U, I, dev)
+    tops = top1_buffers(K, U, I, top_split[1], dev, precision)
     with torch.cuda.device(dev):
         rc = lib.rs_resident_sparse_train_top1(
             *_ptrs(*walk.tables, _tickets(dev)), walk.cap, ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype],
             *_ptrs(Lt, Rt, *bufs, *tops), K, U, I, _lanes_per_column(K), iters, float(alpha2),
-            _PRECISION_CODE[precision], items_true, *split, walk.sub, code, _stream(dev),
+            _PRECISION_CODE[precision], items_true, *split, walk.sub, code, *top_split, _stream(dev),
         )
     if rc != 0:
         raise RuntimeError(f"rs_resident_sparse_train_top1 ({form}) failed: CUDA error {rc}")
     resident_train_top1.launches += 1
-    return bufs[0], bufs[1], tops[2]
+    return bufs[0], bufs[1], tops[3]
 
 
 def resident_train(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest",
@@ -563,7 +624,7 @@ def resident_train_top1_dense(Lt, Rt, At, *, iters: int, alpha2: float, precisio
     lib = _build.load()
     split = _split_for(split, K, U, I, dev)
     bufs = _resident_buffers(K, U, I, dev, split)
-    tops = _top1_buffers(U, split[1], dev)
+    tops = top1_buffers(K, U, I, split[1], dev, precision, "dense")[1:]
     with torch.cuda.device(dev):
         rc = lib.rs_resident_train_top1(
             ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *bufs, *tops),

@@ -13,11 +13,17 @@ and their counterparts here:
   gradient sides) stays callable as ``stream_train_dense``, the baseline
   of ``probes/stream_sparse.py``.
 * ``stream_top1`` (:473, B4): the masked top-1 from final factors.  CUDA
-  kernel ``top1_pass`` + ``top1_reduce`` of ``csrc/dense_fused.cu`` behind
-  their own entry (``rs_stream_top1``), so from the same factors it is B1's
-  top-1 bit for bit.
+  kernel ``top1_tiled`` + ``top1_reduce`` of ``csrc/dense_fused.cu`` (the
+  tiled form: a block of 64 users walks its item chunk in tiles, each
+  thread a register micro-tile of scores) behind their own entry
+  (``rs_stream_top1``), so from the same factors it is B1's top-1 bit for
+  bit.  The dense form it replaced (``top1_pass``, a thread a user) stays
+  callable as ``stream_top1_dense``, the baseline of
+  ``probes/top1_tiled.py``; ``stream_top1_scores`` returns each user's
+  best score beside the index, in either form, so the two can be held
+  equal in raw bits.
 * ``stream_train_top1`` (:433, B6): B3's steps (the sparse form), then
-  B4's pass, in one host call (``rs_stream_train_top1``).
+  B4's tiled form, in one host call (``rs_stream_train_top1``).
 
 Each has a plain torch twin of the same math.  The wrappers take the plain
 twin for CPU tensors and the kernel for CUDA tensors, and raise for
@@ -39,19 +45,22 @@ from recsys_tpu_torch.ops.dense_fused import (
     _A_KIND,
     _PRECISION_CODE,
     H100_SMS,
+    TOP1_FORMS,
     _by_degree,
     _check,
     _kernel_device,
     _lanes_per_column,
     _offsets,
     _ptrs,
-    _split,
     exact_f32,
     load_at,
     plain_top1,
+    plain_top1_scores,
     plain_train,
     round_up,
     sub_strip,
+    top1_buffers,
+    top1_split_for,
 )
 
 # Items per strip of the stream kernel (csrc/dense_stream.cu, BR).
@@ -88,6 +97,19 @@ def stream_partial_bytes(K: int, U: int, I: int, sms: int = H100_SMS,
     part_r (U*G / (128*C), K, I), f32."""
     G, C, _, S = stream_split(K, U, I, sms, grid)
     return 4 * K * (S * U + U * G // (128 * C) * I)
+
+
+def stream_walk_bytes(K: int, U: int, I: int, nnz: int, sms: int = H100_SMS,
+                      grid: tuple[int, int] = _GRID) -> int:
+    """Device bytes of ``walk_tables``'s output for ``nnz`` rated cells at
+    ``stream_split``: four words a cell (u_cell, u_val, i_user, i_cell),
+    an offset per (tile, sub-strip, user) and per (tile, item), and an
+    order entry per (tile, user) and per (tile, item)."""
+    G, C, chunk, S = stream_split(K, U, I, sms, grid)
+    BC = 128 // G
+    tiles = S * (U // BC)
+    subs = -(-chunk // sub_strip(G))
+    return 4 * (4 * nnz + tiles * subs * BC + 1 + tiles * BC + 2 * tiles * chunk + 1)
 
 
 # u_cell packs the user within its block above the item within its chunk.
@@ -236,15 +258,6 @@ def _train_buffers(K, U, I, dev, grid=_GRID):
     return (G, C, chunk, S), outs, parts
 
 
-def _top1_buffers(K, U, I, dev):
-    G = _lanes_per_column(K)
-    chunk, S = _split(U, I, G, 2 * _sms(dev))  # the dl side's chunks, as B1
-    top_val = torch.empty((S, U), dtype=torch.float32, device=dev)
-    top_idx = torch.empty((S, U), dtype=torch.int32, device=dev)
-    top1 = torch.empty((1, U), dtype=torch.int32, device=dev)
-    return (chunk, S), (top_val, top_idx, top1)
-
-
 def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
@@ -320,27 +333,60 @@ def stream_train_dense(Lt, Rt, At, *, iters: int, alpha2: float, precision: str 
     return outs[0], outs[1]
 
 
+def _top1(Lt, Rt, At, precision, items_true, form, scores):
+    """B4 in ``form`` on the card: (top1, best or None)."""
+    K, U, I = Lt.shape[0], Lt.shape[1], Rt.shape[1]
+    dev = _kernel_device(Lt)
+    lib = _build.load()
+    chunk, S = top1_split_for(K, U, I, dev, form)
+    ops, *tops = top1_buffers(K, U, I, S, dev, precision, form)
+    best = torch.empty((1, U), dtype=torch.float32, device=dev) if scores else None
+    with torch.cuda.device(dev):
+        rc = lib.rs_stream_top1(
+            ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, ops, *tops),
+            ctypes.c_void_p(best.data_ptr() if scores else 0), K, U, I, _lanes_per_column(K),
+            _PRECISION_CODE[precision], items_true, chunk, S, TOP1_FORMS[form], _stream(dev),
+        )
+    if rc != 0:
+        raise RuntimeError(f"rs_stream_top1 ({form}) failed: CUDA error {rc}")
+    (stream_top1 if form == "tiled" else stream_top1_dense).launches += 1
+    return tops[2], best
+
+
 def stream_top1(Lt, Rt, At, *, precision: str = "highest", items_true: int):
     """The masked top-1 from final factors (port of
     ``pallas_dense.stream_top1`` :473): (1, U) int32, rated cells and items
-    at or past ``items_true`` never win, lowest index on ties.  CPU tensors
-    go to the plain twin; CUDA tensors to the kernel (``.launches``)."""
-    K, U, I = _check(Lt, Rt, At, precision)
+    at or past ``items_true`` never win, lowest index on ties.  The tiled
+    form over ``dense_fused.top1_split``'s item chunks.  CPU tensors go to
+    the plain twin; CUDA tensors to the kernel (``.launches``)."""
+    _check(Lt, Rt, At, precision)
     if Lt.device.type == "cpu":
         return stream_top1_plain(Lt, Rt, At, precision=precision, items_true=items_true)
-    dev = _kernel_device(Lt)
-    lib = _build.load()
-    (chunk, S), tops = _top1_buffers(K, U, I, dev)
-    with torch.cuda.device(dev):
-        rc = lib.rs_stream_top1(
-            ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *tops),
-            K, U, I, _lanes_per_column(K), _PRECISION_CODE[precision], items_true, chunk, S,
-            _stream(dev),
-        )
-    if rc != 0:
-        raise RuntimeError(f"rs_stream_top1 failed: CUDA error {rc}")
-    stream_top1.launches += 1
-    return tops[2]
+    return _top1(Lt, Rt, At, precision, items_true, "tiled", False)[0]
+
+
+def stream_top1_dense(Lt, Rt, At, *, precision: str = "highest", items_true: int):
+    """``stream_top1`` in its dense form (``top1_pass``, a thread a user
+    over the dl side's item chunks): the baseline the tiled form replaced,
+    kept for ``probes/top1_tiled.py``.  CPU tensors go to the plain twin;
+    CUDA tensors to the kernel (``.launches``)."""
+    _check(Lt, Rt, At, precision)
+    if Lt.device.type == "cpu":
+        return stream_top1_plain(Lt, Rt, At, precision=precision, items_true=items_true)
+    return _top1(Lt, Rt, At, precision, items_true, "dense", False)[0]
+
+
+def stream_top1_scores(Lt, Rt, At, *, precision: str = "highest", items_true: int, form: str = "tiled"):
+    """B4 in ``form`` ("tiled" or "dense") with each user's best score:
+    ((1, U) int32, (1, U) f32; -inf where no item can win), so two forms
+    can be held equal in raw bits.  A launch counts on the form's wrapper
+    (``stream_top1`` or ``stream_top1_dense``).  CPU tensors go to the
+    plain twin."""
+    K, U, I = _check(Lt, Rt, At, precision)
+    if Lt.device.type == "cpu":
+        top1_split_for(K, U, I, Lt.device, form)  # the form checked, though the twin runs
+        return plain_top1_scores(Lt, Rt, At, precision, items_true)
+    return _top1(Lt, Rt, At, precision, items_true, form, True)
 
 
 def stream_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest", items_true: int):
@@ -355,7 +401,8 @@ def stream_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str =
     dev = _kernel_device(Lt)
     lib = _build.load()
     (G, C, chunk, S), outs, parts = _train_buffers(K, U, I, dev)
-    (top_chunk, top_S), tops = _top1_buffers(K, U, I, dev)
+    top_chunk, top_S = top1_split_for(K, U, I, dev)
+    tops = top1_buffers(K, U, I, top_S, dev, precision)
     walk = stream_walk(At, K)
     with torch.cuda.device(dev):
         rc = lib.rs_stream_train_top1(
@@ -366,11 +413,12 @@ def stream_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str =
     if rc != 0:
         raise RuntimeError(f"rs_stream_train_top1 failed: CUDA error {rc}")
     stream_train_top1.launches += 1
-    return outs[0], outs[1], tops[2]
+    return outs[0], outs[1], tops[3]
 
 
 stream_train.launches = 0
 stream_train_dense.launches = 0
 stream_top1.launches = 0
+stream_top1_dense.launches = 0
 stream_train_top1.launches = 0
 

@@ -4,17 +4,20 @@ does a strip-packed R table change the streamed GD step's time?
     python -m recsys_tpu_torch.probes.stream_v2 [iters]     # default 300
 
 Run from the root of a checkout on a machine with a CUDA card.  It holds
-P3 (``ops/stream_v2.py``) against its twin within
-``testing.STREAM_V2_RTOL``, with the `default` control rejected, and
-against B3's dense form (``dense_stream.stream_train_dense``, which the
-engine's sparse form equals bit for bit) on the same factors bit for bit:
-P3 sums in B3's order, so this replaces the script's bitwise v1 = v2 check,
-which its drivers no longer run.  Then it times "v1 stream" (B3 on A^T)
-against "v2 packed" (P3 on A) by slope, the time of ``iters`` steps (CUDA
-events) minus that of ``iters // 3`` over the difference, at the shapes of the
-script's ``time_shape`` (:181-193): gen-instML1M (U 6144, I 4096 in 8
+P3's sparse form (``ops/stream_v2.py::stream_v2_train``, B3's sparse walk on
+the packed layout) against its twin within ``testing.STREAM_V2_RTOL``, with
+the `default` control rejected, and in raw bits against itself (two runs),
+its dense form (``stream_v2_train_dense``) and B3 in both forms
+(``dense_stream.stream_train`` and ``stream_train_dense``) on the same
+factors, ``testing.FACTOR_ITERS`` steps: at the script's small spec
+(``check_bitwise``, :143) in every A storage and at k = 40, and at the two
+shapes of its ``time_shape`` (:181-193): gen-instML1M (U 6144, I 4096 in 8
 strips of 512, K 32) and inst200-10000-50-100-300 (U 256, I 10240 in 20
-strips, K 56), int8 A.
+strips, K 56), int8 A.  Then it times four forms by slope, in turns in one
+window (CUDA events, medians; each walk built before the window): B3 dense
+("v1 dense", on A^T), B3 sparse ("v1 sparse"), P3 dense ("v2 dense", on A)
+and P3 sparse ("v2 sparse"), the time of ``iters`` steps minus that of
+``iters // 3`` over the difference.
 """
 
 from __future__ import annotations
@@ -28,18 +31,18 @@ import torch
 
 from recsys_tpu_torch import testing as checks
 from recsys_tpu_torch.ops import dense_fused, dense_stream, dense_tiled, stream_v2
-from recsys_tpu_torch.utils.timing import cuda_event_ms
+from recsys_tpu_torch.utils.timing import alternating_ms
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STRIP = 512
 SMALL_STRIP = 128
 
 
-def small_spec():
-    """``check_bitwise``'s instance (:143)."""
+def small_spec(features: int = 8):
+    """``check_bitwise``'s instance (:143), or the same at ``features``."""
     from recsys_tpu_torch.io.generator import generate_instance
 
-    return generate_instance(40, 700, 8, 2, 8, iters=5, alpha=0.01, seed=7)
+    return generate_instance(40, 700, features, 2, 8, iters=5, alpha=0.01, seed=7)
 
 
 def shapes() -> dict:
@@ -63,57 +66,73 @@ def inputs(spec, strip: int, device, a_dtype=torch.int8):
 
 
 def check(name, spec, strip: int, device, iters: int = checks.FACTOR_ITERS, a_dtype=torch.int8) -> dict:
-    """P3 against its twin (within the limit, control rejected), two runs
-    and against B3 bit for bit, ``iters`` steps; returns the readings.
-    Raises on a failure."""
+    """P3's sparse form against its twin (within the limit, control
+    rejected), itself (two runs), its dense form and B3's two forms in raw
+    bits, ``iters`` steps; returns the readings.  Raises on a failure."""
     Lt, Rt, Rp, A, At = inputs(spec, strip, device, a_dtype)
+    K = Lt.shape[0]
     kw = dict(iters=iters, alpha2=2.0 * spec.alpha, strip=strip)
-    got = stream_v2.stream_v2_train(Lt, Rp, A, **kw)
-    again = stream_v2.stream_v2_train(Lt, Rp, A, **kw)
+    walk = stream_v2.v2_walk(A, K)
+    got = stream_v2.stream_v2_train(Lt, Rp, A, walk=walk, **kw)
+    again = stream_v2.stream_v2_train(Lt, Rp, A, walk=walk, **kw)
+    dense = stream_v2.stream_v2_train_dense(Lt, Rp, A, **kw)
     twin = stream_v2.stream_v2_train_plain(Lt, Rp, A, **kw)
     ctrl = checks.factor_rel(checks.stream_v2_default(Lt, Rp, A, **kw), twin)
-    b3 = dense_stream.stream_train_dense(Lt, Rt, At, iters=iters, alpha2=kw["alpha2"])
-    K = Lt.shape[0]
+    b3 = dense_stream.stream_train(Lt, Rt, At, iters=iters, alpha2=kw["alpha2"])
+    b3d = dense_stream.stream_train_dense(Lt, Rt, At, iters=iters, alpha2=kw["alpha2"])
+    torch.cuda.synchronize()
+    packed = (lambda f: (f[0], stream_v2.pack_R(f[1], strip)))
     r = {"rel": checks.factor_rel(got, twin), "control": ctrl,
          "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, twin)),
-         "two runs same": all(torch.equal(g, a) for g, a in zip(got, again)),
-         "= B3": torch.equal(got[0], b3[0]) and torch.equal(stream_v2.unpack_R(got[1], K), b3[1]),
+         "dense_max_abs_err": max(float((d - w).abs().max()) for d, w in zip(dense, twin)),
+         "two runs same": checks.same_bits(got, again),
+         "= dense": checks.same_bits(got, dense),
+         "= B3": checks.same_bits(got, packed(b3)) and checks.same_bits(got, packed(b3d)),
          "finite": all(bool(torch.isfinite(g).all()) for g in got)}
-    ok = (r["rel"] <= checks.STREAM_V2_RTOL < r["control"] and r["two runs same"] and r["= B3"] and r["finite"])
+    ok = (r["rel"] <= checks.STREAM_V2_RTOL < r["control"] and r["two runs same"] and r["= dense"] and r["= B3"]
+          and r["finite"])
     print(f"[probe] P3 {name} ({Lt.shape[1]}x{A.shape[1]} K={K}, {A.shape[1] // strip} strips of {strip}, "
           f"A {str(a_dtype).split('.')[-1]}, {iters} steps): max_abs_err={r['max_abs_err']!r} "
-          f"factor_rel={r['rel']!r} (limit {checks.STREAM_V2_RTOL}) control (default) {ctrl!r} | two runs same "
-          f"{r['two runs same']} = B3 bit for bit {r['= B3']} {'ok' if ok else 'FAIL'}", flush=True)
+          f"(dense form {r['dense_max_abs_err']!r}) "
+          f"factor_rel={r['rel']!r} (limit {checks.STREAM_V2_RTOL}) control (default) {ctrl!r} | raw bits: two runs "
+          f"{r['two runs same']} = dense form {r['= dense']} = B3 (sparse, dense) {r['= B3']} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"P3 {name}: {r}")
     return r
 
 
-def slope(name, spec, iters: int, device, strip: int = STRIP) -> dict:
-    """ms per step of B3 on A^T ("v1 stream") and P3 on A ("v2 packed") by
-    slope between ``iters`` and ``iters // 3`` steps, by CUDA events."""
+def slope(name, spec, iters: int, device, strip: int = STRIP, rounds: int = 5) -> dict:
+    """ms per step of B3 on A^T ("v1 dense", "v1 sparse") and P3 on A ("v2
+    dense", "v2 sparse") by slope between ``iters`` and ``iters // 3``
+    steps, all in turns in one window by CUDA events; the walks are built
+    before it."""
     Lt, Rt, Rp, A, At = inputs(spec, strip, device)
     a2, lo = 2.0 * spec.alpha, iters // 3
-    variants = {
-        "v1 stream": lambda n: dense_stream.stream_train_dense(Lt, Rt, At, iters=n, alpha2=a2),
-        "v2 packed": lambda n: stream_v2.stream_v2_train(Lt, Rp, A, iters=n, alpha2=a2, strip=strip),
+    v1_walk, v2_walk = dense_stream.stream_walk(At, Lt.shape[0]), stream_v2.v2_walk(A, Lt.shape[0])
+    forms = {
+        "v1 dense": lambda n: dense_stream.stream_train_dense(Lt, Rt, At, iters=n, alpha2=a2),
+        "v1 sparse": lambda n: dense_stream.stream_train(Lt, Rt, At, iters=n, alpha2=a2, walk=v1_walk),
+        "v2 dense": lambda n: stream_v2.stream_v2_train_dense(Lt, Rp, A, iters=n, alpha2=a2, strip=strip),
+        "v2 sparse": lambda n: stream_v2.stream_v2_train(Lt, Rp, A, iters=n, alpha2=a2, strip=strip, walk=v2_walk),
     }
+    ms = alternating_ms({(f, n): (lambda f=f, n=n: forms[f](n)) for f in forms for n in (iters, lo)}, rounds)
     out = {}
-    for vname, fn in variants.items():
-        hi_ms, lo_ms = cuda_event_ms(lambda: fn(iters), 2), cuda_event_ms(lambda: fn(lo), 2)
-        out[vname] = {"ms": hi_ms, "per_step_ms": (hi_ms - lo_ms) / (iters - lo)}
-        print(f"[probe] P3 {name} {vname}: {hi_ms!r} ms for {iters} steps, slope "
-              f"{out[vname]['per_step_ms']!r} ms/step ({A.shape[1] // strip} strips)", flush=True)
+    for f in forms:
+        out[f] = {"ms": ms[f, iters], "per_step_ms": (ms[f, iters] - ms[f, lo]) / (iters - lo)}
+        print(f"[probe] P3 {name} {f}: {ms[f, iters]!r} ms for {iters} steps, slope "
+              f"{out[f]['per_step_ms']!r} ms/step ({A.shape[1] // strip} strips; in turns)", flush=True)
     return out
 
 
 def run(device, iters: int = 300) -> tuple[dict, dict]:
-    """The checks at the small spec and both shapes, then the slopes;
-    returns ({shape: readings}, {shape: timings})."""
+    """The checks at the small spec (every A storage, and k = 40) and both
+    shapes, then the slopes; returns ({shape: readings}, {shape: timings})."""
     specs = shapes()
-    readings = {"small": check("small 40x700 k8", small_spec(), SMALL_STRIP, device, iters=5)}
+    readings = {"small": check("small 40x700 k8", small_spec(), SMALL_STRIP, device)}
     for a_dtype in (torch.bfloat16, torch.float32):
-        check("small 40x700 k8", small_spec(), SMALL_STRIP, device, iters=5, a_dtype=a_dtype)
+        check("small 40x700 k8", small_spec(), SMALL_STRIP, device, a_dtype=a_dtype)
+    check("small 40x700 k40", small_spec(40), SMALL_STRIP, device)
     for name, spec in specs.items():
         readings[name] = check(name, dataclasses.replace(spec, iters=checks.FACTOR_ITERS), STRIP, device)
     return readings, {name: slope(name, spec, iters, device) for name, spec in specs.items()}

@@ -118,3 +118,18 @@ def alternating_ms(fns: dict, rounds: int = 5, warm: int = 2) -> dict:
             if i >= warm:
                 times[name].append(start.elapsed_time(end))
     return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def graphed(fn, calls: int):
+    """A callable that replays ``calls`` calls of ``fn`` captured into one
+    CUDA graph (after one call outside it, which builds and warms).  Timing
+    the replay reads the device's time alone: a wrapper's host work between
+    launches, which can exceed a kernel of tens of µs, is not replayed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    torch.cuda.synchronize()
+    return graph.replay

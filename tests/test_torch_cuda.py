@@ -645,3 +645,75 @@ def test_sparse_resident_with_empty_columns_chunks_and_last_segments(precision):
         assert checks.same_bits(forms[form][:2], dense[:2]) and torch.equal(forms[form][2], dense[2]), form
     assert checks.same_bits(b2, dense[:2])
     assert torch.equal(b2[0][:, 5], Lt[:, 5]) and torch.equal(b2[1][:, 64:128], Rt[:, 64:128])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
+@pytest.mark.parametrize("k", [10, 40, 256])
+def test_tiled_top1_equals_dense_bit_for_bit(k, precision, a_dtype):
+    # B4's tiled form keeps the dense form's scores: each user's index and
+    # best score in raw bits, at G = 1, 2 and 8 lanes' worth of K.
+    from recsys_tpu_torch.probes import top1_tiled
+
+    dev = _cuda()
+    spec = generate_instance(200, 300, k, 2, 30, iters=checks.FACTOR_ITERS, alpha=0.001, seed=5)
+    Lt, Rt, At = top1_tiled.trained(spec, dev, precision, a_dtype)
+    before = dense_stream.stream_top1.launches, dense_stream.stream_top1_dense.launches
+    kw = dict(precision=precision, items_true=spec.items)
+    tiled = dense_stream.stream_top1_scores(Lt, Rt, At, **kw)
+    dense = dense_stream.stream_top1_scores(Lt, Rt, At, form="dense", **kw)
+    torch.cuda.synchronize()
+    assert (dense_stream.stream_top1.launches, dense_stream.stream_top1_dense.launches) == (before[0] + 1,
+                                                                                          before[1] + 1)
+    assert torch.equal(tiled[0], dense[0]) and checks.same_bits(tiled[1], dense[1])
+    assert torch.equal(dense_stream.stream_top1(Lt, Rt, At, **kw), dense[0])
+    assert torch.equal(dense[0], dense_stream.stream_top1_plain(Lt, Rt, At, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["tiled", "dense"])
+def test_top1_forms_on_ties_padding_and_rated_bests(form):
+    dev = _cuda()
+    K, U = 8, 128
+    ones, zeros = torch.ones((K, U), device=dev), torch.zeros((U, U), device=dev)
+    top, best = dense_stream.stream_top1_scores(ones, ones, zeros, items_true=U, form=form)
+    assert bool((top == 0).all()) and bool((best == K).all())
+    g = torch.Generator().manual_seed(4)
+    Lt, Rt = torch.rand((40, 256), generator=g).to(dev), torch.rand((40, 384), generator=g).to(dev)
+    Rt[:, 300:] += 5.0  # the highest scores lie past items_true
+    At = torch.zeros((384, 256), dtype=torch.int8, device=dev)
+    first = dense_stream.stream_top1_plain(Lt, Rt, At, items_true=300)[0].long()
+    At[first, torch.arange(256, device=dev)] = 6  # each user's best unrated cell becomes rated
+    top, _ = dense_stream.stream_top1_scores(Lt, Rt, At, items_true=300, form=form)
+    torch.cuda.synchronize()
+    assert int(top.max()) < 300 and not bool((top[0].long() == first).any())
+    assert torch.equal(top, dense_stream.stream_top1_plain(Lt, Rt, At, items_true=300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [8, 40])
+def test_stream_v2_sparse_equals_dense_and_b3_dense(a_dtype, k):
+    # P3's sparse walk keeps its dense form's bits, and B3's.
+    from recsys_tpu_torch.ops import stream_v2
+    from recsys_tpu_torch.probes import stream_v2 as probe
+
+    dev = _cuda()
+    spec = generate_instance(40, 700, k, 2, 8, iters=checks.FACTOR_ITERS, alpha=0.01, seed=7)
+    Lt, Rt, Rp, A, At = probe.inputs(spec, probe.SMALL_STRIP, dev, a_dtype)
+    kw = dict(iters=spec.iters, alpha2=2 * spec.alpha, strip=probe.SMALL_STRIP)
+    before = stream_v2.stream_v2_train.launches, stream_v2.stream_v2_train_dense.launches
+    walk = stream_v2.v2_walk(A, Lt.shape[0])
+    sparse = stream_v2.stream_v2_train(Lt, Rp, A, walk=walk, **kw)
+    dense = stream_v2.stream_v2_train_dense(Lt, Rp, A, **kw)
+    b3 = dense_stream.stream_train_dense(Lt, Rt, At, iters=spec.iters, alpha2=2 * spec.alpha)
+    torch.cuda.synchronize()
+    assert (stream_v2.stream_v2_train.launches, stream_v2.stream_v2_train_dense.launches) == (before[0] + 1,
+                                                                                            before[1] + 1)
+    assert checks.same_bits(sparse, dense)
+    assert checks.same_bits(sparse, (b3[0], stream_v2.pack_R(b3[1], probe.SMALL_STRIP)))
+    other = stream_v2.v2_walk(A, Lt.shape[0], sms=1)
+    if other.split != walk.split:
+        with pytest.raises(ValueError, match="split"):
+            stream_v2.stream_v2_train(Lt, Rp, A, walk=other, **kw)
