@@ -89,12 +89,20 @@ each printed as it runs:
 12. the P2 probe (``probes/mosaic_gather.py``) at the TPU script's shapes:
    ``gather_rows`` and ``gather_err_grad`` against their twins, then the
    five variants.
-13. the P1 probe (``probes/gather.py``): ``lane_gather_loop`` equal to its
-   twin bit for bit at every probe shape and with broadcast indices,
-   ``lane_cumsum_loop`` within ``testing.LANE_CUMSUM_RTOL`` with its control
-   rejected, then the probe's timings and each kernel's T-scaling (T = 512
-   against T = 128, 3.5-4.5x at the widest shape, net of the T = 0 launch
-   at every shape).
+13. the P1 probe (``probes/gather.py``), both forms of each kernel:
+   ``lane_gather_loop`` (the bank-conflict-free schedule) and
+   ``lane_gather_loop_direct`` (the form it replaced) equal to their twin
+   bit for bit at every probe shape, with full-width and broadcast
+   indices; ``lane_cumsum_loop`` (a row over a thread-block cluster) equal
+   to ``lane_cumsum_loop_block`` (one block a row) and to the kernels'
+   order (``lane_cumsum_loop_order_plain``) in raw bits at every probe
+   shape and t = 2, 5, 512, and both within ``testing.LANE_CUMSUM_RTOL``
+   of the twin with its control rejected; then the probe's timings, the
+   two forms in turns in one profile a shape, the cluster size chosen
+   with ``cudaOccupancyMaxActiveClusters``, and the gates: every form's T-scaling in 3.5-4.5x (T = 512 against T = 128 net
+   of the T = 0 launch at every shape; raw T = 2048 against T = 512 at the
+   widest shape), and each new form no slower than the one it replaced at
+   (8, 32768).
 14. the P3 probe (``probes/stream_v2.py``): ``stream_v2_train`` (B3's sparse
    walk on the packed layout) against its twin (control rejected), and in
    raw bits against itself (two runs), its dense form and B3 in both forms,
@@ -179,11 +187,17 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "gather_rows": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:118"),
     "gather_err_grad": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
     "lane_gather": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:40"),
+    "lane_gather_direct": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:40"),
     "lane_cumsum": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:57"),
+    "lane_cumsum_block": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:57"),
     "stream_v2_train": ("recsys_tpu_torch/csrc/dense_stream.cu", "scripts/probe_stream_v2.py:89"),
     "stream_v2_train_dense": ("recsys_tpu_torch/csrc/stream_v2.cu", "scripts/probe_stream_v2.py:89"),
 }
-# The T-scaling of the P1 kernels: T = 512 against T = 128 steps.
+# The T-scaling of the P1 kernels: 4x the steps must take 4x the time,
+# within this range, or the loop-invariant body was hoisted: T = 512 against
+# T = 128 net of the T = 0 launch at every shape, and raw T = 2048 against
+# T = 512 at the widest shape (a fixed cost f and a step s read 3.5 there
+# while f <= 102.4 s; at 512 / 128 while f <= 25.6 s).
 T_SCALING = (3.5, 4.5)
 
 
@@ -210,7 +224,9 @@ def _wrappers():
         "gather_rows": gather.gather_rows,
         "gather_err_grad": gather.gather_err_grad,
         "lane_gather": lane.lane_gather_loop,
+        "lane_gather_direct": lane.lane_gather_loop_direct,
         "lane_cumsum": lane.lane_cumsum_loop,
+        "lane_cumsum_block": lane.lane_cumsum_loop_block,
         "stream_v2_train": stream_v2.stream_v2_train,
         "stream_v2_train_dense": stream_v2.stream_v2_train_dense,
     }
@@ -1140,14 +1156,15 @@ def p2_probe_phase(torch, dev, launches):
 
 
 def p1_probe_phase(torch, dev, launches):
-    """P1's probe (``probes/gather.py``) in one launch-count window, then
-    each kernel against its twin at every probe shape (T = 512): the gather
-    bit for bit with full-width and broadcast indices, the scan within its
-    limit with the control rejected; and the T-scaling.  Returns ({kernel:
-    max abs error}, the probe's timing rows)."""
-    import numpy as np
-
-    from recsys_tpu_torch.ops import lane
+    """P1's probe (``probes/gather.py``) in one launch-count window: every
+    form of both kernels at the check shape, then at every probe shape the
+    gather's forms equal to the twin bit for bit (full-width and broadcast
+    indices, T = 512) and the scan's forms equal to each other and to the
+    kernels' order in raw bits (t = 2, 5, 512) and within their limit of
+    the twin with the control rejected (a failure raises there); then the
+    timings, both forms of a kernel in turns in one profile a shape.  Gates: every form's T-scaling, and each new form no
+    slower than the one it replaced at (8, 32768).  Returns ({form: max abs
+    error}, the probe's timing rows)."""
     from recsys_tpu_torch.probes import gather as probe
 
     counts = {}
@@ -1155,28 +1172,27 @@ def p1_probe_phase(torch, dev, launches):
         errs, rows = probe.run(dev)
     launches["P1 probe", "all shapes"] = counts
     log(f"[probe] P1 launches: {_nonzero(counts)}")
-    if counts["lane_gather"] <= 0 or counts["lane_cumsum"] <= 0:
-        raise AssertionError(f"the P1 probe did not launch both kernels: {counts}")
-    rng, failed = np.random.default_rng(1), []
-    for S, W in probe.GATHER_SHAPES:
-        tab, idx = probe.gather_inputs(S, W, dev, rng)
-        for name, ix in (("full-width", idx), ("broadcast", idx[:1].expand_as(idx).contiguous())):
-            same = torch.equal(lane.lane_gather_loop(tab, ix, probe.T), lane.lane_gather_loop_plain(tab, ix, probe.T))
-            log(f"[kernel] lane_gather ({S}, {W}) {name} idx T={probe.T}: = twin bit for bit {same}")
-            if not same:
-                failed.append(f"lane_gather ({S}, {W}) {name}")
-    for S, W in probe.CUMSUM_SHAPES:
-        x = torch.from_numpy(rng.standard_normal((S, W)).astype(np.float32)).to(dev)
-        errs["lane_cumsum"] = max(errs["lane_cumsum"], probe.scan_reading(x, probe.T)[0])
+    forms = [form for kind in probe.FORMS.values() for form, _, _ in kind]
+    if any(counts[form] <= 0 for form in forms):
+        raise AssertionError(f"the P1 probe did not launch every form: {counts}")
     lo, hi = T_SCALING
+    failed = []
     for row in rows:
-        widest = row["W"] == max(w for _, w in (probe.GATHER_SHAPES if row["kind"] == "gather" else probe.CUMSUM_SHAPES))
-        ok = lo <= row["scaling_net"] <= hi and (not widest or lo <= row["scaling"] <= hi)
-        log(f"[probe] P1 {row['kind']} ({row['S']}, {row['W']}) T-scaling: T={probe.T} / T={probe.T_SHORT} "
-            f"x{row['scaling']!r}, net of T=0 x{row['scaling_net']!r} (range {lo}-{hi}{', widest shape' if widest else ''})"
-            f" {'ok' if ok else 'FAIL'}")
+        ok = lo <= row["scaling_net"] <= hi and (not row["widest"] or lo <= row["scaling_long"] <= hi)
+        long = (f", T={probe.T_LONG} / T={probe.T} x{row['scaling_long']!r} (widest shape)" if row["widest"]
+                else "")
+        log(f"[probe] P1 {row['form']} ({row['S']}, {row['W']}) T-scaling: net of T=0 T={probe.T} / "
+            f"T={probe.T_SHORT} x{row['scaling_net']!r}{long}; raw T={probe.T} / T={probe.T_SHORT} "
+            f"x{row['scaling']!r} (range {lo}-{hi}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            failed.append(f"{row['kind']} ({row['S']}, {row['W']}) T-scaling")
+            failed.append(f"{row['form']} ({row['S']}, {row['W']}) T-scaling")
+    for (new, _, _), (old, _, _) in probe.FORMS.values():
+        a, b = (next(r for r in rows if r["form"] == f and (r["S"], r["W"]) == (8, 32768)) for f in (new, old))
+        ok = a["ms"] <= b["ms"]
+        log(f"[redesign] P1 (8, 32768) T={probe.T}: {new} {a['ms']!r} ms against {old} {b['ms']!r} ms in turns "
+            f"-> the new form no slower {ok}")
+        if not ok:
+            failed.append(f"{new} slower than {old}")
     if failed:
         raise AssertionError(f"P1 phase failed: {failed}")
     return errs, rows
@@ -1548,9 +1564,10 @@ def bell_records(torch, dev, ml100k, launches, errs, steps=100):
 
 
 def probe_records(torch, dev, launches, errs, p1_rows, p3):
-    """The kernels line's entries of P1's kernels (one launch of T = 512
-    steps at (8, 32768), from the probe's own timings: kernel, twin and
-    library loop by CUDA events) and P3's (300 steps at gen-instML1M's
+    """The kernels line's entries of P1's kernels, both forms of each (one
+    launch of T = 512 steps at (8, 32768), from the probe's own timings:
+    the forms by the profiler in turns, twin and library loop by CUDA
+    events) and P3's (300 steps at gen-instML1M's
     probe shape, the probe's time by CUDA events; its twin timed here
     alike).  P1 counts 2 FLOP per gathered element and step, 3 per scanned
     one (the scan's add, 0 * out and its add); bytes are the inputs read
@@ -1563,13 +1580,14 @@ def probe_records(torch, dev, launches, errs, p1_rows, p3):
 
     p1 = launches["P1 probe", "all shapes"]
     out = []
-    for name, kind, flop, nbytes, smem in (("lane_gather", "gather", 2, 12, 4), ("lane_cumsum", "cumsum", 3, 8, 8)):
-        row = next(r for r in p1_rows if r["kind"] == kind and (r["S"], r["W"]) == (8, 32768))
+    for name, kind, flop, nbytes, smem in (("lane_gather", "gather", 2, 12, 4), ("lane_gather_direct", "gather", 2, 12, 4),
+                                           ("lane_cumsum", "cumsum", 3, 8, 4), ("lane_cumsum_block", "cumsum", 3, 8, 8)):
+        row = next(r for r in p1_rows if r["form"] == name and (r["S"], r["W"]) == (8, 32768))
         n = row["S"] * row["W"]
         out.append(_record(name, p1[name], errs[name], row["ms"], row["plain_ms"], flop * n * pg.T, nbytes * n,
                            library_ms=row["library_ms"]))
-        log(f"[kernels] {name} at (8, 32768), T={pg.T}: shared-memory reads {smem * n * pg.T} B, "
-            f"{smem * n * pg.T / SMEM_BYTES_S * 1e3!r} ms at {SMEM_BYTES_S:.4g} B/s")
+        log(f"[kernels] {name} at (8, 32768), T={pg.T}: shared-memory reads {smem * n * pg.T} B "
+            f"({smem // 4} a step and element), {smem * n * pg.T / SMEM_BYTES_S * 1e3!r} ms at {SMEM_BYTES_S:.4g} B/s")
     readings, timings = p3
     spec = dataclasses.replace(ps.shapes()["gen-instML1M"], iters=P3_ITERS)
     Lt, _, Rp, A, _ = ps.inputs(spec, ps.STRIP, dev)
@@ -1600,41 +1618,70 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+    t_start = t_lap = time.perf_counter()
+
+    def lap(name):  # each phase's wall time, from the end of the one before
+        nonlocal t_lap
+        now = time.perf_counter()
+        log(f"[time] {name} {now - t_lap:.1f} s")
+        t_lap = now
+
     try:
         device_phase(torch)
+        lap("device")
         build_phase()
+        lap("build")
         dev = torch.device("cuda", 0)
         errs = {"B1": kernel_vs_plain_phase(torch, dev)["highest"]}
+        lap("B1 kernel")
         errs.update(stream_kernels_phase(torch, dev))
+        lap("stream kernels")
         big = _inst1e6_spec()
+        lap("gen-inst1e6 generation")
         errs["tiled_step"] = tiled_kernel_phase(torch, dev, big)
+        lap("tiled kernel")
         launches = {}
         b5_readings, b5_times = tiled_redesign_phase(torch, dev, launches, big)
+        lap("B5 redesign")
         errs["tiled_deltas"] = b5_readings["deltas"]
         errs["bell_side_update"] = bell_kernel_phase(torch, dev, big)
+        lap("BELL kernel")
         b1_readings, b4_times = redesign_phase(torch, dev, launches)
+        lap("B1/B4 redesign")
         errs["resident_train_dense"] = b1_readings["instML100k"]["highest"][3]
         ml100k, train1, plain1 = ml100k_phase(torch, dev, launches)
+        lap("instML100k")
         ml1m, train2, plain2 = ml1m_phase(torch, dev, launches)
+        lap("gen-instML1M")
         checkpoint_phase(torch, dev, launches)
+        lap("checkpoint")
         inst1e6_phase(torch, dev, launches, big)
+        lap("gen-inst1e6")
         tiled_step_profile(torch, dev, big, INST1E6)
         tiled_step_profile(torch, dev, ml1m, "gen-instML1M")
+        lap("tiled profiles")
         bell_main_phase(torch, dev, launches)
+        lap("bell main")
         device_rng_phase(torch, dev, big)
+        lap("device init")
         inst1e6_bell_phase(torch, dev, launches, big)
+        lap("gen-inst1e6 bell")
         p2_errs, _ = p2_probe_phase(torch, dev, launches)
         errs.update(p2_errs)
+        lap("P2 probe")
         p1_errs, p1_rows = p1_probe_phase(torch, dev, launches)
         errs.update(p1_errs)
+        lap("P1 probe")
         p3 = p3_probe_phase(torch, dev, launches)
+        lap("P3 probe")
         coo_phase(torch, dev, launches)
+        lap("COO")
         times = {"B1": (train1["auto", "highest"], plain1["highest"]),
                  "B3": (train2["auto", "highest"], plain2["highest"])}
         times["B5 step"] = b5_times[INST1E6]["auto"]["per_step"]
         times["B4"] = b4_times
         kernels = kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows, p3)
+        lap("kernels line")
     except Exception as e:  # noqa: BLE001 - report any failed phase, exit non-zero
         import traceback
 

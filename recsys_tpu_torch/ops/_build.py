@@ -135,10 +135,14 @@ SIGNATURES = {
     "rs_gather_rows": [_P, _P, _P, _LL, _I, _P],
     # table, idx, vals, out, S, K, blk, stream
     "rs_gather_err_grad": [*[_P] * 4, _LL, _I, _I, _P],
-    # tab, idx, out, S, W, t, sms, stream
-    "rs_lane_gather_loop": [*[_P] * 3, *[_I] * 4, _P],
+    # tab, idx, out, scratch, S, W, t, grid, span, threads, slots, stream
+    "rs_lane_gather_loop": [*[_P] * 4, *[_I] * 7, _P],
+    # tab, idx, out, S, W, t, grid, span, threads, stream
+    "rs_lane_gather_loop_direct": [*[_P] * 3, *[_I] * 6, _P],
+    # x, out, S, W, C, t, clusters, stream
+    "rs_lane_cumsum_loop": [*[_P] * 2, *[_I] * 4, _P, _P],
     # x, out, S, W, t, stream
-    "rs_lane_cumsum_loop": [*[_P] * 2, *[_I] * 3, _P],
+    "rs_lane_cumsum_loop_block": [*[_P] * 2, *[_I] * 3, _P],
     # A, a_kind, Lt_in .. part_r (8 pointers), K, U, I, strip, G, C, iters,
     # alpha2, chunk, S, stream
     "rs_stream_v2_train": [_P, _I, *[_P] * 8, *[_I] * 7, _F, _I, _I, _P],

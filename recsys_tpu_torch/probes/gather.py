@@ -4,20 +4,25 @@ row, the substrate a resident sparse kernel would be built on.
 
     python -m recsys_tpu_torch.probes.gather
 
-Run from the root of a checkout on a machine with a CUDA card.  First the
-script's correctness checks: T = 2 steps of the gather at (8, 512) with
-full-width indices, then with one index row broadcast over the rows, each
-expecting 1.5 * g and equal to the twin bit for bit; and the scan against
-its twin within ``testing.LANE_CUMSUM_RTOL``, with its control rejected.
-Then each kernel at the script's shapes with T = 512 steps, its device
-time by ``torch.profiler`` beside the time of its twin and of the library
-loop (the same T steps around ``torch.gather(tab, 1, idx)`` or
-``torch.cumsum(x, 1)``) by CUDA events, in G elem/s of S * W * T, and its
-time at T = 128 and at T = 0 for the T-scaling (4x the steps must take
-about 4x the time, or the compiler hoisted the loop-invariant body; T = 0
-is the launch and the row's load alone).  The three step counts are
-launched in turn in one profile and each read as a median
-(``interleaved_ms``).
+Run from the root of a checkout on a machine with a CUDA card.  Each kernel
+has two forms (``FORMS``): the one ``lane_gather_loop`` /
+``lane_cumsum_loop`` launch, and the one it replaced, the baseline.  First
+the script's correctness checks for every form: T = 2 steps of the gather
+at (8, 512) with full-width indices, then with one index row broadcast over
+the rows, each expecting 1.5 * g and equal to the twin bit for bit; and the
+scan against its twin within ``testing.LANE_CUMSUM_RTOL``, with its control
+rejected.  Then the bits at every probe shape (``bits``).  Then each
+kernel's forms at the script's shapes with T = 512 steps, in turns in one
+profile (``interleaved_ms``), each read as a median: its device time by
+``torch.profiler`` beside the time of its twin and of the library loop (the
+same T steps around ``torch.gather(tab, 1, idx)`` or ``torch.cumsum(x, 1)``)
+by CUDA events, in G elem/s of S * W * T, and its time at T = 128 and at
+T = 0 for the T-scaling (4x the steps must take about 4x the time, or the
+compiler hoisted the loop-invariant body; T = 0 is the launch and the
+row's load alone), and at T_LONG = 2048 at the widest shape, where a fast
+step would put T = 512 / T = 128 under 4x for its fixed cost alone.  Each
+scan shape's line first names the cluster size the plan chose and
+``cudaOccupancyMaxActiveClusters`` for it.
 """
 
 from __future__ import annotations
@@ -36,9 +41,19 @@ from recsys_tpu_torch.utils.timing import cuda_event_ms
 
 T = 512
 T_SHORT = 128
+T_LONG = 4 * T
 GATHER_SHAPES = ((8, 2048), (8, 8192), (24, 8192), (8, 32768))
 CUMSUM_SHAPES = ((8, 8192), (24, 8192), (8, 32768))
 CHECK_SHAPE = (8, 512)
+
+# Each kernel's forms: the wrapper's name (the kernels line's), the wrapper
+# and the name of its CUDA kernel; the first is the form the probe serves.
+FORMS = {
+    "gather": (("lane_gather", lane.lane_gather_loop, "gather_banked"),
+               ("lane_gather_direct", lane.lane_gather_loop_direct, "gather_loop")),
+    "cumsum": (("lane_cumsum", lane.lane_cumsum_loop, "cumsum_cluster"),
+               ("lane_cumsum_block", lane.lane_cumsum_loop_block, "cumsum_loop")),
+}
 
 
 def gather_inputs(S: int, W: int, device, rng):
@@ -49,41 +64,85 @@ def gather_inputs(S: int, W: int, device, rng):
 
 
 def check(device, rng=None) -> dict:
-    """The script's correctness checks, the gather against its twin bit for
-    bit, and the scan within its limit with the control rejected; returns
-    each kernel's max abs error against its twin.  Raises on a failure."""
+    """The script's correctness checks for each form, the gather against its
+    twin bit for bit, and the scan within its limit with the control
+    rejected; returns each form's max abs error against its twin.  Raises on
+    a failure."""
     rng = rng or np.random.default_rng(0)
     tab, idx = gather_inputs(*CHECK_SHAPE, device, rng)
-    errs = {"lane_gather": 0.0}
-    for name, ix in (("full-width idx", idx), ("broadcast idx", idx[:1].expand_as(idx).contiguous())):
-        out = lane.lane_gather_loop(tab, ix, 2)
-        twin = lane.lane_gather_loop_plain(tab, ix, 2)
-        expect = 1.5 * torch.take_along_dim(tab, ix.long(), dim=1)
-        ok = bool(torch.allclose(out, expect, rtol=1e-6)) and torch.equal(out, twin)
-        errs["lane_gather"] = max(errs["lane_gather"], float((out - twin).abs().max()))
-        print(f"[probe] P1 gather correctness ({name}, W={CHECK_SHAPE[1]}): 1.5*g {ok}", flush=True)
-        if not ok:
-            raise AssertionError(f"lane_gather_loop {name}: not 1.5*g or not its twin bit for bit")
+    errs = {}
+    for form, fn, _ in FORMS["gather"]:
+        errs[form] = 0.0
+        for name, ix in (("full-width idx", idx), ("broadcast idx", idx[:1].expand_as(idx).contiguous())):
+            out = fn(tab, ix, 2)
+            twin = lane.lane_gather_loop_plain(tab, ix, 2)
+            expect = 1.5 * torch.take_along_dim(tab, ix.long(), dim=1)
+            ok = bool(torch.allclose(out, expect, rtol=1e-6)) and torch.equal(out, twin)
+            errs[form] = max(errs[form], float((out - twin).abs().max()))
+            print(f"[probe] P1 {form} correctness ({name}, W={CHECK_SHAPE[1]}): 1.5*g {ok}", flush=True)
+            if not ok:
+                raise AssertionError(f"{form} {name}: not 1.5*g or not its twin bit for bit")
     x = torch.from_numpy(rng.standard_normal(CHECK_SHAPE).astype(np.float32)).to(device)
-    errs["lane_cumsum"] = scan_reading(x, 2)[0]
+    for form, fn, _ in FORMS["cumsum"]:
+        errs[form] = scan_reading(x, 2, fn)[0]
     return errs
 
 
-def scan_reading(x, t: int) -> tuple[float, float, float]:
-    """(max abs error, rel, control rel) of ``lane_cumsum_loop`` against its
+def scan_reading(x, t: int, fn=lane.lane_cumsum_loop) -> tuple[float, float, float]:
+    """(max abs error, rel, control rel) of the scan form ``fn`` against its
     twin after ``t`` steps; raises if rel exceeds ``LANE_CUMSUM_RTOL`` or the
     control does not."""
-    out = lane.lane_cumsum_loop(x, t)
+    out = fn(x, t)
     twin = lane.lane_cumsum_loop_plain(x, t)
     scale = float(twin.abs().max())
     err = float((out - twin).abs().max())
     rel = err / scale
     ctrl = float((checks.lane_cumsum_dropped(x) - twin).abs().max()) / scale
-    print(f"[probe] P1 cumsum {tuple(x.shape)} t={t}: max_abs_err={err!r} rel={rel!r} "
+    print(f"[probe] P1 {fn.__name__} {tuple(x.shape)} t={t}: max_abs_err={err!r} rel={rel!r} "
           f"(limit {checks.LANE_CUMSUM_RTOL}); control (one element left out) rel={ctrl!r}", flush=True)
     if not rel <= checks.LANE_CUMSUM_RTOL or not ctrl > checks.LANE_CUMSUM_RTOL:
-        raise AssertionError(f"lane_cumsum_loop {tuple(x.shape)}: rel {rel}, control {ctrl}")
+        raise AssertionError(f"{fn.__name__} {tuple(x.shape)}: rel {rel}, control {ctrl}")
     return err, rel, ctrl
+
+
+def bits(device, rng=None) -> dict:
+    """Each form at every probe shape: the gather's forms equal to the twin
+    bit for bit with full-width and broadcast indices at T steps; the scan's
+    forms equal to each other and to ``lane_cumsum_loop_order_plain`` in raw
+    bits at 2, 5 and T steps, and within their limit of the twin at T.
+    Returns each form's max abs error against its twin; raises after every
+    check if one failed."""
+    rng = rng or np.random.default_rng(1)
+    errs, failed = {}, []
+    for S, W in GATHER_SHAPES:
+        tab, idx = gather_inputs(S, W, device, rng)
+        for name, ix in (("full-width", idx), ("broadcast", idx[:1].expand_as(idx).contiguous())):
+            twin = lane.lane_gather_loop_plain(tab, ix, T)
+            for form, fn, _ in FORMS["gather"]:
+                out = fn(tab, ix, T)
+                same = checks.same_bits(out, twin)
+                errs[form] = max(errs.get(form, 0.0), float((out - twin).abs().max()))
+                print(f"[kernel] {form} ({S}, {W}) {name} idx T={T}: = twin bit for bit {same}", flush=True)
+                if not same:
+                    failed.append(f"{form} ({S}, {W}) {name}")
+    for S, W in CUMSUM_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((S, W)).astype(np.float32)).to(device)
+        for t in (2, 5, T):
+            got = {form: fn(x, t) for form, fn, _ in FORMS["cumsum"]}
+            order = lane.lane_cumsum_loop_order_plain(x, t)
+            same = all(checks.same_bits(out, order) for out in got.values())
+            print(f"[kernel] lane_cumsum ({S}, {W}) t={t}: = lane_cumsum_block = the kernels' order "
+                  f"(lane_cumsum_loop_order_plain) in raw bits {same}", flush=True)
+            if not same:
+                failed.append(f"lane_cumsum ({S}, {W}) t={t}")
+        for form, fn, _ in FORMS["cumsum"]:
+            try:
+                errs[form] = max(errs.get(form, 0.0), scan_reading(x, T, fn)[0])
+            except AssertionError as e:
+                failed.append(str(e))
+    if failed:
+        raise AssertionError(f"P1 bits: {failed}")
+    return errs
 
 
 def _library_gather(tab, idx, t):
@@ -101,78 +160,104 @@ def _library_cumsum(x, t):
     return out
 
 
-def interleaved_ms(launch, steps, name: str, rounds: int = 30, warm_ms: float = 20.0,
-                   attempts: int = 3) -> dict:
-    """The median device ms of one ``launch(t)`` for each t in ``steps``,
-    from ``torch.profiler``'s events of the kernels whose name holds
-    ``name``.  The step counts take turns, ``rounds`` times, behind about
-    ``warm_ms`` of ``launch(steps[0])`` in the same profile: the card's
-    clock changes between idle and busy, and this way every step count
-    meets it in the same state.  Each launch is read as the kernel's own
-    time, which CUDA events around a launch of a few µs cannot give.  A
-    profile can miss launches (see ``timing.cuda_event_ms``): one that
-    holds no more than the window's launches and more than the measured
-    ones counts, another is made in its place, and this raises after
-    ``attempts`` that do not."""
+def interleaved_ms(calls: dict, rounds: int = 30, warm_ms: float = 20.0, attempts: int = 3) -> dict:
+    """The median device ms of one launch of each ``calls[key] = (launch,
+    name)``, from ``torch.profiler``'s events of the kernels whose name
+    holds ``name``.  The calls take turns, ``rounds`` times, behind about
+    ``warm_ms`` of the first call in the same profile: the card's clock
+    changes between idle and busy, and this way every call meets it in the
+    same state.  Calls of one kernel (say at several step counts) are told
+    apart by their order.  Each launch is read as the kernel's own time,
+    which CUDA events around a launch of a few µs cannot give.  A profile
+    can miss launches (see ``timing.cuda_event_ms``): one that holds each
+    kernel's measured launches, and for the first call's kernel more than
+    those and no more than the window's, counts; another is made in its
+    place, and this raises after ``attempts`` that do not."""
     cuda = torch.autograd.DeviceType.CUDA
+    keys = list(calls)
+    first_launch, first_name = calls[keys[0]]
     t0 = time.perf_counter()
-    launch(steps[0])
+    first_launch()
     torch.cuda.synchronize()
     warm = max(3, int(warm_ms / ((time.perf_counter() - t0) * 1e3)))
-    n = rounds * len(steps)
+    names = {name for _, name in calls.values()}
     for _ in range(attempts):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(warm):
-                launch(steps[0])
+                first_launch()
             for _ in range(rounds):
-                for t in steps:
-                    launch(t)
+                for key in keys:
+                    calls[key][0]()
             torch.cuda.synchronize()
-        events = sorted((e for e in prof.events() if e.device_type == cuda and name in e.name),
-                        key=lambda e: e.time_range.start)
-        # The profiler may miss the first launch or two of a window: they are
-        # warm-up ones, and the measured launches are the last of the list.
-        if n < len(events) <= warm + n:
+        got, bad = {}, []
+        for name in names:
+            mine = [key for key in keys if calls[key][1] == name]
+            n = rounds * len(mine)
+            events = sorted((e for e in prof.events() if e.device_type == cuda and name in e.name),
+                            key=lambda e: e.time_range.start)
+            # The profiler may miss the first launch or two of a window: they
+            # are warm-up ones, and the measured launches are the last.
+            if not (n < len(events) <= warm + n if name == first_name else len(events) == n):
+                bad.append(f"{len(events)} launches of {name}, not {n + (warm if name == first_name else 0)}")
+                continue
             us = [e.time_range.elapsed_us() for e in events[-n:]]
-            return {t: statistics.median(us[j :: len(steps)]) / 1e3 for j, t in enumerate(steps)}
-        print(f"[probe] the profiler saw {len(events)} launches of {name}, not {warm + n}: profiling again",
-              flush=True)
-    raise RuntimeError(f"the profiler saw {len(events)} launches of {name}, not {warm + n}, {attempts} times")
+            got.update({key: statistics.median(us[j :: len(mine)]) / 1e3 for j, key in enumerate(mine)})
+        if not bad:
+            return got
+        print(f"[probe] the profiler saw {'; '.join(bad)}: profiling again", flush=True)
+    raise RuntimeError(f"the profiler saw {'; '.join(bad)}, {attempts} times")
 
 
 def time_kernels(device) -> list[dict]:
-    """Each kernel at the script's shapes: device ms of the kernel at T,
-    T_SHORT and 0 (``interleaved_ms``), the twin and the library loop at
-    T (CUDA events, one call), and G elem/s."""
+    """Each kernel's forms at the script's shapes, in turns in one profile
+    a shape (``interleaved_ms``): device ms at T, T_SHORT and 0 steps, and
+    at T_LONG at the widest shape; then the twin and the library loop at T
+    (CUDA events, one call), and G elem/s.  One row a form and shape."""
     rng = np.random.default_rng(0)
     rows = []
     for kind, shapes in (("gather", GATHER_SHAPES), ("cumsum", CUMSUM_SHAPES)):
+        widest = max(w for _, w in shapes)
         for S, W in shapes:
             if kind == "gather":
                 args = gather_inputs(S, W, device, rng)
-                kern, twin, lib, name = lane.lane_gather_loop, lane.lane_gather_loop_plain, _library_gather, "gather_loop"
+                twin, lib = lane.lane_gather_loop_plain, _library_gather
             else:
                 args = (torch.from_numpy(rng.standard_normal((S, W)).astype(np.float32)).to(device),)
-                kern, twin, lib, name = lane.lane_cumsum_loop, lane.lane_cumsum_loop_plain, _library_cumsum, "cumsum_loop"
-            got = interleaved_ms(lambda t: kern(*args, t), (T, T_SHORT, 0), name)
-            ms, ms_short, ms_zero = got[T], got[T_SHORT], got[0]
-            row = {"kind": kind, "S": S, "W": W, "ms": ms, "ms_short": ms_short, "ms_zero": ms_zero,
-                   "scaling": ms / ms_short, "scaling_net": (ms - ms_zero) / (ms_short - ms_zero),
-                   "plain_ms": cuda_event_ms(lambda: twin(*args, T)),
-                   "library_ms": cuda_event_ms(lambda: lib(*args, T)),
-                   "gelem_s": S * W * T / (ms * 1e-3) / 1e9}
-            print(f"[probe] P1 {kind} (S={S}, W={W}): {ms!r} ms for {T} steps -> {row['gelem_s']!r} G elem/s; "
-                  f"T={T_SHORT}: {ms_short!r} ms (x{row['scaling']!r}); T=0: {ms_zero!r} ms (net of it "
-                  f"x{row['scaling_net']!r}); twin {row['plain_ms']!r} ms, "
-                  f"library loop {row['library_ms']!r} ms", flush=True)
-            rows.append(row)
+                twin, lib = lane.lane_cumsum_loop_plain, _library_cumsum
+                NT, EPT, C = lane.cumsum_cluster_plan(S, W, torch.cuda.get_device_properties(device).multi_processor_count)
+                print(f"[probe] P1 cumsum (S={S}, W={W}): clusters of C={C} blocks of {NT // C} threads, "
+                      f"{EPT} elements a thread; cudaOccupancyMaxActiveClusters {lane.cumsum_clusters(*args)} "
+                      f"(the launch takes {S})", flush=True)
+            steps = (T, T_SHORT, 0) + ((T_LONG,) if W == widest else ())
+            calls = {(form, t): ((lambda fn=fn, t=t: fn(*args, t)), kname)
+                     for form, fn, kname in FORMS[kind] for t in steps}
+            got = interleaved_ms(calls)
+            plain_ms = cuda_event_ms(lambda: twin(*args, T))
+            library_ms = cuda_event_ms(lambda: lib(*args, T))
+            for form, _, _ in FORMS[kind]:
+                ms, ms_short, ms_zero = got[form, T], got[form, T_SHORT], got[form, 0]
+                ms_long = got.get((form, T_LONG))
+                row = {"kind": kind, "form": form, "S": S, "W": W, "widest": W == widest, "ms": ms,
+                       "ms_short": ms_short, "ms_zero": ms_zero, "ms_long": ms_long, "scaling": ms / ms_short,
+                       "scaling_net": (ms - ms_zero) / (ms_short - ms_zero),
+                       "scaling_long": ms_long / ms if ms_long is not None else None,
+                       "plain_ms": plain_ms, "library_ms": library_ms, "gelem_s": S * W * T / (ms * 1e-3) / 1e9}
+                long = f"; T={T_LONG}: {ms_long!r} ms (x{row['scaling_long']!r} of T={T})" if ms_long else ""
+                print(f"[probe] P1 {form} (S={S}, W={W}): {ms!r} ms for {T} steps -> {row['gelem_s']!r} G elem/s; "
+                      f"T={T_SHORT}: {ms_short!r} ms (x{row['scaling']!r}); T=0: {ms_zero!r} ms (net of it "
+                      f"x{row['scaling_net']!r}){long}; twin {plain_ms!r} ms, library loop {library_ms!r} ms",
+                      flush=True)
+                rows.append(row)
     return rows
 
 
 def run(device) -> tuple[dict, list[dict]]:
-    """The checks, then the timings; returns ({kernel: max abs error
-    against its twin}, the timing rows)."""
-    return check(device), time_kernels(device)
+    """The checks, the bits at every shape, then the timings; returns
+    ({form: max abs error against its twin}, the timing rows)."""
+    errs = check(device)
+    for form, err in bits(device).items():
+        errs[form] = max(errs[form], err)
+    return errs, time_kernels(device)
 
 
 def main() -> int:

@@ -387,25 +387,30 @@ def test_p2_kernels_match_twins():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 512), (8, 2048), (5, 1000), (24, 8192), (8, 32768)])
+@pytest.mark.parametrize("shape", [(8, 512), (8, 2048), (5, 1000), (24, 8192), (8, 32768), (1, 58112)])
 def test_lane_gather_equals_twin_bit_for_bit(shape):
     import numpy as np
 
     from recsys_tpu_torch.ops import lane
     from recsys_tpu_torch.probes import gather as probe
 
+    assert shape[1] <= lane.GATHER_MAX_W
     dev = _cuda()
     tab, idx = probe.gather_inputs(*shape, dev, np.random.default_rng(0))
-    before = lane.lane_gather_loop.launches
-    for ix in (idx, idx[:1].expand_as(idx).contiguous()):  # full-width and broadcast indices
+    before = lane.lane_gather_loop.launches, lane.lane_gather_loop_direct.launches
+    # Full-width and broadcast indices; all in one bank, and all one address
+    # (the schedule's overflow: a bucket past its rounds).
+    for ix in (idx, idx[:1].expand_as(idx).contiguous(), idx // 32 * 32, torch.zeros_like(idx)):
         got = lane.lane_gather_loop(tab, ix, 7)
+        direct = lane.lane_gather_loop_direct(tab, ix, 7)
         torch.cuda.synchronize()
-        assert torch.equal(got, lane.lane_gather_loop_plain(tab, ix, 7))
-    assert lane.lane_gather_loop.launches == before + 2
+        twin = lane.lane_gather_loop_plain(tab, ix, 7)
+        assert checks.same_bits(got, twin) and checks.same_bits(direct, twin)
+    assert (lane.lane_gather_loop.launches, lane.lane_gather_loop_direct.launches) == (before[0] + 4, before[1] + 4)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 512), (4, 96), (3, 1056), (2, 3040), (3, 8192), (2, 32768)])
+@pytest.mark.parametrize("shape", [(8, 512), (4, 96), (3, 1056), (2, 3040), (3, 8192), (2, 32768), (8, 32768)])
 def test_lane_cumsum_within_limit_and_control_rejected(shape):
     import numpy as np
 
@@ -413,15 +418,48 @@ def test_lane_cumsum_within_limit_and_control_rejected(shape):
 
     dev = _cuda()
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(shape).astype(np.float32)).to(dev)
-    before = lane.lane_cumsum_loop.launches
+    before = lane.lane_cumsum_loop.launches, lane.lane_cumsum_loop_block.launches
     got = lane.lane_cumsum_loop(x, 5)
+    block = lane.lane_cumsum_loop_block(x, 5)
     twin = lane.lane_cumsum_loop_plain(x, 5)
     torch.cuda.synchronize()
-    assert lane.lane_cumsum_loop.launches == before + 1
+    assert (lane.lane_cumsum_loop.launches, lane.lane_cumsum_loop_block.launches) == (before[0] + 1, before[1] + 1)
+    # Both forms sum in the kernels' order: equal to it and to each other in
+    # raw bits, and within the limit of torch's order.
+    assert checks.same_bits(got, block) and checks.same_bits(got, lane.lane_cumsum_loop_order_plain(x, 5))
     scale = float(twin.abs().max())
     assert float((got - twin).abs().max()) <= checks.LANE_CUMSUM_RTOL * scale
     assert float((checks.lane_cumsum_dropped(x) - twin).abs().max()) > checks.LANE_CUMSUM_RTOL * scale
     assert torch.equal(got, lane.lane_cumsum_loop(x, 5))
+
+
+@pytest.mark.cuda
+def test_lane_cumsum_every_cluster_size_keeps_the_bits():
+    import numpy as np
+
+    from recsys_tpu_torch.ops import _build, lane
+    from recsys_tpu_torch.ops.dense_fused import _ptrs
+    from recsys_tpu_torch.ops.dense_stream import _sms, _stream
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    # Shapes at which the plan picks each cluster size it allows.
+    sizes = set()
+    for S, W in ((4, 96), (2, 64), (24, 8192), (8, 32768)):
+        x = torch.from_numpy(rng.standard_normal((S, W)).astype(np.float32)).to(dev)
+        sizes.add(lane.cumsum_cluster_plan(S, W, _sms(dev))[2])
+        assert checks.same_bits(lane.lane_cumsum_loop(x, 3), lane.lane_cumsum_loop_block(x, 3))
+    assert sizes == {1, 2, 4, 8}
+    # The entry refuses a cluster it does not take: 16 blocks (past the
+    # portable size), or blocks of 512 threads of 32 elements; nothing runs.
+    x = torch.from_numpy(rng.standard_normal((3, 32768)).astype(np.float32)).to(dev)
+    out = torch.zeros_like(x)
+    for C in (16, 2):
+        with torch.cuda.device(dev):
+            rc = _build.load().rs_lane_cumsum_loop(*_ptrs(x, out), 3, 32768, C, 3, None, _stream(dev))
+        assert rc != 0
+    torch.cuda.synchronize()
+    assert not out.any()
 
 
 @pytest.mark.cuda

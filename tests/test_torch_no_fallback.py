@@ -46,6 +46,7 @@ out, _ = trainer.run(load_problem(sys.argv[1]), RunConfig(dtype="float64", path=
 assert out == open(sys.argv[2]).read()
 device_rng.device_init_factors(5, 4, 3)
 lane.lane_cumsum_loop(lane.lane_gather_loop(*recsys_tpu_torch.probes.gather.gather_inputs(2, 64, "cpu", __import__("numpy").random.default_rng(0)), 2), 2)
+lane.lane_cumsum_loop_block(lane.lane_gather_loop_direct(*recsys_tpu_torch.probes.gather.gather_inputs(2, 64, "cpu", __import__("numpy").random.default_rng(0)), 2), 2)
 with tempfile.TemporaryDirectory() as tmp:
     save_problem(spec, os.path.join(tmp, "s.in"))
     buf = io.StringIO()
