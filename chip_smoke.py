@@ -34,13 +34,17 @@ each printed as it runs:
    gen-instML1M (us a step); the fused step must be no slower at
    gen-inst1e6.
 5b. ``bell_side_update`` (P2's engine form) vs its twin, bit for bit, in
-   f64 and f32, on small specs (stored 0 ratings and k = 700 among them)
-   and at instML100k (20 steps), two runs bit for bit; in f64 against
-   ``_native.serial_gd`` bit for bit, and the sum-then-add control, which
-   must differ there; then at gen-inst1e6-100-700-1-3's shape (2 steps,
-   hub rows of ~20,000 slots, 1M-row buckets) against the twin, bit for
-   bit in f64 and f32, two runs bit for bit, and one step of the block form
-   against the warp form alone, bit for bit and timed in turns.
+   f64, f32 and bf16, on small specs (stored 0 ratings, k = 700 and hub
+   rows of 1500 slots at k = 30, 100 and 700 among them) and at
+   instML100k (20 steps), in both forms, two runs bit for bit; in f64
+   against ``_native.serial_gd`` bit for bit, and the sum-then-add
+   control, which must differ there; in bf16 the two controls of
+   ``testing.py`` (the step in f32 rounded once, a bf16 row accumulator),
+   which must differ from the twin; then at gen-inst1e6-100-700-1-3's
+   shape (2 steps, hub rows of ~20,000 slots, 1M-row buckets) against the
+   twin, bit for bit in f64, f32 and bf16, two runs bit for bit, and one
+   step of the block form against the warp form alone, bit for bit and
+   timed in turns.
 5c. the redesigned forms against the ones they replaced: B1's and B2's
    sparse walk (the persistent kernel and the loop form) against their
    dense form bit for bit (``probes/resident_sparse.py``: the small spec in
@@ -86,9 +90,21 @@ each printed as it runs:
     draws its factors on the card.
 11. main path, gen-inst1e6-100-700-1-3 on the auto route (``bell``) in
    f64 (byte for byte against its golden) and in f32.
+11b. main path, bf16 on the auto route (``bell``, 2 launches a step) at
+   gen-inst100000-1000-20-1-3, inst400-50000-30-200-500,
+   inst50000-5000-100-2-5 (host init) and gen-inst1e6-100-700-1-3 (device
+   init), each agreement beside the JAX package's own bf16 reading and
+   the port twin's on the CPU; gated at 0.98 on gen-inst100000-1000 and at
+   ``INST1E6_BF16_FLOOR`` on gen-inst1e6, where the JAX package's bf16
+   agreement holds.  At inst400-50000 and gen-inst1e6 the card's trained
+   factors must equal the twin's in raw bits over the whole run (the twin
+   on the host CPU, and on the card for gen-inst1e6), and the top-1 of
+   those factors is read on the card and on the CPU.
 12. the P2 probe (``probes/mosaic_gather.py``) at the TPU script's shapes:
-   ``gather_rows`` and ``gather_err_grad`` against their twins, then the
-   five variants.
+   ``gather_rows`` and ``gather_err_grad`` against their twins and
+   ``gather_err_grad``'s grouped form against its direct form in raw
+   bits, then the six variants and the two forms in turns (graph
+   replays); the grouped form must be no slower.
 13. the P1 probe (``probes/gather.py``), both forms of each kernel:
    ``lane_gather_loop`` (the bank-conflict-free schedule) and
    ``lane_gather_loop_direct`` (the form it replaced) equal to their twin
@@ -168,6 +184,27 @@ INST200 = os.path.join(ROOT, "tests", "fixtures", "inst200-10000-50-100-300")
 # and held to its f32 floor in f32.
 DENSE_F64_FLOOR, INST200_FLOOR = 0.99, 0.995
 INST1E6_BELL_FLOOR = {"float64": 1.0, "float32": 0.99}
+# bf16 on `bell` through `run()`: the argmax agreement with the golden in
+# bf16 on the BELL route of the JAX package (JAX_BF16_BELL) and of the
+# port's twin (PORT_CPU_BF16_BELL), both on the CPU at each instance's full
+# iteration count (tests/bf16_bell_readings.py).  The two part after a few
+# steps: one f32 sum of a row's terms that lands on a bf16 tie in slot
+# order and off it in XLA's order (PERF.md).  bf16 there is a speed mode
+# whose agreement depends on the instance, so the gate stands only where
+# the reference holds: the bench's 0.98 on gen-inst100000-1000, and on
+# gen-inst1e6 (no JAX bf16 reading) INST1E6_BF16_FLOOR: the first H100
+# reading, 0.417817 (PERF.md), less INST1E6_FLOOR's margin of 0.01, rounded
+# down, with the twin's factors on the card as its witness (_bf16_witness).
+# bf16's 8-bit mantissa there loses most of k = 700's small updates.
+JAX_BF16_BELL = {"gen-inst100000-1000-20-1-3": 0.99553, "inst400-50000-30-200-500": 0.4475,
+                 "inst50000-5000-100-2-5": 0.1038}
+PORT_CPU_BF16_BELL = {"gen-inst100000-1000-20-1-3": 0.99553, "inst400-50000-30-200-500": 0.455,
+                      "inst50000-5000-100-2-5": 0.1036}
+BF16_BELL_FLOOR = {"gen-inst100000-1000-20-1-3": 0.98}
+INST1E6_BF16_FLOOR = 0.40
+# Where the bf16 factors and top-1 are held against the twin and the CPU
+# (``_bf16_witness``), besides gen-inst1e6.
+BF16_WITNESS = "inst400-50000-30-200-500"
 # Steps of the BELL kernel-vs-twin reading at gen-inst1e6's shape.
 INST1E6_BELL_STEPS = 2
 FORCE_RESIDENT = 1 << 62
@@ -186,6 +223,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "bell_side_update": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
     "gather_rows": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:118"),
     "gather_err_grad": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
+    "gather_err_grad_direct": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
+    "bell_side_update_bf16": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
     "lane_gather": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:40"),
     "lane_gather_direct": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:40"),
     "lane_cumsum": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:57"),
@@ -223,6 +262,7 @@ def _wrappers():
         "bell_side_update": bell.bell_side_update,
         "gather_rows": gather.gather_rows,
         "gather_err_grad": gather.gather_err_grad,
+        "gather_err_grad_direct": gather.gather_err_grad_direct,
         "lane_gather": lane.lane_gather_loop,
         "lane_gather_direct": lane.lane_gather_loop_direct,
         "lane_cumsum": lane.lane_cumsum_loop,
@@ -802,9 +842,13 @@ def inst1e6_phase(torch, dev, launches, spec):
 
 def _bell_small_specs():
     """The small specs of the BELL kernel readings: sparse rows, a
-    hyper-sparse item side, stored 0 ratings, and gen-inst1e6's k = 700."""
+    hyper-sparse item side, stored 0 ratings, gen-inst1e6's k = 700, and a
+    hub row of 1500 slots (a block-form bucket) at k = 3, 7, 8, 30, 100
+    and 700 (every width of the block form's bf16 row copy: 2, 2, 16, 4,
+    8 and 8 bytes)."""
     from recsys_tpu_torch.io.generator import generate_instance
     from recsys_tpu_torch.testing import FACTOR_ITERS as n
+    from recsys_tpu_torch.testing import hub_spec
 
     zero = generate_instance(120, 90, 30, 1, 45, iters=n, alpha=1e-4, seed=30)
     vals = zero.vals.copy()
@@ -814,62 +858,57 @@ def _bell_small_specs():
         "hyper-sparse 50x5000 k3": generate_instance(50, 5000, 3, 1, 2, iters=n, alpha=0.001, seed=4),
         "stored zeros 120x90 k30": dataclasses.replace(zero, vals=vals),
         "wide 120x90 k700": generate_instance(120, 90, 700, 1, 45, iters=4, alpha=1e-5, seed=7),
+        **{f"hub 300x2000 k{k}": hub_spec(k) for k in (3, 7, 8, 30, 100, 700)},
     }
-
-
-def _bell_tensors(spec, dtype, dev, torch, init):
-    from recsys_tpu_torch.ops import bell
-
-    data = bell.make_bell_inputs(spec, dtype)
-    L, R = (torch.from_numpy(x).to(dev) for x in bell.pad_factors_for_bell(init, data, dtype))
-    return data, L, R, bell.device_tables(data.tables, dev)
 
 
 def _bell_big_readings(torch, dev, spec):
     """``bell_train`` against ``bell_train_plain`` at ``spec``'s shape
     (gen-inst1e6: 100 item rows of ~20,000 slots, one warp each, and
-    1M-row user buckets), ``INST1E6_BELL_STEPS`` steps, bit for bit in f64
-    and f32, and two runs bit for bit, and one twin step's time.  The
+    1M-row user buckets), ``INST1E6_BELL_STEPS`` steps, bit for bit in f64,
+    f32 and bf16, and two runs bit for bit, and one twin step's time.  The
     factors are drawn on the card from a seed, at the glibc init's scale
     (the route's own init is read in ``inst1e6_bell_phase``).  Returns the
-    failed readings."""
-    import numpy as np
-
+    failed readings and bf16's numbers for the kernels line: max abs error
+    against the twin, one step's ms (the slope of 3 against 1 steps in
+    turns), the twin's, bytes and FLOP."""
+    from recsys_tpu_torch import testing as checks
     from recsys_tpu_torch.ops import bell
     from recsys_tpu_torch.probes import bell_wide
-    from recsys_tpu_torch.utils.timing import cuda_event_ms
+    from recsys_tpu_torch.utils.timing import alternating_ms, cuda_event_ms
 
     g = torch.Generator(device=dev).manual_seed(0)
     L64, R64 = (torch.rand((n + 1, spec.features), generator=g, dtype=torch.float64, device=dev)
                 .div_(spec.features) for n in (spec.users, spec.items))
     L64[-1], R64[-1] = 0.0, 0.0
-    failed, steps, a2 = [], INST1E6_BELL_STEPS, 2.0 * spec.alpha
-    for dtype, tdtype in ((np.float64, torch.float64), (np.float32, torch.float32)):
-        data = bell.make_bell_inputs(spec, dtype)
-        t = bell.device_tables(data.tables, dev)
+    failed, steps, a2, bf16 = [], INST1E6_BELL_STEPS, 2.0 * spec.alpha, {}
+    for tdtype in (torch.float64, torch.float32, torch.bfloat16):
+        name = str(tdtype).split(".")[1]
+        data = bell.make_bell_inputs(spec, bell.HOST_DTYPE[tdtype])
+        t = bell.device_tables(data.tables, dev, tdtype)
         L, R = L64.to(tdtype), R64.to(tdtype)
         torch.cuda.reset_peak_memory_stats(dev)
         got = bell.bell_train(L, R, t, a2, data.meta, steps)
         twin = bell.bell_train_plain(L, R, t, a2, data.meta, steps)
         torch.cuda.synchronize()
-        err = max(float((a - b).abs().max()) for a, b in zip(got, twin))
-        readings = {"= twin": all(torch.equal(a, b) for a, b in zip(got, twin))}
+        err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, twin))
+        readings = {"= twin": checks.same_bits(got, twin)}
         del twin
         again = bell.bell_train(L, R, t, a2, data.meta, steps)
-        readings["two runs same"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        readings["two runs same"] = checks.same_bits(got, again)
         readings["finite"] = all(bool(torch.isfinite(a).all()) for a in got)
         bad = [k for k, v in readings.items() if not v]
         del again
-        log(f"[kernel] bell_side_update {INST1E6} {np.dtype(dtype).name} {steps} steps "
+        log(f"[kernel] bell_side_update {INST1E6} {name} {steps} steps "
             f"({len(data.meta.user.bounds)}+{len(data.meta.item.bounds)} buckets, widest "
             f"{max(w for _, _, w in data.meta.user.bounds)}/{max(w for _, _, w in data.meta.item.bounds)} slots): "
             f"max_abs_err={err!r} {' '.join(f'{k}={v}' for k, v in readings.items())} | peak device memory "
             f"{torch.cuda.max_memory_allocated(dev)!r} B {'ok' if not bad else 'FAIL'}")
         if bad:
-            failed.append(f"{INST1E6} {np.dtype(dtype).name}: {bad}")
+            failed.append(f"{INST1E6} {name}: {bad}")
         del got
         twin_ms = cuda_event_ms(lambda: bell.bell_train_plain(L, R, t, a2, data.meta, 1), 1)
-        log(f"[kernels] bell_side_update's plain twin at {INST1E6} {np.dtype(dtype).name}, one step: {twin_ms!r} ms "
+        log(f"[kernels] bell_side_update's plain twin at {INST1E6} {name}, one step: {twin_ms!r} ms "
             f"(CUDA events, after one unmeasured step)")
         # The block form (the engine's) against the warp form alone, one
         # step, bit for bit (raises otherwise) and in turns.
@@ -877,22 +916,28 @@ def _bell_big_readings(torch, dev, spec):
         bell_wide.step_ms(INST1E6, L, R, t, data.meta, a2, (bell.WIDE_MIN, bell.WARP_FORM), steps=1, rounds=3)
         bell_wide.side_ms(INST1E6, L, R, t, data.meta, a2, rounds=3)
         nbytes, flops = _bell_work(L, R, t, data.meta, spec.nnz)
-        peak = F64_FLOPS if dtype is np.float64 else F32_FLOPS
-        log(f"[kernels] bell_side_update at {INST1E6} {np.dtype(dtype).name}, one step: {nbytes} B, {flops!r} FLOP, "
+        peak = F64_FLOPS if tdtype == torch.float64 else F32_FLOPS
+        log(f"[kernels] bell_side_update at {INST1E6} {name}, one step: {nbytes} B, {flops!r} FLOP, "
             f"bound {_bound(flops, nbytes, peak)!r} ms")
+        if tdtype == torch.bfloat16:
+            ms = alternating_ms({n: (lambda n=n: bell.bell_train(L, R, t, a2, data.meta, n)) for n in (1, 3)}, 3)
+            bf16 = {"err": err, "ms": (ms[3] - ms[1]) / 2, "plain_ms": twin_ms, "nbytes": nbytes, "flops": flops}
+            log(f"[kernels] bell_side_update at {INST1E6} bfloat16, one step as the slope of 3 against 1 steps in "
+                f"turns: {bf16['ms']!r} ms ({ms})")
         del L, R, t, data
         torch.cuda.empty_cache()
-    return failed
+    return failed, bf16
 
 
 def bell_kernel_phase(torch, dev, big):
     """``bell_side_update`` against its twin and its warp form alone, bit for
-    bit, in f64 and f32, on the small specs and on instML100k (20 steps),
-    two runs bit for bit;
-    in f64 against ``_native.serial_gd``; the sum-then-add control, which
-    must differ from it at instML100k; then the same twin and rerun
-    readings at ``big``'s shape (``_bell_big_readings``).  Returns the max
-    abs error against the twin at instML100k in f64."""
+    bit, in f64, f32 and bf16, on the small specs and on instML100k (20
+    steps), two runs bit for bit; in f64 against ``_native.serial_gd``; the
+    sum-then-add control, which must differ from it at instML100k; the two
+    bf16 controls, which must differ from the twin at instML100k; then the
+    same twin and rerun readings at ``big``'s shape
+    (``_bell_big_readings``).  Returns the max abs error against the twin at
+    instML100k in f64, and ``_bell_big_readings``' bf16 numbers."""
     import numpy as np
 
     from recsys_tpu_torch import testing as checks
@@ -907,23 +952,23 @@ def bell_kernel_phase(torch, dev, big):
     for name, spec in specs.items():
         init = init_factors(spec.users, spec.items, spec.features)
         serial = _native.serial_gd(spec, init.L.copy(), init.R.copy())
-        for dtype in (np.float64, np.float32):
-            data, L, R, t = _bell_tensors(spec, dtype, dev, torch, init)
+        for dtype in (torch.float64, torch.float32, torch.bfloat16):
+            data, L, R, t = bell.bell_tensors(spec, init, dtype, dev)
             a2 = 2.0 * spec.alpha
             got = bell.bell_train(L, R, t, a2, data.meta, spec.iters)
             again = bell.bell_train(L, R, t, a2, data.meta, spec.iters)
             warp = bell.bell_train(L, R, t, a2, data.meta, spec.iters, wide=bell.WARP_FORM)
             twin = bell.bell_train_plain(L, R, t, a2, data.meta, spec.iters)
             torch.cuda.synchronize()
-            err = max(float((g - w).abs().max()) for g, w in zip(got, twin))
-            err_warp = max(float((g - w).abs().max()) for g, w in zip(warp, twin))
+            err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, twin))
+            err_warp = max(float((g.double() - w.double()).abs().max()) for g, w in zip(warp, twin))
             readings = {
                 "= twin": checks.same_bits(got, twin),
                 "= warp form": checks.same_bits(got, warp),
                 "two runs same": checks.same_bits(got, again),
                 "finite": all(bool(torch.isfinite(g).all()) for g in got),
             }
-            if dtype is np.float64:
+            if dtype == torch.float64:
                 Lo, Ro = bell.unpermute_factors(got[0].cpu().numpy(), got[1].cpu().numpy(), data)
                 readings["= serial_gd"] = np.array_equal(Lo, serial[0]) and np.array_equal(Ro, serial[1])
                 if spec is ml:
@@ -937,17 +982,28 @@ def bell_kernel_phase(torch, dev, big):
                         f"{'rejected ok' if cells else 'FAIL: the bitwise reading does not reject it'}")
                     if not cells:
                         failed.append("sum-then-add control equals serial_gd")
+            if dtype == torch.bfloat16 and spec is ml:
+                for control in (checks.bell_bf16_f32_inside_train, checks.bell_bf16_row_acc_train):
+                    c = control(L, R, t, a2, data.meta, spec.iters)
+                    share, ulps = checks.bit_share(c, twin), checks.bf16_ulps(c, twin)
+                    log(f"[control] BELL {name} bf16: {control.__name__} against the twin: {share!r} of the factors "
+                        f"equal in raw bits, {ulps} ulps at most "
+                        f"{'rejected ok' if share < 1.0 else 'FAIL: the bitwise reading does not reject it'}")
+                    if share == 1.0:
+                        failed.append(f"{control.__name__} equals the bf16 twin")
             bad = [k for k, v in readings.items() if not v]
-            log(f"[kernel] bell_side_update {name} {np.dtype(dtype).name} {spec.iters} steps "
-                f"({len(data.meta.user.bounds)}+{len(data.meta.item.bounds)} buckets): max_abs_err={err!r} "
+            log(f"[kernel] bell_side_update {name} {str(dtype).split('.')[1]} {spec.iters} steps "
+                f"({len(data.meta.user.bounds)}+{len(data.meta.item.bounds)} buckets, widest "
+                f"{max(w for _, _, w in data.meta.user.bounds + data.meta.item.bounds)}): max_abs_err={err!r} "
                 f"(warp form alone {err_warp!r}) "
                 f"{' '.join(f'{k}={v}' for k, v in readings.items())} {'ok' if not bad else 'FAIL'}")
             if bad:
-                failed.append(f"{name} {np.dtype(dtype).name}: {bad}")
-    failed += _bell_big_readings(torch, dev, big)
+                failed.append(f"{name} {dtype}: {bad}")
+    big_failed, bf16 = _bell_big_readings(torch, dev, big)
+    failed += big_failed
     if failed:
         raise AssertionError(f"bell_side_update readings failed: {failed}")
-    return worst
+    return worst, bf16
 
 
 def redesign_phase(torch, dev, launches):
@@ -1039,7 +1095,7 @@ def _golden_run(name, spec, golden, floor, dev, torch, launches, label, dtype, p
     """One ``trainer.run`` in its own launch-count window, held against
     ``golden``: the byte match, and the argmax agreement against ``floor``
     (1.0 demands the byte match).  Logs the first differing lines; returns
-    the phases."""
+    (phases, launch counts, agreement)."""
     counts = {}
     torch.cuda.reset_peak_memory_stats(dev)
     with counted(counts):
@@ -1059,7 +1115,7 @@ def _golden_run(name, spec, golden, floor, dev, torch, launches, label, dtype, p
             f"{blank} empty line(s), and the output equals it but for them: {out == golden.rstrip(chr(10)) + chr(10)}")
     if lines != len(want) - blank or agree < floor or (floor >= 1.0 and not byte):
         raise AssertionError(f"{name} {label}: agreement {agree} below {floor}")
-    return ph, counts
+    return ph, counts, agree
 
 
 def _nonzero(counts):
@@ -1077,8 +1133,6 @@ def bell_main_phase(torch, dev, launches):
     from recsys_tpu_torch.models.mf import init_factors
     from recsys_tpu_torch.ops import bell
 
-    import numpy as np
-
     spec = load_problem(ML100K + ".in")
     with open(ML100K + ".out") as f:
         golden = f.read()
@@ -1087,14 +1141,14 @@ def bell_main_phase(torch, dev, launches):
     if path != "bell":
         raise AssertionError(f"instML100k f64 must take the bell route, got {path!r}")
     _run(dataclasses.replace(spec, iters=10), "auto", dev, torch, dtype="float64")  # warm-up
-    ph, counts = _golden_run("instML100k f64", spec, golden, 1.0, dev, torch, launches, "auto", "float64")
+    ph, counts, _ = _golden_run("instML100k f64", spec, golden, 1.0, dev, torch, launches, "auto", "float64")
     if counts["bell_side_update"] != 2 * spec.iters:
         raise AssertionError(f"instML100k f64 must launch bell_side_update {2 * spec.iters} times: {counts}")
     _, _, ph1k = _run(dataclasses.replace(spec, iters=1000), "auto", dev, torch, dtype="float64")
     slope = (ph["train"] - ph1k["train"]) / (spec.iters - 1000)
     log(f"[main] instML100k f64 bell: slope {slope * 1e6!r} us/iter (1000 vs {spec.iters} iters)")
 
-    data, L, R, t = _bell_tensors(spec, np.float64, dev, torch, init_factors(spec.users, spec.items, spec.features))
+    data, L, R, t = bell.bell_tensors(spec, init_factors(spec.users, spec.items, spec.features), torch.float64, dev)
     bell.bell_gd_step_plain(L, R, t, 2.0 * spec.alpha, data.meta)  # warm-up
     _, twin_s = _plain_seconds(bell.bell_gd_step_plain, torch, L, R, t, 2.0 * spec.alpha, data.meta)
     log(f"[main] instML100k f64 plain twin: one step {twin_s!r} s (kernel route: train {ph['train']!r} s "
@@ -1130,7 +1184,7 @@ def inst1e6_bell_phase(torch, dev, launches, spec):
             raise AssertionError(f"{INST1E6} {dtype}: the {init} init ran")
         if path != "bell":
             raise AssertionError(f"{INST1E6} {dtype} must take the bell route on the card, got {path!r}")
-        _, counts = _golden_run(f"{INST1E6} {dtype}", spec, golden, INST1E6_BELL_FLOOR[dtype], dev, torch,
+        _, counts, _ = _golden_run(f"{INST1E6} {dtype}", spec, golden, INST1E6_BELL_FLOOR[dtype], dev, torch,
                                 launches, "auto", dtype)
         if counts["bell_side_update"] != 2 * spec.iters:
             raise AssertionError(f"{INST1E6} {dtype} must launch bell_side_update {2 * spec.iters} times")
@@ -1138,20 +1192,115 @@ def inst1e6_bell_phase(torch, dev, launches, spec):
         torch.cuda.empty_cache()
 
 
+def bf16_bell_phase(torch, dev, launches, big):
+    """bf16 through ``run()`` on the auto route, which must be ``bell`` (2
+    launches a step), at the instances of ``JAX_BF16_BELL`` (host init) and
+    at gen-inst1e6 (``big``, device init), each in its own launch-count
+    window, its agreement with the golden beside the JAX package's bf16
+    reading; gated by ``BF16_BELL_FLOOR`` and ``INST1E6_BF16_FLOOR``.
+    Returns {instance: agreement}."""
+    from recsys_tpu_torch.config import RunConfig
+    from recsys_tpu_torch.engine import trainer
+    from recsys_tpu_torch.io.parser import load_problem
+
+    cfg, out = RunConfig(dtype="bfloat16"), {}
+    runs = [(name, lambda name=name: load_problem(os.path.join(ROOT, "tests", "fixtures", name + ".in")))
+            for name in JAX_BF16_BELL] + [(INST1E6, lambda: big)]
+    for name, spec_of in runs:
+        spec = spec_of()
+        with open(os.path.join(ROOT, "tests", "fixtures", name + ".out")) as f:
+            golden = f.read()
+        path, init = trainer.choose_path(spec, cfg, dev), trainer._device_init(spec, cfg, None)
+        log(f"[main] {name} bfloat16: {spec.users}x{spec.items} k={spec.features} nnz={spec.nnz} iters={spec.iters} "
+            f"path={path}, initial factors drawn on the {'device' if init else 'host'}")
+        if path != "bell" or init != (spec is big):
+            raise AssertionError(f"{name} bfloat16 must take the bell route with the "
+                                 f"{'device' if spec is big else 'host'} init, got {path!r}, device init {init}")
+        floor = INST1E6_BF16_FLOOR if spec is big else BF16_BELL_FLOOR.get(name, 0.0)
+        _, counts, agree = _golden_run(f"{name} bfloat16", spec, golden, floor, dev, torch, launches, "auto",
+                                       "bfloat16")
+        if counts["bell_side_update"] != 2 * spec.iters:
+            raise AssertionError(f"{name} bfloat16 must launch bell_side_update {2 * spec.iters} times: {counts}")
+        jax = JAX_BF16_BELL.get(name)
+        log(f"[main] {name} bfloat16 on bell: agreement {agree!r} against the JAX package's "
+            f"{'not read' if jax is None else repr(jax)} and the port's twin's "
+            f"{PORT_CPU_BF16_BELL.get(name, 'not read')} (CPU, bf16 BELL), floor {floor}")
+        out[name] = agree
+        if name == BF16_WITNESS or spec is big:
+            _bf16_witness(torch, dev, name, spec, golden, agree, on_card=spec is big)
+    return out
+
+
+def _bf16_witness(torch, dev, name, spec, golden, agree, on_card):
+    """Where the card's bf16 answer comes from, outside any launch-count
+    window: the route's trained factors against the twin's over the whole
+    run in raw bits, which must be equal (the twin on the host CPU, or with
+    ``on_card`` on the card through the same route, its device init
+    included); then the top-1 of the card's factors on the card, which
+    must give the run's agreement, and, without ``on_card``, on the CPU."""
+    from recsys_tpu_torch import testing as checks
+    from recsys_tpu_torch.config import RunConfig
+    from recsys_tpu_torch.engine import trainer
+    from recsys_tpu_torch.io.writers import format_recommendations
+    from recsys_tpu_torch.models.mf import MFState
+    from recsys_tpu_torch.ops import bell
+
+    cfg, want = RunConfig(dtype="bfloat16", path="bell"), golden.splitlines()
+    card = trainer._factorize_bell_device(spec, cfg, dev)
+    t0 = time.perf_counter()
+    if on_card:
+        kernel_train = bell.bell_train
+        bell.bell_train = lambda L, R, t, a2, meta, iters, donate=False: bell.bell_train_plain(L, R, t, a2, meta, iters)
+        try:
+            twin = trainer._factorize_bell_device(spec, cfg, dev)
+        finally:
+            bell.bell_train = kernel_train
+    else:
+        twin = trainer._factorize_bell_device(spec, cfg, torch.device("cpu"))
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    same = checks.same_bits((card.L.cpu(), card.R.cpu()), (twin.L.cpu(), twin.R.cpu()))
+    del twin
+    tops = {"card": trainer.recommend(card, spec, cfg, dev)}
+    if not on_card:
+        tops["CPU"] = trainer.recommend(MFState(L=card.L.cpu(), R=card.R.cpu()), spec, cfg, torch.device("cpu"))
+    agrees = {k: _agreement(format_recommendations(v, spec.rated_counts(), spec.items), want)[0]
+              for k, v in tops.items()}
+    top1 = "" if on_card else (f"; the top-1 of those factors on the card and on the CPU differ on "
+                               f"{int((tops['card'] != tops['CPU']).sum())} of {spec.users} users, agreement "
+                               f"{agrees['card']!r} on the card, {agrees['CPU']!r} on the CPU")
+    log(f"[witness] {name} bfloat16: the card's trained factors equal the twin's over all {spec.iters} steps "
+        f"({'on the card' if on_card else 'on the host CPU'}, {twin_s:.1f} s) in raw bits: {same}; the run's "
+        f"agreement {agree!r}, its top-1 again {agrees['card']!r}{top1}")
+    if not same or agrees["card"] != agree:
+        raise AssertionError(f"{name} bfloat16: the card's factors differ from the twin's ({same}) or its top-1 "
+                             f"from the run's ({agrees['card']} against {agree})")
+
+
 def p2_probe_phase(torch, dev, launches):
     """P2's probe (``probes/mosaic_gather.py``) at the TPU script's shapes:
-    both kernels against their twins, then all five variants, in one
-    launch-count window.  Returns ({kernel: max abs error against its
-    twin}, {variant: ms per gather})."""
+    the kernels against their twins and ``gather_err_grad``'s two forms
+    against each other in raw bits, then all six variants, in one
+    launch-count window; then the two forms timed in turns from CUDA graph
+    replays (outside the window: a replay calls no wrapper).  The grouped
+    form must be no slower than the direct one.  Returns ({kernel: max abs
+    error against its twin}, {variant: ms per gather, "forms": {form: ms
+    a call}})."""
     from recsys_tpu_torch.probes import mosaic_gather
 
     counts = {}
     with counted(counts):
-        errs, per = mosaic_gather.run(dev)
+        errs, per = mosaic_gather.run(dev, forms=False)
     launches["P2 probe", "all variants"] = counts
     log(f"[probe] P2 launches: {_nonzero(counts)}")
-    if counts["gather_rows"] <= 0 or counts["gather_err_grad"] <= 0:
-        raise AssertionError(f"the P2 probe did not launch both kernels: {counts}")
+    if min(counts[k] for k in ("gather_rows", "gather_err_grad", "gather_err_grad_direct")) <= 0:
+        raise AssertionError(f"the P2 probe did not launch every kernel: {counts}")
+    per["forms"] = forms = mosaic_gather.forms_ms(*mosaic_gather.inputs(dev))
+    ok = forms["grouped"] <= forms["direct"]
+    log(f"[redesign] P2 gather_err_grad grouped form no slower than the direct form: {ok} "
+        f"({forms['grouped']!r} against {forms['direct']!r} ms a call, in turns)")
+    if not ok:
+        raise AssertionError("gather_err_grad's grouped form is slower than the direct form it replaced")
     return errs, per
 
 
@@ -1245,7 +1394,7 @@ def coo_phase(torch, dev, launches):
         if form != ("prefix sums" if dtype == "float32" else "segment sums"):
             raise AssertionError(f"instML100k coo {dtype} took the {form} form")
         _run(dataclasses.replace(spec, iters=10), "auto", dev, torch, path="coo", dtype=dtype)  # warm-up
-        ph, _ = _golden_run(f"instML100k coo {dtype} ({form})", spec, golden, DENSE_F64_FLOOR, dev, torch,
+        ph, _, _ = _golden_run(f"instML100k coo {dtype} ({form})", spec, golden, DENSE_F64_FLOOR, dev, torch,
                             launches, "coo", dtype, path="coo")
         _, _, ph1k = _run(dataclasses.replace(spec, iters=1000), "auto", dev, torch, path="coo", dtype=dtype)
         a, b = (trainer.factorize(spec, cfg, dev) for _ in range(2))
@@ -1490,7 +1639,7 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     log(f"[kernels] tiled_deltas dense count at {INST1E6}: 8*U*I*K = {8.0 * plan.U * plan.I * plan.K!r} FLOP, "
         f"{_bound(8.0 * plan.U * plan.I * plan.K, a_b + 2 * f_b)[0]!r} ms at the f32 peak")
     del L, R, A, At
-    out += bell_records(torch, dev, ml100k, launches, errs)
+    out += bell_records(torch, dev, ml100k, launches, errs, times)
     out += probe_records(torch, dev, launches, errs, p1_rows, p3)
     for rec in out:
         log(f"[kernels] {rec['name']}: {rec['ms']!r} ms vs bound {rec['bound_ms']!r} ms "
@@ -1509,23 +1658,25 @@ def _bell_work(L, R, t, meta, nnz):
     return nbytes, 2 * 4.0 * k * nnz
 
 
-def bell_records(torch, dev, ml100k, launches, errs, steps=100):
+def bell_records(torch, dev, ml100k, launches, errs, times, steps=100):
     """The kernels line's entries of ``bell_side_update`` (one step, its
     two launches, at instML100k in f64; 4*k f64 FLOP per rating and side),
-    ``gather_rows`` and ``gather_err_grad`` (one launch at P2's shapes).
-    Times are by CUDA events: a BELL step as the slope of ``bell_train``
-    between 3 * ``steps`` and ``steps`` steps in turns (the descriptors and
-    copies of a call cancel), a P2 kernel, twin or library call as the mean
-    of back-to-back calls."""
-    import numpy as np
-
+    of its bf16 instance (one step at gen-inst1e6, ``times["bf16 bell"]``
+    from ``_bell_big_readings``, 2 B a value, its f32 arithmetic at the
+    f32 peak), ``gather_rows`` and both forms of ``gather_err_grad`` (one
+    launch at P2's shapes).  Times are by CUDA events: a BELL step as the
+    slope of ``bell_train`` between 3 * ``steps`` and ``steps`` steps in
+    turns (the descriptors and copies of a call cancel), ``gather_rows``
+    and the twins and library call as the mean of back-to-back calls,
+    ``gather_err_grad``'s forms from CUDA graph replays in turns
+    (``times["P2 forms"]``, the P2 probe's)."""
     from recsys_tpu_torch.models.mf import init_factors
     from recsys_tpu_torch.ops import bell, gather
     from recsys_tpu_torch.probes import mosaic_gather as mg
     from recsys_tpu_torch.utils.timing import alternating_ms, cuda_event_ms
 
-    data, L, R, t = _bell_tensors(ml100k, np.float64, dev, torch,
-                                  init_factors(ml100k.users, ml100k.items, ml100k.features))
+    data, L, R, t = bell.bell_tensors(ml100k, init_factors(ml100k.users, ml100k.items, ml100k.features),
+                                      torch.float64, dev)
     a2, k, m = 2.0 * ml100k.alpha, ml100k.features, data.meta
     forms = (bell.WIDE_MIN, bell.WARP_FORM)
     ms = alternating_ms({(w, n): (lambda w=w, n=n: bell.bell_train(L, R, t, a2, m, n, wide=w))
@@ -1546,20 +1697,23 @@ def bell_records(torch, dev, ml100k, launches, errs, steps=100):
         f"{t.ucols.numel()} + {t.irows.numel()}) and the own rows read and written: {gathered} B, "
         f"{_bound(flops, gathered, F64_FLOPS)[0]!r} ms")
     del L, R, t
+    bf = times["bf16 bell"]
+    out.append(_record("bell_side_update_bf16", launches[f"{INST1E6} bfloat16", "auto"]["bell_side_update"],
+                       bf["err"], bf["ms"], bf["plain_ms"], bf["flops"], bf["nbytes"]))
 
     table, idx, vals = mg.inputs(dev)
     (S,), (N, K) = idx.shape, table.shape
     idx_long = idx.long()
-    p2 = launches["P2 probe", "all variants"]
+    p2, p2_forms = launches["P2 probe", "all variants"], times["P2 forms"]
     out.append(_record("gather_rows", p2["gather_rows"], errs["gather_rows"],
                        cuda_event_ms(lambda: gather.gather_rows(table, idx), 50),
                        cuda_event_ms(lambda: gather.gather_rows_plain(table, idx), 50), 0.0,
                        4 * (N * K + S + S * K),
                        library_ms=cuda_event_ms(lambda: table.index_select(0, idx_long), 50)))
-    out.append(_record("gather_err_grad", p2["gather_err_grad"], errs["gather_err_grad"],
-                       cuda_event_ms(lambda: gather.gather_err_grad(table, idx, vals, mg.BLK), 50),
-                       cuda_event_ms(lambda: gather.gather_err_grad_plain(table, idx, vals, mg.BLK), 20),
-                       4.0 * S * K + 2.0 * S, 4 * (N * K + 2 * S + S * K)))
+    err_grad_plain = cuda_event_ms(lambda: gather.gather_err_grad_plain(table, idx, vals, mg.BLK), 20)
+    for name, form in (("gather_err_grad", "grouped"), ("gather_err_grad_direct", "direct")):
+        out.append(_record(name, p2[name], errs[name], p2_forms[form], err_grad_plain, 4.0 * S * K + 2.0 * S,
+                           4 * (N * K + 2 * S + S * K)))
     return out
 
 
@@ -1644,7 +1798,8 @@ def main() -> int:
         b5_readings, b5_times = tiled_redesign_phase(torch, dev, launches, big)
         lap("B5 redesign")
         errs["tiled_deltas"] = b5_readings["deltas"]
-        errs["bell_side_update"] = bell_kernel_phase(torch, dev, big)
+        errs["bell_side_update"], bf16_big = bell_kernel_phase(torch, dev, big)
+        errs["bell_side_update_bf16"] = bf16_big["err"]
         lap("BELL kernel")
         b1_readings, b4_times = redesign_phase(torch, dev, launches)
         lap("B1/B4 redesign")
@@ -1666,7 +1821,9 @@ def main() -> int:
         lap("device init")
         inst1e6_bell_phase(torch, dev, launches, big)
         lap("gen-inst1e6 bell")
-        p2_errs, _ = p2_probe_phase(torch, dev, launches)
+        bf16_bell_phase(torch, dev, launches, big)
+        lap("bf16 bell")
+        p2_errs, p2_per = p2_probe_phase(torch, dev, launches)
         errs.update(p2_errs)
         lap("P2 probe")
         p1_errs, p1_rows = p1_probe_phase(torch, dev, launches)
@@ -1680,6 +1837,7 @@ def main() -> int:
                  "B3": (train2["auto", "highest"], plain2["highest"])}
         times["B5 step"] = b5_times[INST1E6]["auto"]["per_step"]
         times["B4"] = b4_times
+        times["bf16 bell"], times["P2 forms"] = bf16_big, p2_per["forms"]
         kernels = kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows, p3)
         lap("kernels line")
     except Exception as e:  # noqa: BLE001 - report any failed phase, exit non-zero

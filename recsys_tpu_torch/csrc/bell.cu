@@ -25,6 +25,21 @@
 // and each dot and each f's adds run in one thread: two runs give the same
 // bits.
 //
+// bfloat16 (storage __nv_bfloat16, arithmetic in f32) computes what the JAX
+// package's bf16 step computes (recsys_tpu/ops/bell.py::_delta_side, then
+// L + dL), where XLA keeps a fused multiply-reduce in f32 and rounds each
+// other result to bf16:
+//
+//     dot = 0;  dot = dot + F_own[j][f] * F_other[c][f]   (f32, f = 0..k-1)
+//     e   = bf(alpha2 * bf(v - bf(dot)))                  (alpha2 a bf16)
+//     d   = 0;  d[f] = d[f] + e * F_other[c][f]           (f32, slot after slot)
+//     out = bf(F_own[j][f] + bf(d[f]))
+//
+// with bf() the round to nearest even bf16 (__float2bfloat16_rn).  A product
+// of two bf16 values is exact in f32, so only the sums' order rounds, and it
+// is the same order as above.  The row's change is summed apart from the row
+// and added once: a bf16 accumulator over a hub row's slots would swamp.
+//
 // What bounds it on this card.  The function needs 4k operations a slot (dot
 // and update) and moves each gathered row (slots * k values) plus the own rows
 // in and out.  But the dot of a slot is a chain of k dependent adds by
@@ -49,6 +64,19 @@
 // the butterfly sum of its lanes' products (another order than the XLA
 // reduction inside the TPU kernel: held to a stated f32 tolerance).
 //
+// What bounds gather_err_grad: bytes, and 90.2 of its 94.1 MB at the probe's
+// shape are the output; the table (2.56 MB) and the partner rows sit in L2.
+// Its first form (gather_err_grad_direct, kept as the probe's baseline) is a
+// chain a warp: idx load, row loads, butterfly, vals load, stores, with the
+// gathered row read twice.  The grouped form (gather_err_grad_grouped) gives
+// a warp G consecutive slots: one load of the group's idx and vals, every
+// row load of the group in flight before the first product, the rows kept in
+// registers (KPL values a lane) for the output, and streaming stores
+// (__stcs) so the output does not evict the table from L2.  Lane l keeps
+// f = l + 32m and the partial's fused multiply-adds in m order from 0.f, then
+// the same butterfly: the first form's bits (nvcc contracts its
+// part += (0.5f*fo)*g into an FFMA; the grouped form writes __fmaf_rn).
+//
 // Wide rows take a block (side_update_wide).  In the warp form the longest
 // rows set the step: one warp walks a hub row's slots (737 at instML100k,
 // ~20,000 at gen-inst1e6, whose item side is 100 such rows, so 100 warps on
@@ -70,6 +98,7 @@
 // the 1M-row user table does not fit in L2.  The design keeps tens of KB of
 // rows in flight a block; the k add chains are as long as the row.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -93,6 +122,46 @@ struct Rn<float> {
   static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 };
 
+// The step's arithmetic on storage type T in compute type C: the dot's
+// term, the error, the row's start, a slot's term and add, and the row's
+// end.  f32 and f64 add each term into the row itself; bf16 sums the
+// terms from 0 in f32 and adds them to the row once (see the top).
+template <typename T>
+struct Step {
+  using C = T;
+  static __device__ __forceinline__ C cv(T x) { return x; }
+  static __device__ __forceinline__ T st(C x) { return x; }
+  static __device__ __forceinline__ C ld(const T* p) { return __ldg(p); }
+  static __host__ __device__ __forceinline__ C alpha(double a) { return static_cast<C>(a); }
+  static __device__ __forceinline__ C dot(C d, C a, C b) { return Rn<T>::add(d, Rn<T>::mul(a, b)); }
+  static __device__ __forceinline__ C err(C a2, C v, C dot) { return Rn<T>::mul(a2, Rn<T>::sub(v, dot)); }
+  static __device__ __forceinline__ C start(C own) { return own; }
+  static __device__ __forceinline__ C term(C e, C g) { return Rn<T>::mul(e, g); }
+  static __device__ __forceinline__ C add(C a, C t) { return Rn<T>::add(a, t); }
+  static __device__ __forceinline__ C end(C a, C) { return a; }
+};
+__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+template <>
+struct Step<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  using C = float;
+  static __device__ __forceinline__ C cv(T x) { return __bfloat162float(x); }
+  static __device__ __forceinline__ T st(C x) { return __float2bfloat16_rn(x); }
+  static __device__ __forceinline__ C ld(const T* p) { return __bfloat162float(__ldg(p)); }
+  // alpha2 as a bf16 (the wrapper passes one already).
+  static __host__ __device__ __forceinline__ C alpha(double a) {
+    return __bfloat162float(__float2bfloat16_rn(static_cast<float>(a)));
+  }
+  static __device__ __forceinline__ C dot(C d, C a, C b) { return __fadd_rn(d, __fmul_rn(a, b)); }
+  static __device__ __forceinline__ C err(C a2, C v, C dot) {
+    return bf(__fmul_rn(a2, bf(__fsub_rn(v, bf(dot)))));
+  }
+  static __device__ __forceinline__ C start(C) { return 0.f; }
+  static __device__ __forceinline__ C term(C e, C g) { return __fmul_rn(e, g); }
+  static __device__ __forceinline__ C add(C a, C t) { return __fadd_rn(a, t); }
+  static __device__ __forceinline__ C end(C a, C own) { return bf(__fadd_rn(own, bf(a))); }
+};
+
 // One degree bucket of a side (ops/bell.py::side_warps): rows [b0, b0 + n) of
 // width w, whose (w, n) tables start at flat offset base; its warps start at
 // warp0 and take rpw rows each.
@@ -102,12 +171,13 @@ struct Bucket {
 
 // e = alpha2 * (v - <own row, other row>), the dot in order f = 0..k-1.
 template <typename T>
-__device__ __forceinline__ T slot_err(const T* __restrict__ fo, const T* __restrict__ go, int k, T v,
-                                      T alpha2) {
-  T dot = T(0);
+__device__ __forceinline__ typename Step<T>::C slot_err(const T* __restrict__ fo, const T* __restrict__ go, int k,
+                                                        typename Step<T>::C v, typename Step<T>::C alpha2) {
+  using S = Step<T>;
+  typename S::C dot = 0;
 #pragma unroll 4
-  for (int f = 0; f < k; ++f) dot = Rn<T>::add(dot, Rn<T>::mul(__ldg(fo + f), __ldg(go + f)));
-  return Rn<T>::mul(alpha2, Rn<T>::sub(v, dot));
+  for (int f = 0; f < k; ++f) dot = S::dot(dot, S::ld(fo + f), S::ld(go + f));
+  return S::err(alpha2, v, dot);
 }
 
 // Slots batched per load round: as many gathered rows in flight as keep the
@@ -119,12 +189,14 @@ struct Batch {
 
 // acc += e_t * F_other[c_t] for the live lanes t in [t0, t1), in order.
 template <typename T, int KPL>
-__device__ __forceinline__ void add_slots(T (&acc)[KPL], unsigned live, int t0, int t1, int c, T e,
-                                          const T* __restrict__ other, int k, int lane) {
+__device__ __forceinline__ void add_slots(typename Step<T>::C (&acc)[KPL], unsigned live, int t0, int t1, int c,
+                                          typename Step<T>::C e, const T* __restrict__ other, int k, int lane) {
+  using S = Step<T>;
+  using C = typename S::C;
   constexpr int B = Batch<KPL>::value;
   for (int t = t0; t < t1; t += B) {
-    T g[B][KPL];
-    T et[B];
+    C g[B][KPL];
+    C et[B];
     bool on[B];
 #pragma unroll
     for (int u = 0; u < B; ++u) {
@@ -136,33 +208,40 @@ __device__ __forceinline__ void add_slots(T (&acc)[KPL], unsigned live, int t0, 
 #pragma unroll
       for (int m = 0; m < KPL; ++m) {
         const int f = m * 32 + lane;
-        g[u][m] = on[u] && f < k ? __ldg(row + f) : T(0);
+        g[u][m] = on[u] && f < k ? S::ld(row + f) : C(0);
       }
     }
 #pragma unroll
     for (int u = 0; u < B; ++u) {
       if (!on[u]) continue;  // warp-uniform
 #pragma unroll
-      for (int m = 0; m < KPL; ++m) acc[m] = Rn<T>::add(acc[m], Rn<T>::mul(et[u], g[u][m]));
+      for (int m = 0; m < KPL; ++m) acc[m] = S::add(acc[m], S::term(et[u], g[u][m]));
     }
   }
 }
 
+// The row's start (acc) from its own values.
 template <typename T, int KPL>
-__device__ __forceinline__ void load_row(T (&acc)[KPL], const T* __restrict__ row, int k, int lane) {
+__device__ __forceinline__ void load_row(typename Step<T>::C (&acc)[KPL], const T* __restrict__ row, int k,
+                                         int lane) {
+  using S = Step<T>;
 #pragma unroll
   for (int m = 0; m < KPL; ++m) {
     const int f = m * 32 + lane;
-    acc[m] = f < k ? __ldg(row + f) : T(0);
+    acc[m] = S::start(f < k ? S::ld(row + f) : typename S::C(0));
   }
 }
 
+// The row's end into out (own: the row's values in the snapshot; f32 and
+// f64 do not read them).
 template <typename T, int KPL>
-__device__ __forceinline__ void store_row(const T (&acc)[KPL], T* __restrict__ row, int k, int lane) {
+__device__ __forceinline__ void store_row(const typename Step<T>::C (&acc)[KPL], const T* __restrict__ own,
+                                          T* __restrict__ row, int k, int lane) {
+  using S = Step<T>;
 #pragma unroll
   for (int m = 0; m < KPL; ++m) {
     const int f = m * 32 + lane;
-    if (f < k) row[f] = acc[m];
+    if (f < k) row[f] = S::st(S::end(acc[m], sizeof(T) == 2 ? S::ld(own + f) : acc[m]));
   }
 }
 
@@ -172,7 +251,9 @@ template <typename T, int KPL>
 __device__ __forceinline__ void warp_rows(const T* __restrict__ own, const T* __restrict__ other,
                                           T* __restrict__ out, const int* __restrict__ idx,
                                           const T* __restrict__ vals, const Bucket* __restrict__ bk, int nb,
-                                          long long g, int k, int pad, T alpha2) {
+                                          long long g, int k, int pad, typename Step<T>::C alpha2) {
+  using S = Step<T>;
+  using C = typename S::C;
   const int lane = threadIdx.x & 31;
   int lo = 0, hi = nb - 1;  // the bucket holding warp g
   while (lo < hi) {
@@ -185,41 +266,41 @@ __device__ __forceinline__ void warp_rows(const T* __restrict__ own, const T* __
   const int rows = static_cast<int>(b.n - r0 < b.rpw ? b.n - r0 : b.rpw);
   const int w = static_cast<int>(b.w);
   const long long n = b.n;
-  T acc[KPL];
+  C acc[KPL];
   if (b.rpw == 1) {  // one row, its slots 32 at a time
     const long long j = b.b0 + r0;
-    load_row(acc, own + j * k, k, lane);
+    load_row<T, KPL>(acc, own + j * k, k, lane);
     for (int s0 = 0; s0 < w; s0 += 32) {
       const int s = s0 + lane;
       int c = pad;
-      T e = T(0);
+      C e = C(0);
       if (s < w) {
         const long long p = b.base + s * n + r0;
         c = __ldg(idx + p);
-        if (c != pad) e = slot_err(own + j * k, other + static_cast<size_t>(c) * k, k, __ldg(vals + p), alpha2);
+        if (c != pad) e = slot_err(own + j * k, other + static_cast<size_t>(c) * k, k, S::ld(vals + p), alpha2);
       }
       const unsigned live = __ballot_sync(FULL, s < w && c != pad);
-      add_slots(acc, live, 0, min(32, w - s0), c, e, other, k, lane);
+      add_slots<T, KPL>(acc, live, 0, min(32, w - s0), c, e, other, k, lane);
     }
-    store_row(acc, out + j * k, k, lane);
+    store_row<T, KPL>(acc, own + j * k, out + j * k, k, lane);
     return;
   }
   // rows * w <= 32 slots: lane -> (row q = lane / w, slot s = lane % w).
   const int q = lane / w, s = lane - q * w;
   int c = pad;
-  T e = T(0);
+  C e = C(0);
   if (q < rows) {
     const long long p = b.base + s * n + r0 + q;
     c = __ldg(idx + p);
     if (c != pad)
-      e = slot_err(own + (b.b0 + r0 + q) * k, other + static_cast<size_t>(c) * k, k, __ldg(vals + p), alpha2);
+      e = slot_err(own + (b.b0 + r0 + q) * k, other + static_cast<size_t>(c) * k, k, S::ld(vals + p), alpha2);
   }
   const unsigned live = __ballot_sync(FULL, q < rows && c != pad);
   for (int r = 0; r < rows; ++r) {
     const long long j = b.b0 + r0 + r;
-    load_row(acc, own + j * k, k, lane);
-    add_slots(acc, live, r * w, r * w + w, c, e, other, k, lane);
-    store_row(acc, out + j * k, k, lane);
+    load_row<T, KPL>(acc, own + j * k, k, lane);
+    add_slots<T, KPL>(acc, live, r * w, r * w + w, c, e, other, k, lane);
+    store_row<T, KPL>(acc, own + j * k, out + j * k, k, lane);
   }
 }
 
@@ -227,7 +308,7 @@ template <typename T, int KPL>
 __global__ void __launch_bounds__(BLOCK)
     side_update(const T* __restrict__ own, const T* __restrict__ other, T* __restrict__ out,
                 const int* __restrict__ idx, const T* __restrict__ vals, const Bucket* __restrict__ bk,
-                int nb, long long warps, int k, int pad, T alpha2) {
+                int nb, long long warps, int k, int pad, typename Step<T>::C alpha2) {
   const long long g = static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
   if (g < warps) warp_rows<T, KPL>(own, other, out, idx, vals, bk, nb, g, k, pad, alpha2);  // warp-uniform
 }
@@ -235,11 +316,14 @@ __global__ void __launch_bounds__(BLOCK)
 constexpr int WBLOCK = 512;          // threads of the block form
 constexpr int ROW_BYTES = 32 * 1024;  // gathered rows a chunk, per buffer
 
+// cp.async of 16, 8 or 4 bytes; 2 (a bf16 row of odd k) is a plain copy,
+// seen by the block after the same barrier.
 __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   if (bytes == 16) asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
   else if (bytes == 8) asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
-  else asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+  else if (bytes == 4) asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+  else *static_cast<unsigned short*>(dst) = __ldg(static_cast<const unsigned short*>(src));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
@@ -251,6 +335,23 @@ __host__ __device__ __forceinline__ int wide_chunk(int k, int size) {
   return n < 1 ? 1 : (n > WBLOCK ? WBLOCK : n);
 }
 
+__host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
+
+// The block form's shared memory, in bytes from its start: the own row,
+// two chunks' rows (kp values a row), three chunks' e and three chunks' c.
+struct WideSmem {
+  size_t rows, es, cs, total;
+};
+__host__ __device__ __forceinline__ WideSmem wide_smem(int k, int size) {
+  const int ch = wide_chunk(k, size), kp = (k + 1) & ~1;
+  WideSmem m;
+  m.rows = align16(static_cast<size_t>(k) * size);
+  m.es = m.rows + align16(2 * static_cast<size_t>(ch) * kp * size);
+  m.cs = m.es + align16(3 * static_cast<size_t>(ch) * size);
+  m.total = m.cs + sizeof(int) * 3 * ch;
+  return m;
+}
+
 // Both forms in one launch: block g < blocks owns one row of a wide
 // bucket (bk, nb; warp0 is then the bucket's first block), and the blocks
 // after it run the warp form's warps (nk, nbn, warps) for the narrow
@@ -260,7 +361,12 @@ __global__ void __launch_bounds__(WBLOCK)
     side_update_wide(const T* __restrict__ own, const T* __restrict__ other, T* __restrict__ out,
                      const int* __restrict__ idx, const T* __restrict__ vals,
                      const Bucket* __restrict__ bk, int nb, long long blocks, const Bucket* __restrict__ nk,
-                     int nbn, long long warps, T* escr, int k, int pad, T alpha2) {
+                     int nbn, long long warps, T* escr, int k, int pad, typename Step<T>::C alpha2) {
+  using S = Step<T>;
+  using C = typename S::C;
+  // f32 and f64 form a chunk's terms in place of its rows; a bf16 term is
+  // exact only in f32, so bf16 forms each where it is added.
+  constexpr bool kTermsInPlace = sizeof(T) >= 4;
   constexpr int KPT = (32 * KPL + WBLOCK - 1) / WBLOCK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int t = threadIdx.x;
@@ -279,19 +385,19 @@ __global__ void __launch_bounds__(WBLOCK)
   const Bucket b = bk[lo];
   const long long r = g - b.warp0, n = b.n, j = b.b0 + r;
   const int w = static_cast<int>(b.w), ch = wide_chunk(k, sizeof(T));
-  // Shared memory: the own row, two chunks' rows, three chunks' e and c.
-  const int kp = (k + 1) & ~1;  // 16-byte aligned rows for the chunk buffers (T = float)
+  const int kp = (k + 1) & ~1;  // 16-byte aligned rows for the chunk buffers where a row allows it
+  const WideSmem lay = wide_smem(k, sizeof(T));
   T* fo = reinterpret_cast<T*>(smem_raw);
-  T* rows = fo + ((k + 3) & ~3);
-  T* es = rows + 2 * static_cast<size_t>(ch) * kp;
-  int* cs = reinterpret_cast<int*>(es + 3 * ch);
+  T* rows = reinterpret_cast<T*>(smem_raw + lay.rows);
+  T* es = reinterpret_cast<T*>(smem_raw + lay.es);
+  int* cs = reinterpret_cast<int*>(smem_raw + lay.cs);
 
   for (int f = t; f < k; f += WBLOCK) fo[f] = __ldg(own + j * k + f);
-  T acc[KPT];
+  C acc[KPT];
 #pragma unroll
   for (int m = 0; m < KPT; ++m) {
     const int f = m * WBLOCK + t;
-    acc[m] = f < k ? __ldg(own + j * k + f) : T(0);
+    acc[m] = S::start(f < k ? S::ld(own + j * k + f) : C(0));
   }
   __syncthreads();
   // The dots, a thread a slot, f = 0..k-1 against the staged own row.
@@ -300,22 +406,22 @@ __global__ void __launch_bounds__(WBLOCK)
     const int c = __ldg(idx + p);
     if (c == pad) continue;
     const T* go = other + static_cast<size_t>(c) * k;
-    T dot = T(0);
-    T g[16];  // 16 values in flight: the next batch loads while this one is summed in order
+    C dot = C(0);
+    C g[16];  // 16 values in flight: the next batch loads while this one is summed in order
 #pragma unroll
-    for (int u = 0; u < 16; ++u) g[u] = u < k ? __ldg(go + u) : T(0);
+    for (int u = 0; u < 16; ++u) g[u] = u < k ? S::ld(go + u) : C(0);
     for (int f0 = 0; f0 < k; f0 += 16) {
-      T h[16];
+      C h[16];
 #pragma unroll
       for (int u = 0; u < 16; ++u) {
         h[u] = g[u];
-        g[u] = f0 + 16 + u < k ? __ldg(go + f0 + 16 + u) : T(0);
+        g[u] = f0 + 16 + u < k ? S::ld(go + f0 + 16 + u) : C(0);
       }
 #pragma unroll
       for (int u = 0; u < 16; ++u)
-        if (f0 + u < k) dot = Rn<T>::add(dot, Rn<T>::mul(fo[f0 + u], h[u]));
+        if (f0 + u < k) dot = S::dot(dot, S::cv(fo[f0 + u]), h[u]);
     }
-    escr[p] = Rn<T>::mul(alpha2, Rn<T>::sub(__ldg(vals + p), dot));
+    escr[p] = S::st(S::err(alpha2, S::ld(vals + p), dot));
   }
   __syncthreads();  // e is written (global, read back by this block only)
 
@@ -323,8 +429,13 @@ __global__ void __launch_bounds__(WBLOCK)
   // come to shared memory one chunk ahead of its rows (ring of 3), its
   // rows by cp.async one chunk ahead of its adds (ring of 2).
   const int nch = (w + ch - 1) / ch;
-  const int vec = (k * sizeof(T)) % 16 == 0 ? 16 : static_cast<int>(sizeof(T));
-  const int per_row = k * static_cast<int>(sizeof(T)) / vec;
+  const int row_bytes = k * static_cast<int>(sizeof(T));
+  const int vec = row_bytes % 16 == 0 ? 16
+                  : sizeof(T) >= 4    ? static_cast<int>(sizeof(T))
+                  : row_bytes % 8 == 0 ? 8
+                  : row_bytes % 4 == 0 ? 4
+                                       : 2;
+  const int per_row = row_bytes / vec;
   auto slot = [&](int q, int u) { return b.base + static_cast<long long>(q * ch + u) * n + r; };
   auto count = [&](int q) { return min(ch, w - q * ch); };
   auto fetch_rows = [&](int q) {
@@ -362,22 +473,30 @@ __global__ void __launch_bounds__(WBLOCK)
     const int* cq = cs + (q % 3) * ch;
     const T* eq = es + (q % 3) * ch;
     const int cnt = count(q);
-    // The products, every thread of the block, in place of the rows; a
-    // padding slot's term is -0.0 (x + -0.0 is x for every x).
-    for (int i = t; i < cnt * k; i += WBLOCK) {
-      const int u = i / k, f = i - u * k;
-      T* at = rq + static_cast<size_t>(u) * kp + f;
-      *at = cq[u] == pad ? T(-0.0) : Rn<T>::mul(eq[u], *at);
+    if constexpr (kTermsInPlace) {
+      // The products, every thread of the block, in place of the rows; a
+      // padding slot's term is -0.0 (x + -0.0 is x for every x).
+      for (int i = t; i < cnt * k; i += WBLOCK) {
+        const int u = i / k, f = i - u * k;
+        T* at = rq + static_cast<size_t>(u) * kp + f;
+        *at = cq[u] == pad ? T(-0.0) : S::term(eq[u], *at);
+      }
+      __syncthreads();
     }
-    __syncthreads();
     // The adds: thread f's chain over the chunk's slots in file order.
 #pragma unroll
     for (int m = 0; m < KPT; ++m) {
       const int f = m * WBLOCK + t;
       if (f < k) {
-        T a = acc[m];
+        C a = acc[m];
+        if constexpr (kTermsInPlace) {
 #pragma unroll 8
-        for (int u = 0; u < cnt; ++u) a = Rn<T>::add(a, rq[static_cast<size_t>(u) * kp + f]);
+          for (int u = 0; u < cnt; ++u) a = S::add(a, rq[static_cast<size_t>(u) * kp + f]);
+        } else {
+#pragma unroll 8
+          for (int u = 0; u < cnt; ++u)
+            if (cq[u] != pad) a = S::add(a, S::term(S::cv(eq[u]), S::cv(rq[static_cast<size_t>(u) * kp + f])));
+        }
         acc[m] = a;
       }
     }
@@ -390,14 +509,8 @@ __global__ void __launch_bounds__(WBLOCK)
 #pragma unroll
   for (int m = 0; m < KPT; ++m) {
     const int f = m * WBLOCK + t;
-    if (f < k) out[j * k + f] = acc[m];
+    if (f < k) out[j * k + f] = S::st(S::end(acc[m], S::cv(fo[f])));
   }
-}
-
-template <typename T>
-size_t wide_smem_bytes(int k) {
-  const int ch = wide_chunk(k, sizeof(T)), kp = (k + 1) & ~1;
-  return sizeof(T) * (((k + 3) & ~3) + 2 * static_cast<size_t>(ch) * kp + 3 * ch) + sizeof(int) * 3 * ch;
 }
 
 // The side's two forms: rows of narrow buckets by warps, of wide buckets by
@@ -418,14 +531,15 @@ struct Side {
 
 template <typename T, int KPL>
 int launch_side(const Side& s) {
+  const auto a2 = Step<T>::alpha(s.alpha2);
   if (s.blocks == 0) {  // the warp form alone
     side_update<T, KPL><<<static_cast<unsigned>((s.warps + WARPS - 1) / WARPS), BLOCK, 0, s.stream>>>(
         static_cast<const T*>(s.own), static_cast<const T*>(s.other), static_cast<T*>(s.out), s.idx,
         static_cast<const T*>(s.vals), static_cast<const Bucket*>(s.narrow), s.nb_narrow, s.warps, s.k,
-        s.pad, static_cast<T>(s.alpha2));
+        s.pad, a2);
     return cudaGetLastError();
   }
-  const size_t smem = wide_smem_bytes<T>(s.k);
+  const size_t smem = wide_smem(s.k, sizeof(T)).total;
   cudaError_t err = cudaFuncSetAttribute(side_update_wide<T, KPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -433,8 +547,7 @@ int launch_side(const Side& s) {
   side_update_wide<T, KPL><<<static_cast<unsigned>(grid), WBLOCK, smem, s.stream>>>(
       static_cast<const T*>(s.own), static_cast<const T*>(s.other), static_cast<T*>(s.out), s.idx,
       static_cast<const T*>(s.vals), static_cast<const Bucket*>(s.wide), s.nb_wide, s.blocks,
-      static_cast<const Bucket*>(s.narrow), s.nb_narrow, s.warps, static_cast<T*>(s.escr), s.k, s.pad,
-      static_cast<T>(s.alpha2));
+      static_cast<const Bucket*>(s.narrow), s.nb_narrow, s.warps, static_cast<T*>(s.escr), s.k, s.pad, a2);
   return cudaGetLastError();
 }
 
@@ -464,7 +577,7 @@ __global__ void gather_rows4(const float4* __restrict__ table, const int* __rest
 // p4_kernel: g = table[idx[s]], fo = 0.5 * table[s mod blk],
 // err = 0.001 * (vals[s] - <fo, g>), out[s] = err * g.  A warp per slot.
 __global__ void __launch_bounds__(BLOCK)
-    gather_err_grad(const float* __restrict__ table, const int* __restrict__ idx,
+    gather_err_grad_direct(const float* __restrict__ table, const int* __restrict__ idx,
                     const float* __restrict__ vals, float* __restrict__ out, long long S, int K, int blk) {
   const int lane = threadIdx.x & 31;
   const long long s = static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
@@ -477,6 +590,66 @@ __global__ void __launch_bounds__(BLOCK)
   for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(FULL, part, o);
   const float err = 0.001f * (__ldg(vals + s) - part);
   for (int f = lane; f < K; f += 32) out[s * K + f] = err * __ldg(g + f);
+}
+
+// The grouped form of gather_err_grad_direct, the same bits: a warp per G
+// consecutive slots, K <= 32 * KPL.
+template <int KPL, int G>
+__global__ void __launch_bounds__(BLOCK)
+    gather_err_grad_grouped(const float* __restrict__ table, const int* __restrict__ idx,
+                            const float* __restrict__ vals, float* __restrict__ out, long long S, int K,
+                            int blk) {
+  const int lane = threadIdx.x & 31;
+  const long long s0 = (static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5)) * G;
+  if (s0 >= S) return;  // warp-uniform
+  int my_c = 0;  // lane u < G holds slot s0 + u's index and rating
+  float my_v = 0.f;
+  if (lane < G && s0 + lane < S) {
+    my_c = __ldg(idx + s0 + lane);
+    my_v = __ldg(vals + s0 + lane);
+  }
+  float g[G][KPL], fo[G][KPL];
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    const int c = __shfl_sync(FULL, my_c, u);
+    const bool on = s0 + u < S;
+    const float* row = table + static_cast<size_t>(c) * K;
+    const float* prow = table + static_cast<size_t>((s0 + u) % blk) * K;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      const int f = lane + 32 * m;
+      g[u][m] = on && f < K ? __ldg(row + f) : 0.f;
+      fo[u][m] = on && f < K ? __ldg(prow + f) : 0.f;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    float part = 0.f;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m)
+      if (lane + 32 * m < K) part = __fmaf_rn(0.5f * fo[u][m], g[u][m], part);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(FULL, part, o);
+    const float err = 0.001f * (__shfl_sync(FULL, my_v, u) - part);
+    if (s0 + u < S) {
+      float* dst = out + (s0 + u) * K;
+#pragma unroll
+      for (int m = 0; m < KPL; ++m)
+        if (lane + 32 * m < K) __stcs(dst + lane + 32 * m, err * g[u][m]);
+    }
+  }
+}
+
+// G = 2 slots a warp where KPL <= 16, else 1: at most 32 row values a lane
+// in registers.  2 was the fastest of G = 1, 2, 4, 8 on the H100 (PERF.md).
+template <int KPL>
+int launch_grouped(const float* table, const int* idx, const float* vals, float* out, long long S, int K,
+                   int blk, cudaStream_t stream) {
+  constexpr int G = KPL <= 16 ? 2 : 1;
+  const long long warps = (S + G - 1) / G;
+  gather_err_grad_grouped<KPL, G><<<static_cast<unsigned>((warps + WARPS - 1) / WARPS), BLOCK, 0, stream>>>(
+      table, idx, vals, out, S, K, blk);
+  return cudaGetLastError();
 }
 
 int grid_for(long long work) {
@@ -492,19 +665,24 @@ int grid_for(long long work) {
 // side tables; narrow (nb_narrow, 6) and wide (nb_wide, 6) int64 rows of
 // Bucket for the warp and the block form, with their warp and block counts;
 // escr a scratch table of vals' shape and type (used by the block form);
-// pad is the opposite zero row's index.  f64: 1 for double, 0 for float.
-// Returns the first non-zero cudaError_t, else 0.
+// pad is the opposite zero row's index.  dtype: 0 float, 1 double, 2
+// bfloat16.  Returns the first non-zero cudaError_t, else 0.
 extern "C" int rs_bell_side_update(const void* own, const void* other, void* out, const int* idx,
                                    const void* vals, const void* narrow, int nb_narrow,
                                    long long warps, const void* wide, int nb_wide, long long blocks,
-                                   void* escr, int k, int pad, double alpha2, int f64,
+                                   void* escr, int k, int pad, double alpha2, int dtype,
                                    void* stream) {
   if (k <= 0 || warps < 0 || blocks < 0 || warps + blocks == 0 || (warps > 0 && nb_narrow <= 0) ||
       (blocks > 0 && nb_wide <= 0))
     return cudaErrorInvalidValue;
   const Side s{own, other, out, idx, vals, narrow, wide, nb_narrow, nb_wide, warps, blocks,
                escr, k, pad, alpha2, static_cast<cudaStream_t>(stream)};
-  return f64 ? dispatch_k<double>(s) : dispatch_k<float>(s);
+  switch (dtype) {
+    case 0: return dispatch_k<float>(s);
+    case 1: return dispatch_k<double>(s);
+    case 2: return dispatch_k<__nv_bfloat16>(s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // `iters` BELL steps (ops/bell.py::bell_train): step it reads the last
@@ -518,7 +696,7 @@ extern "C" int rs_bell_train(const void* L, const void* R, void* l0, void* l1, v
                              void* u_escr, const int* irows, const void* ivals,
                              const void* i_narrow, int i_nbn, long long i_warps, const void* i_wide,
                              int i_nbw, long long i_blocks, void* i_escr, int iters, int k,
-                             int users, int items, double alpha2, int f64, void* stream) {
+                             int users, int items, double alpha2, int dtype, void* stream) {
   void* lbuf[2] = {l0, l1};
   void* rbuf[2] = {r0, r1};
   const void* lc = L;
@@ -528,12 +706,12 @@ extern "C" int rs_bell_train(const void* L, const void* R, void* l0, void* l1, v
     void* rn = rbuf[it % 2];
     if (u_warps + u_blocks > 0) {
       const int err = rs_bell_side_update(lc, rc, ln, ucols, uvals, u_narrow, u_nbn, u_warps, u_wide,
-                                          u_nbw, u_blocks, u_escr, k, items, alpha2, f64, stream);
+                                          u_nbw, u_blocks, u_escr, k, items, alpha2, dtype, stream);
       if (err != 0) return err;
     }
     if (i_warps + i_blocks > 0) {
       const int err = rs_bell_side_update(rc, lc, rn, irows, ivals, i_narrow, i_nbn, i_warps, i_wide,
-                                          i_nbw, i_blocks, i_escr, k, users, alpha2, f64, stream);
+                                          i_nbw, i_blocks, i_escr, k, users, alpha2, dtype, stream);
       if (err != 0) return err;
     }
     lc = ln;
@@ -552,11 +730,26 @@ extern "C" int rs_gather_rows(const float* table, const int* idx, float* out, lo
 }
 
 // P2's p4: out (S, K) = err * table[idx] with err from the stand-in partner
-// 0.5 * table[s mod blk] (f32).
+// 0.5 * table[s mod blk] (f32), in the grouped form, K <= 1024.
 extern "C" int rs_gather_err_grad(const float* table, const int* idx, const float* vals, float* out,
                                   long long S, int K, int blk, void* stream) {
   if (S <= 0 || K <= 0 || blk <= 0) return cudaErrorInvalidValue;
-  gather_err_grad<<<static_cast<unsigned>((S + WARPS - 1) / WARPS), BLOCK, 0,
-                    static_cast<cudaStream_t>(stream)>>>(table, idx, vals, out, S, K, blk);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K <= 32) return launch_grouped<1>(table, idx, vals, out, S, K, blk, st);
+  if (K <= 64) return launch_grouped<2>(table, idx, vals, out, S, K, blk, st);
+  if (K <= 128) return launch_grouped<4>(table, idx, vals, out, S, K, blk, st);
+  if (K <= 256) return launch_grouped<8>(table, idx, vals, out, S, K, blk, st);
+  if (K <= 512) return launch_grouped<16>(table, idx, vals, out, S, K, blk, st);
+  if (K <= 1024) return launch_grouped<32>(table, idx, vals, out, S, K, blk, st);
+  return cudaErrorInvalidValue;
+}
+
+// The same function in the first form (a warp a slot, any K): the probe's
+// baseline.
+extern "C" int rs_gather_err_grad_direct(const float* table, const int* idx, const float* vals, float* out,
+                                         long long S, int K, int blk, void* stream) {
+  if (S <= 0 || K <= 0 || blk <= 0) return cudaErrorInvalidValue;
+  gather_err_grad_direct<<<static_cast<unsigned>((S + WARPS - 1) / WARPS), BLOCK, 0,
+                           static_cast<cudaStream_t>(stream)>>>(table, idx, vals, out, S, K, blk);
   return cudaGetLastError();
 }

@@ -15,13 +15,13 @@ Routes, chosen by ``choose_path`` in the JAX engine's decision order:
   ``run``) or ``tiled`` (B5's fused step ``dense_tiled.tiled_step`` once
   per step, then ``recommend`` on the factors left on the device in
   ``run``).
-* ``bell``   -- the degree-bucketed sparse route in f32 or exact f64:
-  ``bell.bell_side_update`` (P2's engine form) twice per step, then
+* ``bell``   -- the degree-bucketed sparse route in f32, bf16 or exact
+  f64: ``bell.bell_side_update`` (P2's engine form) twice per step, then
   ``recommend`` on the factors left on the device in ``run``.  In f64 it
   follows the reference's order and gives its factors bit for bit, from
-  the host glibc init; in f32 above ``DEVICE_INIT_MIN_DRAWS`` the initial
-  factors are drawn on the device (``ops/device_rng.py``).  bfloat16 on
-  this route raises (ROADMAP A12).
+  the host glibc init; in bf16 it computes the JAX package's bf16 step;
+  in f32 and bf16 above ``DEVICE_INIT_MIN_DRAWS`` the initial factors are
+  drawn on the device (``ops/device_rng.py``).
 * ``dense``  -- the three-matmul step of ``ops/dense.py`` in the run's
   dtype (f64 DGEMM on the card), then ``recommend``.
 * ``coo``    -- the COO step of ``ops/coo.py`` in the run's dtype: the
@@ -70,14 +70,13 @@ RESIDENT_A_MAX_BYTES = 4 << 20
 
 _ITEMSIZE = {"float32": 4, "float64": 8, "bfloat16": 2}
 
-# Above this many glibc draws, ``(users + items) * k``, the f32 BELL route
-# draws its initial factors on the device (trainer.py:364): the host init
+# Above this many glibc draws, ``(users + items) * k``, the f32 and bf16 BELL
+# routes draw their initial factors on the device (trainer.py:364): the host init
 # of gen-inst1e6-100-700-1-3's 700M draws dominates its wall (PERF.md).
 # Every byte-exact golden sits far below it.
 DEVICE_INIT_MIN_DRAWS = 200_000_000
 
-# Host (numpy) and device dtypes of the bell and dense routes.
-_NP_DTYPE = {"float32": np.float32, "float64": np.float64}
+# Device dtypes of the bell, dense and coo routes.
 _TORCH_DTYPE = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
 
 
@@ -298,11 +297,12 @@ def _dense_route_ok(spec: ProblemSpec, cfg: RunConfig) -> None:
 
 
 def _device_init(spec: ProblemSpec, cfg: RunConfig, state: MFState | None) -> bool:
-    """The f32 BELL route draws its initial factors on the device when no
-    state is given and the draws reach ``DEVICE_INIT_MIN_DRAWS``
-    (trainer.py:378-382).  f64 keeps the host init, which is exact."""
+    """The f32 and bf16 BELL routes draw their initial factors on the
+    device when no state is given and the draws reach
+    ``DEVICE_INIT_MIN_DRAWS`` (trainer.py:378-382; bf16 rounds the f32
+    draws).  f64 keeps the host init, which is exact."""
     draws = (spec.users + spec.items) * spec.features
-    return state is None and draws >= DEVICE_INIT_MIN_DRAWS and cfg.dtype == "float32"
+    return state is None and draws >= DEVICE_INIT_MIN_DRAWS and cfg.dtype in ("float32", "bfloat16")
 
 
 def _permute_pad(F: torch.Tensor, perm: np.ndarray) -> torch.Tensor:
@@ -322,11 +322,10 @@ def _factorize_bell_device(spec: ProblemSpec, cfg: RunConfig, device, state: MFS
     zero rows; ``upload`` copies them to the device, or draws the factors
     there (``_device_init``) and permutes them on the device; ``train``
     runs ``bell.bell_train``; the un-permute is a device ``index_select``
-    (exact)."""
-    if cfg.dtype not in _NP_DTYPE:
-        raise NotImplementedError(f"the bell route computes in float32 or float64; {cfg.dtype} on it is "
-                                  "not ported yet (ROADMAP A12)")
-    dt = _NP_DTYPE[cfg.dtype]
+    (exact).  bf16 builds the host tables and factors in f32 and rounds
+    them in ``upload``, or rounds the device draws before the permute."""
+    tdt = _TORCH_DTYPE[cfg.dtype]
+    dt = bell.HOST_DTYPE[tdt]
     on_device = _device_init(spec, cfg, state)
     with phase("prep"):
         data = bell.make_bell_inputs(spec, dtype=dt)
@@ -338,14 +337,14 @@ def _factorize_bell_device(spec: ProblemSpec, cfg: RunConfig, device, state: MFS
     with phase("upload") as psync:
         if on_device:
             L, R = device_rng.device_init_factors(spec.users, spec.items, spec.features, device=device)
-            L0 = _permute_pad(L, data.user_perm)
+            L0 = _permute_pad(L.to(tdt), data.user_perm)
             del L
-            R0 = _permute_pad(R, data.item_perm)
+            R0 = _permute_pad(R.to(tdt), data.item_perm)
             del R
         else:
-            L0, R0 = torch.from_numpy(Lp0).to(device), torch.from_numpy(Rp0).to(device)
+            L0, R0 = (torch.from_numpy(x).to(tdt).to(device) for x in (Lp0, Rp0))
             del Lp0, Rp0
-        tables = bell.device_tables(data.tables, device)
+        tables = bell.device_tables(data.tables, device, tdt)
         psync((L0, R0, *tables))
     with phase("train") as psync:
         Lp, Rp = bell.bell_train(L0, R0, tables, 2.0 * spec.alpha, data.meta, spec.iters, donate=True)
@@ -411,7 +410,10 @@ _DEVICE_ROUTES = {"bell": _factorize_bell_device, "dense": _factorize_dense, "co
 
 
 def _host_state(state: MFState) -> MFState:
-    return MFState(*(np.ascontiguousarray(x.cpu().numpy()) for x in state))
+    """Device factors as host arrays; bf16 ones as float32 arrays holding
+    the bf16 values (numpy has no bf16; the upcast is exact)."""
+    return MFState(*(np.ascontiguousarray((x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy())
+                     for x in state))
 
 
 def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", state: MFState | None = None, *,
@@ -468,6 +470,10 @@ def recommend(state: MFState, spec: ProblemSpec, cfg: RunConfig = RunConfig(), d
     block = _top1_block(spec, cfg.block_items)
     items_pad = -(-spec.items // block) * block
     L, R = _on(device, state.L), _on(device, state.R)
+    if cfg.dtype == "bfloat16" and choose_path(spec, cfg, device) in _DEVICE_ROUTES:
+        # factorize() hands these routes' bf16 factors back as float32
+        # arrays: score in bf16, as run() and the JAX engine do (exact cast).
+        L, R = L.to(torch.bfloat16), R.to(torch.bfloat16)
     R_pad = torch.nn.functional.pad(R, (0, 0, 0, items_pad - spec.items))
     max_rated = int(np.bincount(spec.rows, minlength=spec.users).max()) if spec.nnz else 0
     if max_rated <= max(spec.items // 8, 128):

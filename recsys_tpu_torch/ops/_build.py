@@ -125,16 +125,17 @@ SIGNATURES = {
     # alpha2, form, stream
     "rs_tiled_step": [_P, _P, _I, *[_P] * 5, *[_I] * 6, _F, _I, _P],
     # own, other, out, idx, vals, narrow, nb_narrow, warps, wide, nb_wide,
-    # blocks, escr, k, pad, alpha2, f64, stream
+    # blocks, escr, k, pad, alpha2, dtype, stream
     "rs_bell_side_update": [*[_P] * 6, _I, _LL, _P, _I, _LL, _P, _I, _I, _D, _I, _P],
     # L, R, l0, l1, r0, r1; per side (user, item): cols, vals, narrow,
     # nb_narrow, warps, wide, nb_wide, blocks, escr; iters, k, users,
-    # items, alpha2, f64, stream
+    # items, alpha2, dtype, stream
     "rs_bell_train": [*[_P] * 6, *[_P, _P, _P, _I, _LL, _P, _I, _LL, _P] * 2, *[_I] * 4, _D, _I, _P],
     # table, idx, out, S, K, stream
     "rs_gather_rows": [_P, _P, _P, _LL, _I, _P],
     # table, idx, vals, out, S, K, blk, stream
     "rs_gather_err_grad": [*[_P] * 4, _LL, _I, _I, _P],
+    "rs_gather_err_grad_direct": [*[_P] * 4, _LL, _I, _I, _P],
     # tab, idx, out, scratch, S, W, t, grid, span, threads, slots, stream
     "rs_lane_gather_loop": [*[_P] * 4, *[_I] * 7, _P],
     # tab, idx, out, S, W, t, grid, span, threads, stream

@@ -30,8 +30,22 @@ gather, error and update of the TPU probe kernel ``p4_kernel``
 (``csrc/bell.cu``) behind ``bell_side_update``; ``bell_side_update_plain``
 is its plain torch twin.  The wrapper picks by the tensors' device: the
 twin for CPU tensors, the kernel for CUDA tensors, and an error for
-anything the kernel does not take -- never a fallback.  f32 and f64 are
-the kernel's types.
+anything the kernel does not take -- never a fallback.  f32, f64 and
+bfloat16 are the kernel's types.
+
+bfloat16 computes what the JAX package's bf16 step computes (its
+``_delta_side`` :578 and ``bell_gd_step`` :628, as XLA runs them): the
+dot of exact f32 products summed in f32 over f and rounded once, each
+other elementwise result rounded to bf16, and the row's change summed in
+f32 over its slots, rounded, and added to the row once:
+
+    e  = bf(a2 * bf(v - bf(sum_f F_own[j][f] * F_other[c][f])))   (a2 a bf16)
+    F_own'[j] = bf(F_own[j] + bf(sum_slots e * F_other[c]))         (f32 sums)
+
+(``bf``: round to the nearest even bf16; a product of two bf16 values is
+exact in f32).  The sums run in the f32/f64 order (f = 0..k-1, slots in
+file order), so kernel and twin agree bit for bit; against the JAX step
+on the CPU see ``tests/test_torch_bell.py``.
 
 Not ported: the TPU gather-engine and XLA-fusion workarounds (the chunk
 grain ``CHUNK_*``/``_chunk_grain`` :385-409 with its ``WIDE_F64_*`` fault
@@ -278,6 +292,22 @@ def pad_factors_for_bell(state, data: BellData, dtype):
     return permuted(state.L, data.user_perm), permuted(state.R, data.item_perm)
 
 
+# The host (numpy) dtype a side of each type is built in.  numpy has no
+# bf16: a bf16 side is built in f32 and rounded to bf16 by torch.
+HOST_DTYPE = {torch.float32: np.float32, torch.float64: np.float64, torch.bfloat16: np.float32}
+
+
+def bell_tensors(spec, state, dtype: torch.dtype, device):
+    """(BellData, L, R, tables) of ``spec`` in ``dtype`` on ``device`` from
+    the host factors ``state``: the degree-permuted factors with their zero
+    rows and the device tables.  A bf16 side is built in f32 and rounded
+    by torch (to nearest even, as the JAX package's ``astype``)."""
+    data = make_bell_inputs(spec, HOST_DTYPE[dtype])
+    L, R = (torch.from_numpy(x).to(dtype).to(device)
+            for x in pad_factors_for_bell(state, data, HOST_DTYPE[dtype]))
+    return data, L, R, device_tables(data.tables, device, dtype)
+
+
 def unpermute_factors(L, R, data: BellData):
     """Back to original row order, dropping the padding rows (numpy)."""
     return (
@@ -286,9 +316,15 @@ def unpermute_factors(L, R, data: BellData):
     )
 
 
-def device_tables(tables: BellTables, device) -> BellTables:
-    """The host tables as tensors on ``device``."""
-    return BellTables(*(torch.from_numpy(np.ascontiguousarray(t)).to(device) for t in tables))
+def device_tables(tables: BellTables, device, dtype=None) -> BellTables:
+    """The host tables as tensors on ``device``, the value tables cast to
+    ``dtype`` when given (numpy has no bf16: a bf16 side's values are built
+    in f32 and rounded here, to nearest even as the JAX package's
+    ``astype``)."""
+    t = BellTables(*(torch.from_numpy(np.ascontiguousarray(x)) for x in tables))
+    if dtype is not None:
+        t = t._replace(uvals=t.uvals.to(dtype), ivals=t.ivals.to(dtype))
+    return BellTables(*(x.to(device) for x in t))
 
 
 # ---------------------------------------------------------------------
@@ -309,34 +345,53 @@ def _twin_buckets(cols, vals, side: BellSide, pad: int):
     return out
 
 
+def _bf(x):
+    """f32 ``x`` rounded to the nearest even bf16, kept in f32."""
+    return x.bfloat16().float()
+
+
 def _bucket_terms(F_own, F_other, bucket, a2):
     """(own rows (n, k), terms (w, n, k)) of one bucket: term [s, j] is
     ``e * F_other[c]`` of row j's slot s, and -0.0 on a padding slot
     (x + (-0.0) is x for every x, so it leaves a row as it is: the kernel
     skips it).  The terms are computed in the gathered rows' buffer, so a
-    bucket holds at most two (w, n, k) tensors at once."""
+    bucket holds at most two (w, n, k) tensors at once.  A bf16 side
+    computes in f32 (its products exact), e rounded at each of its steps
+    (module docstring)."""
     b0, b1, w, idx, v, live = bucket
-    fo = F_own[b0:b1]
-    g = F_other[idx]  # (w, n, k)
+    bf16 = F_own.dtype == torch.bfloat16
+    fo, g = F_own[b0:b1], F_other[idx]  # g: (w, n, k)
+    if bf16:
+        fo, g, v = fo.float(), g.float(), v.float()
     prod = fo * g  # every product rounded on its own
-    dot = torch.zeros(idx.shape, dtype=F_own.dtype, device=F_own.device)
+    dot = torch.zeros(idx.shape, dtype=fo.dtype, device=F_own.device)
     for f in range(F_own.shape[1]):  # the dot in order f = 0..k-1
         dot = dot + prod[:, :, f]
     del prod
-    e = a2 * (v - dot)
+    e = _bf(a2 * _bf(v - _bf(dot))) if bf16 else a2 * (v - dot)
     return fo, g.mul_(e.unsqueeze(-1)).masked_fill_(~live, -0.0)
+
+
+def _alpha(alpha2: float, dtype) -> float:
+    """alpha2 in the step's type, as a Python float: a bf16 step uses it
+    rounded to bf16 (the JAX engine's ``asarray(2 * alpha, bf16)``)."""
+    return float(torch.tensor(alpha2, dtype=torch.float64).to(dtype)) if dtype == torch.bfloat16 else float(alpha2)
 
 
 def _side_plain(F_own, F_other, buckets, alpha2):
     """Twin of one side's update over prepared buckets (see
-    ``bell_side_update_plain``)."""
-    a2 = torch.tensor(alpha2, dtype=F_own.dtype, device=F_own.device)
+    ``bell_side_update_plain``): f32 and f64 add each slot's term into the
+    row, bf16 sums the terms from 0 in f32 and adds them once."""
+    bf16 = F_own.dtype == torch.bfloat16
+    a2 = torch.tensor(_alpha(alpha2, F_own.dtype), dtype=torch.float32 if bf16 else F_own.dtype,
+                      device=F_own.device)
     out = F_own.clone()
     for bucket in buckets:
-        acc, terms = _bucket_terms(F_own, F_other, bucket, a2)
-        for s in range(bucket[2]):  # slots in file order, each added into the row
+        fo, terms = _bucket_terms(F_own, F_other, bucket, a2)
+        acc = torch.zeros_like(fo) if bf16 else fo
+        for s in range(bucket[2]):  # slots in file order
             acc = acc + terms[s]
-        out[bucket[0]:bucket[1]] = acc
+        out[bucket[0]:bucket[1]] = (fo + _bf(acc)).bfloat16() if bf16 else acc
     return out
 
 
@@ -345,7 +400,8 @@ def bell_side_update_plain(F_own, F_other, cols, vals, side: BellSide, alpha2: f
     table, vectorised over the slots of a bucket for the dot (k steps on
     (w, n) tensors) and over its rows for the accumulation (w steps on
     (n, k)).  Separate multiplies and adds, so no contraction; padding
-    slots leave the row as it is."""
+    slots leave the row as it is.  A bf16 side computes in f32 with the
+    rounding points of the module docstring."""
     return _side_plain(F_own, F_other, _twin_buckets(cols, vals, side, F_other.shape[0] - 1), alpha2)
 
 
@@ -413,7 +469,7 @@ def _side_desc(side: BellSide, dev, wide: int):
     return d._replace(narrow=torch.from_numpy(d.narrow).to(dev), wide=torch.from_numpy(d.wide).to(dev))
 
 
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
 def _check(F_own, F_other, cols, vals, side: BellSide):
@@ -428,7 +484,7 @@ def _check(F_own, F_other, cols, vals, side: BellSide):
                          f"{slots} slots)")
     if F_own.dtype not in _DTYPE_CODE or F_other.dtype != F_own.dtype or vals.dtype != F_own.dtype:
         raise ValueError(f"dtypes own {F_own.dtype}, other {F_other.dtype}, vals {vals.dtype}: the kernel "
-                         "takes float32 or float64, all alike")
+                         "takes float32, float64 or bfloat16, all alike")
     if cols.dtype != torch.int32:
         raise ValueError(f"cols must be int32, got {cols.dtype}")
     if not 0 < k <= MAX_K:
@@ -480,7 +536,7 @@ def _launch(F_own, F_other, cols, vals, alpha2, out, desc):
             rc = _build.load().rs_bell_side_update(
                 *_ptrs(F_own, F_other, out, cols, vals, desc.narrow), desc.narrow.shape[0], desc.warps,
                 *_ptrs(desc.wide), desc.wide.shape[0], desc.blocks, *_ptrs(escr), F_own.shape[1],
-                F_other.shape[0] - 1, float(alpha2), _DTYPE_CODE[F_own.dtype], _stream(dev),
+                F_other.shape[0] - 1, _alpha(alpha2, F_own.dtype), _DTYPE_CODE[F_own.dtype], _stream(dev),
             )
         if rc != 0:
             raise RuntimeError(f"rs_bell_side_update failed: CUDA error {rc}")
@@ -526,7 +582,7 @@ def bell_train(L, R, tables: BellTables, alpha2: float, meta: BellMeta, iters: i
     with torch.cuda.device(dev):
         rc = _build.load().rs_bell_train(
             *_ptrs(L, R, bufs_l[0], bufs_l[-1], bufs_r[0], bufs_r[-1]), *sides, iters, L.shape[1], meta.user.size, meta.item.size,
-            float(alpha2), _DTYPE_CODE[L.dtype], _stream(dev),
+            _alpha(alpha2, L.dtype), _DTYPE_CODE[L.dtype], _stream(dev),
         )
     if rc != 0:
         raise RuntimeError(f"rs_bell_train failed: CUDA error {rc}")

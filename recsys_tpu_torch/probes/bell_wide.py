@@ -5,7 +5,7 @@ same bits, and which is faster.
 
 Run from the root of a checkout on a machine with a CUDA card.  At
 instML100k and at a spec with one hub row far wider than the rest
-(``testing.hub_spec``), in f64 and f32, it holds ``bell_train`` with wide
+(``testing.hub_spec``), in f64, f32 and bf16, it holds ``bell_train`` with wide
 rows in the block form (``bell.WIDE_MIN``, and a threshold low enough that
 every bucket of 16 slots or more takes it) equal bit for bit to the warp
 form alone (``bell.WARP_FORM``) and to the plain twin.  Then it times
@@ -20,7 +20,6 @@ import os
 import subprocess
 import sys
 
-import numpy as np
 import torch
 
 from recsys_tpu_torch import testing as checks
@@ -34,13 +33,11 @@ SWEEP = (32, 128, 512, bell.WARP_FORM)
 LOW = 16  # a threshold that sends every bucket of 16 slots or more to the block form
 
 
-def tensors(spec, dtype, device):
-    """(data, L, R, device tables) of ``spec`` from the glibc init."""
+def tensors(spec, dtype: torch.dtype, device):
+    """(data, L, R, device tables) of ``spec`` in ``dtype`` from the glibc init."""
     from recsys_tpu_torch.models.mf import init_factors
 
-    data = bell.make_bell_inputs(spec, dtype)
-    L, R = bell.pad_factors_for_bell(init_factors(spec.users, spec.items, spec.features), data, dtype)
-    return data, torch.from_numpy(L).to(device), torch.from_numpy(R).to(device), bell.device_tables(data.tables, device)
+    return bell.bell_tensors(spec, init_factors(spec.users, spec.items, spec.features), dtype, device)
 
 
 def compare(name, L, R, t, meta, alpha2: float, steps: int, *, twin: bool = True) -> dict:
@@ -99,10 +96,10 @@ def run(device) -> dict:
     ml = load_problem(os.path.join(ROOT, "tests", "fixtures", "instML100k.in"))
     for name, spec in (("instML100k", ml), ("hub 300x2000 k30", checks.hub_spec(30)),
                        ("hub 300x2000 k700", checks.hub_spec(700, 1))):
-        for dtype in (np.float64, np.float32):
+        for dtype in (torch.float64, torch.float32, torch.bfloat16):
             data, L, R, t = tensors(spec, dtype, device)
             compare(name, L, R, t, data.meta, 2.0 * spec.alpha, checks.FACTOR_ITERS if spec is ml else spec.iters)
-    data, L, R, t = tensors(ml, np.float64, device)
+    data, L, R, t = tensors(ml, torch.float64, device)
     side_ms("instML100k", L, R, t, data.meta, 2.0 * ml.alpha)
     return step_ms("instML100k", L, R, t, data.meta, 2.0 * ml.alpha, SWEEP, steps=20)
 

@@ -15,11 +15,17 @@ gather's column sum, so no step can be skipped or hoisted.  Variants:
   XLA ``take`` baseline);
 * ``p1``, ``p2``, ``p3``: ``ops/gather.py::gather_rows`` (the three TPU
   lowerings compute one function; here one kernel);
-* ``p4``: ``ops/gather.py::gather_err_grad``, the fused kernel.
+* ``p4``: ``ops/gather.py::gather_err_grad``, the fused kernel in its
+  grouped form (two slots a warp);
+* ``p4_direct``: ``gather_err_grad_direct``, its first form (a warp a
+  slot), the baseline of the grouped one.
 
-Each kernel is first held against its twin on the probe's inputs.  Each
-variant prints its milliseconds per gather (the best of three loops of
-INNER, by CUDA events, over INNER) and GB/s of gathered rows.
+Each kernel is first held against its twin on the probe's inputs, and the
+two forms of ``p4`` against each other in raw bits.  Each variant prints
+its milliseconds per gather (the best of three loops of INNER, by CUDA
+events, over INNER) and GB/s of gathered rows.  Then ``forms_ms`` times
+the two forms of ``p4`` alone, one call each from CUDA graph replays in
+turns.
 """
 
 from __future__ import annotations
@@ -32,12 +38,16 @@ import torch
 
 from recsys_tpu_torch import testing as checks
 from recsys_tpu_torch.ops import gather
+from recsys_tpu_torch.utils.timing import alternating_ms, graphed
 
 N, K = 5001, 128
 S = 176_128
 BLK = 1024
 INNER = 50
-VARIANTS = ("xla", "p1", "p2", "p3", "p4")
+VARIANTS = ("xla", "p1", "p2", "p3", "p4", "p4_direct")
+# Calls a graph replays in ``forms_ms``: a 40-60 us kernel is shorter than
+# its wrapper's host work.
+GRAPH_CALLS = 20
 
 
 def inputs(device, n: int = N, k: int = K, s: int = S):
@@ -56,6 +66,7 @@ def steps(idx, vals, blk: int = BLK) -> dict:
         "xla": lambda tab: tab.index_select(0, idx_long).sum(dim=0),
         **{p: (lambda tab: gather.gather_rows(tab, idx).sum(dim=0)) for p in ("p1", "p2", "p3")},
         "p4": lambda tab: gather.gather_err_grad(tab, idx, vals, blk).sum(dim=0),
+        "p4_direct": lambda tab: gather.gather_err_grad_direct(tab, idx, vals, blk).sum(dim=0),
     }
 
 
@@ -71,21 +82,28 @@ def loop(step, table, inner: int = INNER):
 
 def check_kernels(table, idx, vals, blk: int = BLK) -> dict:
     """Each kernel against its twin on the same inputs; returns each one's
-    max abs error, and raises if ``gather_rows`` differs in any bit or
-    ``gather_err_grad`` by more than ``testing.GATHER_ERR_GRAD_RTOL``."""
+    max abs error, and raises if ``gather_rows`` differs in any bit,
+    ``gather_err_grad`` by more than ``testing.GATHER_ERR_GRAD_RTOL``, or
+    its two forms in any bit."""
     rows = gather.gather_rows(table, idx)
     rows_twin = gather.gather_rows_plain(table, idx)
     fused = gather.gather_err_grad(table, idx, vals, blk)
+    direct = gather.gather_err_grad_direct(table, idx, vals, blk)
     fused_twin = gather.gather_err_grad_plain(table, idx, vals, blk)
     errs = {"gather_rows": float((rows - rows_twin).abs().max()),
-            "gather_err_grad": float((fused - fused_twin).abs().max())}
+            "gather_err_grad": float((fused - fused_twin).abs().max()),
+            "gather_err_grad_direct": float((direct - fused_twin).abs().max())}
     rel = errs["gather_err_grad"] / float(fused_twin.abs().max())
     if not torch.equal(rows, rows_twin) or not torch.equal(rows, table.index_select(0, idx.long())):
         raise AssertionError("gather_rows differs from its twin or from index_select")
     if not rel <= checks.GATHER_ERR_GRAD_RTOL:
         raise AssertionError(f"gather_err_grad vs twin: rel {rel} > {checks.GATHER_ERR_GRAD_RTOL}")
+    if not checks.same_bits(fused, direct):
+        raise AssertionError("gather_err_grad's grouped form differs from its direct form in raw bits")
     print(f"[probe] gather_rows == twin == index_select bit for bit; gather_err_grad max_abs_err "
-          f"{errs['gather_err_grad']!r} rel {rel!r} (limit {checks.GATHER_ERR_GRAD_RTOL})", flush=True)
+          f"{errs['gather_err_grad']!r} rel {rel!r} (limit {checks.GATHER_ERR_GRAD_RTOL}), grouped form == direct "
+          f"form in raw bits (K={table.shape[1]}, S={idx.shape[0]})",
+          flush=True)
     return errs
 
 
@@ -108,13 +126,30 @@ def timeit(name, step, table, inner: int = INNER) -> float:
     return per
 
 
-def run(device, names=VARIANTS) -> tuple[dict, dict]:
-    """Check the kernels, then time ``names``; returns ({kernel: max abs
-    error against its twin}, {variant: ms per gather})."""
+def forms_ms(table, idx, vals, blk: int = BLK, rounds: int = 7) -> dict:
+    """Milliseconds a call of ``gather_err_grad``'s two forms, "grouped"
+    and "direct", from CUDA graph replays of ``GRAPH_CALLS`` calls, in
+    turns in one window.  A replay launches without calling the wrappers,
+    so it adds to no launch count."""
+    fns = {"grouped": graphed(lambda: gather.gather_err_grad(table, idx, vals, blk), GRAPH_CALLS),
+           "direct": graphed(lambda: gather.gather_err_grad_direct(table, idx, vals, blk), GRAPH_CALLS)}
+    ms = {k: v / GRAPH_CALLS for k, v in alternating_ms(fns, rounds).items()}
+    print(f"[probe] gather_err_grad forms, ms a call (graph replays in turns): {ms}; grouped / direct "
+          f"{ms['grouped'] / ms['direct']!r}", flush=True)
+    return ms
+
+
+def run(device, names=VARIANTS, forms: bool = True) -> tuple[dict, dict]:
+    """Check the kernels, then time ``names`` and, with ``forms``,
+    ``gather_err_grad``'s forms; returns ({kernel: max abs error against
+    its twin}, {variant: ms per gather, and "forms": ``forms_ms``})."""
     table, idx, vals = inputs(device)
     errs = check_kernels(table, idx, vals)
     fns = steps(idx, vals)
-    return errs, {name: timeit(name, fns[name], table) for name in names}
+    per = {name: timeit(name, fns[name], table) for name in names}
+    if forms:
+        per["forms"] = forms_ms(table, idx, vals)
+    return errs, per
 
 
 def main(argv=None) -> int:

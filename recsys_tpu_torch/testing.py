@@ -26,7 +26,9 @@ of ``default`` or the split of ``bf16x3``, or drops ``highest`` to split
 products, and must exceed the limit.
 
 The BELL kernel has no limit: it equals its twin bit for bit, and in f64
-``_native.serial_gd``.  Its control is ``bell_sum_then_add_train``.
+``_native.serial_gd``.  Its control is ``bell_sum_then_add_train``.  In
+bf16 the twin is held against the JAX package's bf16 step on the CPU by
+``BF16_JAX_SHARE`` and ``BF16_JAX_ULPS``, with two controls.
 """
 
 from __future__ import annotations
@@ -166,6 +168,78 @@ def bell_sum_then_add_train(L, R, tables, alpha2: float, meta, iters: int):
             for s in range(bucket[2]):
                 delta = delta + terms[s]
             out[bucket[0]:bucket[1]] = fo + delta
+        return out
+
+    for _ in range(iters):
+        L, R = side(L, R, ub), side(R, L, ib)
+    return L, R
+
+
+# The bf16 BELL twin against the JAX package's bf16 BELL step on the CPU
+# (``tests/test_torch_bell.py``), 3 steps from the glibc init at
+# inst400-50000-30-200-500 and inst50000-5000-100-2-5: the share of factor
+# values equal in raw bits, and the largest distance in bf16 ulps
+# (``bf16_ulps``).  Readings: 1.0 and 0 at both.  The controls read 0.8909
+# / 0.9214 and 3 / 3 ulps (the step in f32 inside, rounded once,
+# ``bell_bf16_f32_inside_train``) and 0.1053 / 0.4154 and 151 / 24 ulps (a
+# bf16 accumulator in the f32/f64 order, ``bell_bf16_row_acc_train``).  The
+# share's limit leaves 1 value in 1000 to a reordered XLA sum, 78x fewer
+# than the nearest control's unequal values; the ulp limit is a third of
+# the nearest control's.
+BF16_JAX_SHARE = 0.999
+BF16_JAX_ULPS = 1
+
+
+def bit_share(a, b) -> float:
+    """The share of values equal in raw bits across two sequences of
+    tensors of one dtype."""
+    same = sum(int((x.contiguous().view(_BITS[x.element_size()]) == y.contiguous().view(_BITS[y.element_size()]))
+                   .sum()) for x, y in zip(a, b))
+    return same / sum(x.numel() for x in a)
+
+
+def bf16_ulps(a, b) -> int:
+    """The largest distance in bf16 ulps between two sequences of bf16
+    tensors: the bit patterns mapped to an ordered integer line (-0.0
+    and +0.0 one point)."""
+    def line(x):
+        i = x.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -32768 - i, i)
+
+    return max(int((line(x) - line(y)).abs().max()) for x, y in zip(a, b))
+
+
+def bell_bf16_f32_inside_train(L, R, tables, alpha2: float, meta, iters: int):
+    """The first control of the bf16 BELL readings: each step computed in
+    f32 from the bf16 factors (``bell.bell_train_plain`` in f32, alpha2
+    rounded to bf16) and rounded to bf16 once, at its end."""
+    from recsys_tpu_torch.ops import bell
+
+    t32 = tables._replace(uvals=tables.uvals.float(), ivals=tables.ivals.float())
+    a2 = bell._alpha(alpha2, torch.bfloat16)
+    for _ in range(iters):
+        L, R = (x.bfloat16() for x in bell.bell_train_plain(L.float(), R.float(), t32, a2, meta, 1))
+    return L, R
+
+
+def bell_bf16_row_acc_train(L, R, tables, alpha2: float, meta, iters: int):
+    """The second control: the bf16 step with the f32/f64 kernel's order
+    carried over, the row itself the accumulator, each slot's term
+    rounded to bf16 and added into it with a bf16 rounding, slot after
+    slot."""
+    from recsys_tpu_torch.ops import bell
+
+    ub = bell._twin_buckets(tables.ucols, tables.uvals, meta.user, meta.item.size)
+    ib = bell._twin_buckets(tables.irows, tables.ivals, meta.item, meta.user.size)
+    a2 = torch.tensor(bell._alpha(alpha2, torch.bfloat16), dtype=torch.float32, device=L.device)
+
+    def side(F_own, F_other, buckets):
+        out = F_own.clone()
+        for bucket in buckets:
+            acc, terms = bell._bucket_terms(F_own, F_other, bucket, a2)
+            for s in range(bucket[2]):
+                acc = bell._bf(acc + bell._bf(terms[s]))
+            out[bucket[0]:bucket[1]] = acc.bfloat16()
         return out
 
     for _ in range(iters):

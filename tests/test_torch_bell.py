@@ -35,8 +35,8 @@ from recsys_tpu_torch.engine import trainer
 from recsys_tpu_torch.io import _native
 from recsys_tpu_torch.io.generator import generate_instance
 from recsys_tpu_torch.io.parser import load_problem
-from recsys_tpu_torch.models.mf import init_factors
-from recsys_tpu_torch.ops import bell, dense, gather
+from recsys_tpu_torch.models.mf import MFState, init_factors
+from recsys_tpu_torch.ops import bell, dense, device_rng, gather
 from recsys_tpu_torch.probes import mosaic_gather
 
 
@@ -259,12 +259,103 @@ def test_choose_path_takes_bell_on_the_card():
                        vals=np.ones(len(rows)))
     assert trainer.choose_path(spec, RunConfig(dtype="float64"), "cuda") == "bell"
     assert trainer.choose_path(spec, RunConfig(dtype="float32"), "cuda") == "bell"
+    assert trainer.choose_path(spec, RunConfig(dtype="bfloat16"), "cuda") == "bell"
 
 
-def test_bf16_on_bell_raises():
-    spec = SPECS["sparse"]()
-    with pytest.raises(NotImplementedError, match="A12"):
-        trainer.run(spec, RunConfig(dtype="bfloat16", path="bell"), "cpu")
+@pytest.mark.parametrize("name", ["sparse", "stored_zero"])
+def test_run_bf16_bell_matches_jax(name):
+    # bf16 on the bell route: the reference's output format, and the JAX
+    # package's own bf16 run line for line; factorize's factors (float32
+    # arrays holding bf16 values) equal the JAX package's bit for bit, and
+    # recommend() on them gives run()'s top-1.
+    spec = dataclasses.replace(SPECS[name](), iters=30)
+    out, top1 = trainer.run(spec, RunConfig(dtype="bfloat16", path="bell"), "cpu")
+    want, _ = jax_trainer.run(spec, JaxRunConfig(dtype="bfloat16", path="bell"))
+    assert len(out.splitlines()) == spec.users and top1.dtype == np.int32
+    assert all(line.split()[0].isdigit() for line in out.splitlines())
+    assert out == want
+    st = trainer.factorize(spec, RunConfig(dtype="bfloat16", path="bell"), "cpu")
+    js = jax_trainer.factorize(spec, JaxRunConfig(dtype="bfloat16", path="bell"))
+    assert st.L.dtype == np.float32
+    # recommend() scores factorize()'s float32 arrays in bf16, as run() does.
+    np.testing.assert_array_equal(trainer.recommend(st, spec, RunConfig(dtype="bfloat16", path="bell"), "cpu"), top1)
+    np.testing.assert_array_equal(st.L, np.asarray(js.L).astype(np.float32))
+    np.testing.assert_array_equal(st.R, np.asarray(js.R).astype(np.float32))
+
+
+# The bf16 readings against the JAX package's bf16 BELL step: the published
+# instances on which the JAX package itself reads 0.4475 and 0.1038 argmax
+# agreement in bf16 (tests/bf16_bell_readings.py), cut to 3 steps.
+BF16_STEPS = 3
+
+
+def _bf16_inputs(name):
+    """(spec, meta, L, R, tables) of the port in bf16 at ``name`` and the
+    JAX package's factors after ``BF16_STEPS`` bf16 steps from the same
+    init, as bf16 tensors."""
+    spec = dataclasses.replace(load_problem(str(FIXTURES / f"{name}.in")), iters=BF16_STEPS)
+    data = bell.make_bell_inputs(spec, np.float32)
+    L, R = (torch.from_numpy(x).bfloat16() for x in bell.pad_factors_for_bell(
+        init_factors(spec.users, spec.items, spec.features), data, np.float32))
+    jd = jax_bell.make_bell_inputs(spec, jnp.bfloat16)
+    jL, jR = jax_bell.pad_factors_for_bell(init_factors(spec.users, spec.items, spec.features), jd, jnp.bfloat16)
+    assert checks.same_bits((L, R), tuple(torch.from_numpy(np.asarray(x).astype(np.float32)).bfloat16()
+                                          for x in (jL, jR)))
+    jt = jax.tree.map(jnp.asarray, jd.tables)
+    for got, want in ((data.tables.uvals, jd.tables.uvals), (data.tables.ivals, jd.tables.ivals)):
+        flat = np.concatenate([np.asarray(v, np.float32).reshape(-1) for v in want])
+        assert np.array_equal(torch.from_numpy(got).bfloat16().float().numpy(), flat)
+    jLn, jRn = jax_trainer._train_bell(jnp.asarray(jL), jnp.asarray(jR), jt,
+                                       jnp.asarray(2.0 * spec.alpha, jnp.bfloat16), spec.iters, jd.meta)
+    want = tuple(torch.from_numpy(np.asarray(x).astype(np.float32)).bfloat16() for x in (jLn, jRn))
+    return spec, data.meta, L, R, bell.device_tables(data.tables, "cpu", torch.bfloat16), want
+
+
+@pytest.mark.parametrize("name", ["inst400-50000-30-200-500", "inst50000-5000-100-2-5"])
+def test_bf16_twin_matches_jax_bell_step(name):
+    spec, meta, L, R, t, want = _bf16_inputs(name)
+    got = bell.bell_train(L, R, t, 2.0 * spec.alpha, meta, spec.iters)
+    assert got[0].dtype == torch.bfloat16
+    share, ulps = checks.bit_share(got, want), checks.bf16_ulps(got, want)
+    assert share >= checks.BF16_JAX_SHARE and ulps <= checks.BF16_JAX_ULPS, (share, ulps)
+    # The zero rows stay zero.
+    assert torch.all(got[0][-1] == 0) and torch.all(got[1][-1] == 0)
+
+
+@pytest.mark.parametrize("name", ["inst400-50000-30-200-500", "inst50000-5000-100-2-5"])
+def test_bf16_controls_rejected(name):
+    # The f32 step rounded once, and a bf16 accumulator in the f32/f64
+    # order: each must fail both limits against the JAX package.
+    spec, meta, L, R, t, want = _bf16_inputs(name)
+    for control in (checks.bell_bf16_f32_inside_train, checks.bell_bf16_row_acc_train):
+        got = control(L, R, t, 2.0 * spec.alpha, meta, spec.iters)
+        share, ulps = checks.bit_share(got, want), checks.bf16_ulps(got, want)
+        assert share < checks.BF16_JAX_SHARE and ulps > checks.BF16_JAX_ULPS, (control.__name__, share, ulps)
+
+
+def test_bf16_device_init_matches_jax(monkeypatch):
+    # The bf16 device init (the f32 draws rounded to bf16, then the
+    # permute and zero row) at a small size: the permute equals the host
+    # route's pad of the same draws bit for bit, and the whole bf16 run
+    # from the device init equals the JAX package's, whose device init is
+    # taken at the same threshold.
+    spec = dataclasses.replace(SPECS["power_law"](), iters=3)
+    monkeypatch.setattr(trainer, "DEVICE_INIT_MIN_DRAWS", 1)
+    monkeypatch.setattr(jax_trainer, "DEVICE_INIT_MIN_DRAWS", 1)
+    assert trainer._device_init(spec, RunConfig(dtype="bfloat16"), None)
+    assert not trainer._device_init(spec, RunConfig(dtype="float64"), None)
+    data = bell.make_bell_inputs(spec, np.float32)
+    Ld, Rd = device_rng.device_init_factors(spec.users, spec.items, spec.features, device="cpu")
+    L0 = trainer._permute_pad(Ld.to(torch.bfloat16), data.user_perm)
+    Lh, _ = bell.pad_factors_for_bell(MFState(Ld.numpy(), Rd.numpy()), data, np.float32)
+    assert checks.same_bits(L0, torch.from_numpy(Lh).bfloat16())
+    # Against the host glibc init: the draws' float steps differ by up to 2 f32 ulps.
+    Lg, _ = bell.pad_factors_for_bell(init_factors(spec.users, spec.items, spec.features), data, np.float32)
+    assert checks.bf16_ulps((L0,), (torch.from_numpy(Lg).bfloat16(),)) <= 1
+    st = trainer.factorize(spec, RunConfig(dtype="bfloat16", path="bell"), "cpu")
+    js = jax_trainer.factorize(spec, JaxRunConfig(dtype="bfloat16", path="bell"))
+    np.testing.assert_array_equal(st.L, np.asarray(js.L).astype(np.float32))
+    np.testing.assert_array_equal(st.R, np.asarray(js.R).astype(np.float32))
 
 
 def test_kernel_wrapper_refuses_what_it_does_not_take():
@@ -360,3 +451,13 @@ def test_p2_probe_loop_on_the_cpu():
     assert torch.isfinite(sums["p4"]).all()
     with pytest.raises(ValueError, match="blk"):
         gather.gather_err_grad(table, idx, vals, P2_N + 1)
+
+
+def test_gather_err_grad_forms_on_the_cpu():
+    # Both forms take the twin on the CPU, uncounted.
+    table, idx, vals = mosaic_gather.inputs("cpu", P2_N, P2_K, P2_S)
+    before = gather.gather_err_grad.launches, gather.gather_err_grad_direct.launches
+    want = gather.gather_err_grad_plain(table, idx, vals, P2_BLK)
+    assert torch.equal(gather.gather_err_grad(table, idx, vals, P2_BLK), want)
+    assert torch.equal(gather.gather_err_grad_direct(table, idx, vals, P2_BLK), want)
+    assert (gather.gather_err_grad.launches, gather.gather_err_grad_direct.launches) == before

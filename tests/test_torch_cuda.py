@@ -353,6 +353,54 @@ def test_bell_kernel_equals_twin_bit_for_bit(k, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 7, 8, 30, 100, 700])
+def test_bell_bf16_kernel_equals_twin_in_both_forms(k):
+    # The bf16 instance: the JAX package's rounding points in the twin's
+    # order, so bit for bit in the block form (the hub row's 1500 slots,
+    # at least bell.WIDE_MIN) and in the warp form alone; the two
+    # controls differ.  The block form copies a bf16 row in pieces of 2
+    # bytes at k = 3 and 7, 16 at k = 8, 4 at k = 30 and 8 at k = 100, 700.
+    from recsys_tpu_torch.models.mf import init_factors
+    from recsys_tpu_torch.ops import bell
+
+    dev = _cuda()
+    for spec in (checks.hub_spec(k), _bell_spec(k, stored_zero=True)):
+        init = init_factors(spec.users, spec.items, spec.features)
+        data, L, R, t = bell.bell_tensors(spec, init, torch.bfloat16, dev)
+        a2 = 2.0 * spec.alpha
+        assert L.dtype == torch.bfloat16 and t.uvals.dtype == torch.bfloat16
+        before = bell.bell_side_update.launches
+        got = bell.bell_train(L, R, t, a2, data.meta, spec.iters)
+        warp = bell.bell_train(L, R, t, a2, data.meta, spec.iters, wide=bell.WARP_FORM)
+        again = bell.bell_train(L, R, t, a2, data.meta, spec.iters)
+        twin = bell.bell_train_plain(L, R, t, a2, data.meta, spec.iters)
+        torch.cuda.synchronize()
+        assert bell.bell_side_update.launches == before + 6 * spec.iters
+        assert checks.same_bits(got, twin) and checks.same_bits(warp, twin) and checks.same_bits(got, again)
+        if spec.users == 300:  # the hub spec: its widest row takes a block
+            assert bell.side_warps(data.meta.user).blocks > 0
+        for control in (checks.bell_bf16_f32_inside_train, checks.bell_bf16_row_acc_train):
+            assert checks.bit_share(control(L, R, t, a2, data.meta, spec.iters), twin) < 1.0
+
+
+@pytest.mark.cuda
+def test_run_bf16_takes_bell_and_holds_agreement():
+    from recsys_tpu_torch.ops import bell
+
+    dev = _cuda()
+    spec = load_problem(str(FIXTURES / "gen-inst100000-1000-20-1-3.in"))
+    cfg = RunConfig(dtype="bfloat16")
+    assert trainer.choose_path(spec, cfg, dev) == "bell"
+    before = bell.bell_side_update.launches
+    out, _ = trainer.run(spec, cfg, dev)
+    assert bell.bell_side_update.launches == before + 2 * spec.iters
+    want = (FIXTURES / "gen-inst100000-1000-20-1-3.out").read_text().splitlines()
+    got = out.splitlines()
+    assert len(got) == len(want)
+    assert sum(a == b for a, b in zip(got, want)) / len(want) >= 0.98  # the JAX package reads 0.99553
+
+
+@pytest.mark.cuda
 def test_run_instml100k_f64_takes_bell_and_matches_golden():
     from recsys_tpu_torch.ops import bell
 
@@ -384,6 +432,30 @@ def test_p2_kernels_match_twins():
     # The kernel moves float4s: other widths raise, never fall back.
     with pytest.raises(ValueError, match="K % 4"):
         gather.gather_rows(table[:, :5].contiguous(), idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [30, 100, 128, 700])
+@pytest.mark.parametrize("S", [176_128, 1001])
+def test_gather_err_grad_grouped_keeps_the_direct_bits(K, S):
+    # The grouped form against the direct form it replaced, in raw bits:
+    # two slots a warp through K = 512, one at K = 700; an S that is no
+    # multiple of the group leaves a ragged last group.
+    from recsys_tpu_torch.ops import gather
+    from recsys_tpu_torch.probes import mosaic_gather
+
+    dev = _cuda()
+    table, idx, vals = mosaic_gather.inputs(dev, mosaic_gather.N, K, S)
+    before = gather.gather_err_grad.launches, gather.gather_err_grad_direct.launches
+    direct = gather.gather_err_grad_direct(table, idx, vals, mosaic_gather.BLK)
+    twin = gather.gather_err_grad_plain(table, idx, vals, mosaic_gather.BLK)
+    got = gather.gather_err_grad(table, idx, vals, mosaic_gather.BLK)
+    torch.cuda.synchronize()
+    assert checks.same_bits(got, direct)
+    assert float((got - twin).abs().max()) <= checks.GATHER_ERR_GRAD_RTOL * float(twin.abs().max())
+    assert (gather.gather_err_grad.launches, gather.gather_err_grad_direct.launches) == (before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="K="):
+        gather.gather_err_grad(torch.zeros((8, gather.MAX_K + 4), device=dev), idx[:4].remainder(8), vals[:4], 4)
 
 
 @pytest.mark.cuda
