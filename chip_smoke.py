@@ -130,6 +130,21 @@ each printed as it runs:
    sums) and f64 (segment sums) against the golden, two ``factorize`` runs
    bit for bit in each, phases and slope, one step's device time by kernel.
 
+16. the sharded engine (``recsys_tpu_torch/parallel``), every shard on the
+   card: ``bell_side_delta`` (the delta form of ``bell_side_update``, the
+   sharded BELL's per-shard kernel) against its twin in raw bits in f64,
+   f32 and bf16, both forms, every shard of a 2x4 mesh at the dryrun's
+   shapes and a hub spec and shard (0, 0) of gen-inst1e6 on its (4, 1)
+   mesh, 2 steps; B5's raw ``tiled_deltas`` against its twin at
+   instML100k's 2x2 shard shapes within ``testing.TILED_UPDATE_RTOL``;
+   ``parallel.engine.dryrun(8)``; instML100k through ``run()`` on a 2x2
+   mesh in f32 `highest` (``tiled_deltas`` a shard and step, floor 0.99)
+   and f64 (the checkerboard BELL, byte for byte), each with one step split
+   by CUDA events into the shards' kernels and the reductions, copies and
+   updates; gen-inst1e6 f32 through ``run()`` on the (4, 1) mesh (the
+   checkerboard BELL with the device init, floor 0.99).  Each run prints a
+   ``[mesh]`` line: phases, wall, agreement, launches.
+
 Every main path runs with the launch counts set to 0 just before it and
 read just after.  The last two lines are a JSON object of the kernels'
 numbers and ``{"ok": true, "device": {...}}``; any failed phase exits
@@ -208,6 +223,12 @@ BF16_WITNESS = "inst400-50000-30-200-500"
 # Steps of the BELL kernel-vs-twin reading at gen-inst1e6's shape.
 INST1E6_BELL_STEPS = 2
 FORCE_RESIDENT = 1 << 62
+# The sharded engine's phase: instML100k on a 2x2 mesh, gen-inst1e6 on the
+# (4, 1) mesh ``balanced_grid`` picks for 4 shards of 1M x 100, every shard
+# on the one card; the dryrun's shard count; floors against the golden (f64
+# demands the byte match).
+MESH, INST1E6_MESH, DRYRUN_SHARDS = (2, 2), (4, 1), 8
+MESH_FLOOR = {"float32": 0.99, "float64": 1.0}
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "resident_train_top1": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:663"),
@@ -225,6 +246,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "gather_err_grad": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
     "gather_err_grad_direct": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
     "bell_side_update_bf16": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
+    "bell_side_delta": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
     "lane_gather": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:40"),
     "lane_gather_direct": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:40"),
     "lane_cumsum": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:57"),
@@ -260,6 +282,7 @@ def _wrappers():
         "tiled_deltas": dense_tiled.tiled_deltas,
         "tiled_step": dense_tiled.tiled_step,
         "bell_side_update": bell.bell_side_update,
+        "bell_side_delta": bell.bell_side_delta,
         "gather_rows": gather.gather_rows,
         "gather_err_grad": gather.gather_err_grad,
         "gather_err_grad_direct": gather.gather_err_grad_direct,
@@ -622,12 +645,12 @@ def tiled_kernel_phase(torch, dev, big):
     return worst
 
 
-def _run(spec, precision, dev, torch, path="auto", dtype="float32", **plan):
+def _run(spec, precision, dev, torch, path="auto", dtype="float32", mesh_shape=None, **plan):
     from recsys_tpu_torch.config import RunConfig
     from recsys_tpu_torch.engine import trainer
     from recsys_tpu_torch.utils.timing import collect_phases
 
-    cfg = RunConfig(dtype=dtype, path=path, precision=precision)
+    cfg = RunConfig(dtype=dtype, path=path, precision=precision, mesh_shape=mesh_shape)
     phases = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1412,6 +1435,243 @@ def coo_phase(torch, dev, launches):
         _step_profile(torch, f"COO step at instML100k {dtype} ({form})", lambda: step(L, R, data, 2.0 * spec.alpha), 20)
 
 
+def _mesh_run(name, spec, golden, floor, dev, torch, launches, shape, dtype, route):
+    """One ``trainer.run`` with ``mesh_shape=shape`` (every shard on the
+    card) in its own launch-count window, on the sharded ``route``, held
+    against ``golden`` at ``floor`` (1.0 demands the byte match).  Returns
+    (phases, launch counts)."""
+    from recsys_tpu_torch.config import RunConfig
+    from recsys_tpu_torch.parallel import engine as par
+    from recsys_tpu_torch.parallel.mesh import make_mesh
+
+    precision = "highest" if dtype == "float32" else "auto"
+    cfg = RunConfig(dtype=dtype, precision=precision, mesh_shape=shape)
+    got = par.sharded_route(spec, cfg, make_mesh(spec.users, spec.items, shape, device=dev))
+    if got != route:
+        raise AssertionError(f"{name} {dtype} on {shape} took the sharded {got!r} route, not {route!r}")
+    counts = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counted(counts):
+        out, wall, ph = _run(spec, precision, dev, torch, dtype=dtype, mesh_shape=shape)
+    want = golden.splitlines()
+    agree, lines = _agreement(out, want)
+    launches[f"{name} mesh", dtype] = counts
+    log(f"[mesh] {name} {dtype} mesh {shape[0]}x{shape[1]} ({route}): agreement {agree!r} byte_match "
+        f"{out == golden} lines {lines} | wall {wall!r} s prep {ph['prep']!r} upload {ph['upload']!r} "
+        f"train {ph['train']!r} top1 {ph['top1']!r} | peak device memory {torch.cuda.max_memory_allocated(dev)!r} B "
+        f"| launches {_nonzero(counts)}")
+    if lines != len(want) or agree < floor or (floor >= 1.0 and out != golden):
+        raise AssertionError(f"{name} {dtype} mesh {shape}: agreement {agree} below {floor}")
+    return ph, counts
+
+
+def _delta_readings(torch, dev, label, data, blocks, shards, a2, steps):
+    """``bell_side_delta`` in both forms against ``bell_side_delta_plain``
+    in raw bits, in f64, f32 and bf16, on both sides of each shard in
+    ``shards``, ``steps`` steps of the shard alone (its twin deltas added to
+    its rows), and two kernel calls the same.  ``blocks(ub, ib)`` gives the
+    shard's f64 factor blocks (zero row last).  Returns (failed, max abs
+    error)."""
+    from recsys_tpu_torch import testing as checks
+    from recsys_tpu_torch.ops import bell
+
+    m, failed, worst = data.meta, [], 0.0
+    for tdt in (torch.float64, torch.float32, torch.bfloat16):
+        for ub, ib in shards:
+            t = bell.shard_tables(data.tables, ub, ib, dev, tdt)
+            l, r = (x.to(tdt) for x in blocks(ub, ib))
+            ok = {"= twin": True, "= warp form": True, "two runs same": True}
+            for _ in range(steps):
+                twins = []
+                for own, other, cols, vals, side in ((l, r, t.ucols, t.uvals, m.user), (r, l, t.irows, t.ivals, m.item)):
+                    twin = bell.bell_side_delta_plain(own, other, cols, vals, side, a2)
+                    got = bell.bell_side_delta(own, other, cols, vals, side, a2)
+                    warp = bell.bell_side_delta(own, other, cols, vals, side, a2, wide=bell.WARP_FORM)
+                    again = bell.bell_side_delta(own, other, cols, vals, side, a2)
+                    ok["= twin"] &= checks.same_bits(got, twin)
+                    ok["= warp form"] &= checks.same_bits(warp, twin)
+                    ok["two runs same"] &= checks.same_bits(again, got)
+                    if twin.numel():
+                        worst = max(worst, float((got.double() - twin.double()).abs().max()))
+                    twins.append(twin)
+                l[: m.user.n_nz] += twins[0]
+                r[: m.item.n_nz] += twins[1]
+            bad = [k for k, v in ok.items() if not v]
+            if bad:
+                failed.append(f"{label} shard {(ub, ib)} {tdt}: {bad}")
+        log(f"[mesh] bell_side_delta {label} {str(tdt).split('.')[1]}, shards {shards}, {steps} steps "
+            f"({len(m.user.bounds)}+{len(m.item.bounds)} buckets, widest "
+            f"{max((w for _, _, w in m.user.bounds + m.item.bounds), default=0)} slots): kernel = twin and warp "
+            f"form = twin in raw bits, two runs same: {'ok' if not failed else failed}")
+    return failed, worst
+
+
+def _step_split(torch, label, step_fn, kernels_fn, reps=20):
+    """One sharded step's device time by CUDA events (``step_fn(n)`` runs n
+    steps) against that of the shards' kernels alone (``kernels_fn()``, one
+    step's partials): the rest is the reductions, the copies and the
+    updates.  Logged; returns (step ms, kernels ms)."""
+    from recsys_tpu_torch.utils.timing import cuda_event_ms
+
+    step_ms = cuda_event_ms(lambda: step_fn(reps)) / reps
+    kern_ms = cuda_event_ms(kernels_fn, reps)
+    log(f"[mesh] {label}: one step {step_ms!r} ms by CUDA events, the shards' kernels {kern_ms!r} ms, the "
+        f"reductions, copies and updates {step_ms - kern_ms!r} ms ({(step_ms - kern_ms) / step_ms:.1%})")
+    return step_ms, kern_ms
+
+
+def mesh_phase(torch, dev, launches, big):
+    """The sharded engine (``recsys_tpu_torch/parallel``), every shard on
+    the card: (a) ``bell_side_delta`` against its twin in raw bits (f64,
+    f32, bf16, both forms) at the dryrun's shapes and a hub spec on a 2x4
+    mesh (2 steps) and at shard (0, 0) of gen-inst1e6 on its (4, 1) mesh
+    (2 steps), and B5's raw ``tiled_deltas`` against its twin at
+    instML100k's 2x2 shard shapes within ``testing.TILED_UPDATE_RTOL``;
+    (b) ``parallel.engine.dryrun(8)``; (c) instML100k through ``run()`` on
+    a 2x2 mesh in f32 `highest` (the sharded ``tiled`` route) and f64 (the
+    checkerboard ``bell``, byte for byte), with each step's split into the
+    shards' kernels and the rest; (d) gen-inst1e6 f32 through ``run()`` on
+    the (4, 1) mesh (``bell``, the device init).  Returns the numbers of the
+    kernels line's ``tiled_deltas`` and ``bell_side_delta`` entries."""
+    import gc
+
+    import numpy as np
+
+    from recsys_tpu_torch import testing as checks
+    from recsys_tpu_torch.config import RunConfig
+    from recsys_tpu_torch.engine import trainer
+    from recsys_tpu_torch.io.generator import generate_instance
+    from recsys_tpu_torch.io.parser import load_problem
+    from recsys_tpu_torch.models.mf import init_factors
+    from recsys_tpu_torch.ops import bell, dense_tiled
+    from recsys_tpu_torch.parallel import engine as par
+    from recsys_tpu_torch.parallel import step
+    from recsys_tpu_torch.parallel.mesh import make_mesh
+    from recsys_tpu_torch.utils.timing import cuda_event_ms
+
+    failed, worst = [], 0.0
+    # (a) the delta form at the dryrun's shapes and a hub spec (rows of 375
+    # slots a shard: the block form), every shard of a 2x4 mesh.
+    small = {"dryrun 200x300 k8": generate_instance(200, 300, 8, 1, 6, iters=5, alpha=0.02, seed=11),
+             "dryrun 12x20 k4": generate_instance(12, 20, 4, 1, 5, iters=1, alpha=0.01, seed=7),
+             "hub 300x2000 k30": checks.hub_spec(30)}
+    for label, spec in small.items():
+        data = bell.make_sharded_bell(spec, 2, 4, np.float64)
+        Lp, Rp = (torch.from_numpy(x).to(dev) for x in
+                  bell.pad_factors_sharded_bell(init_factors(spec.users, spec.items, spec.features), data, np.float64))
+        m = data.meta
+
+        def blocks(ub, ib, Lp=Lp, Rp=Rp, m=m):
+            return (Lp[ub * (m.u_blk + 1):(ub + 1) * (m.u_blk + 1)].clone(),
+                    Rp[ib * (m.i_blk + 1):(ib + 1) * (m.i_blk + 1)].clone())
+
+        f, e = _delta_readings(torch, dev, label, data, blocks, [(ub, ib) for ub in range(2) for ib in range(4)],
+                               2.0 * spec.alpha, 2)
+        failed, worst = failed + f, max(worst, e)
+    t0 = time.perf_counter()
+    data = bell.make_sharded_bell(big, *INST1E6_MESH, np.float64)
+    m = data.meta
+    log(f"[mesh] {INST1E6} on {INST1E6_MESH}: sharded BELL tables built in {time.perf_counter() - t0!r} s; a shard "
+        f"holds {m.u_blk} users, {m.i_blk} items")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def big_blocks(ub, ib):
+        l, r = (torch.rand((n + 1, big.features), generator=g, dtype=torch.float64, device=dev).div_(big.features)
+                for n in (m.u_blk, m.i_blk))
+        l[-1], r[-1] = 0.0, 0.0
+        return l, r
+
+    f, e = _delta_readings(torch, dev, INST1E6, data, big_blocks, [(0, 0)], 2.0 * big.alpha, 2)
+    failed, worst = failed + f, max(worst, e)
+    del data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ml = load_problem(ML100K + ".in")
+    with open(ML100K + ".out") as fh:
+        golden = fh.read()
+    mesh = make_mesh(ml.users, ml.items, MESH, device=dev)
+    L, R, Ab, At = par.tiled_inputs(ml, mesh)
+    got, twin = [], []
+    for ub, ib, _ in mesh.shards():
+        got += dense_tiled.tiled_deltas(L[ub][ib], R[ib][ub], Ab[ub][ib], At=At[ub][ib])
+        twin += dense_tiled.tiled_deltas_plain(L[ub][ib], R[ib][ub], Ab[ub][ib])
+    rel = (max(float((a - b).abs().max()) for a, b in zip(got, twin))
+           / max(float(b.abs().max()) for b in twin))  # max |kernel - twin| / max |twin|, all shards
+    del got, twin
+    limit = checks.TILED_UPDATE_RTOL["highest"]
+    log(f"[mesh] tiled_deltas at instML100k's {MESH} shards (L {tuple(L[0][0].shape)}, R {tuple(R[0][0].shape)}, A "
+        f"{tuple(Ab[0][0].shape)} {Ab[0][0].dtype}), highest: max |kernel - twin| / max |twin| {rel!r} (limit "
+        f"{limit}) {'ok' if rel <= limit else 'FAIL'}")
+    if rel > limit:
+        failed.append(f"tiled_deltas at instML100k's shards: {rel} > {limit}")
+    if failed:
+        raise AssertionError(f"the sharded kernels' readings failed: {failed}")
+    l0, r0, a0, at0 = L[0][0], R[0][0], Ab[0][0], At[0][0]
+    tiled = {"err": float(max((x - y).abs().max() for x, y in zip(dense_tiled.tiled_deltas(l0, r0, a0, At=at0),
+                                                                     dense_tiled.tiled_deltas_plain(l0, r0, a0)))),
+             "ms": cuda_event_ms(lambda: dense_tiled.tiled_deltas(l0, r0, a0, At=at0), 50),
+             "plain_ms": cuda_event_ms(lambda: dense_tiled.tiled_deltas_plain(l0, r0, a0), 20),
+             "nnz": int((a0 != 0).sum()), "nbytes": a0.numel() * a0.element_size() + 2 * 4 * (l0.numel() + r0.numel())}
+
+    # (b) the dryrun, every shard on the card.
+    t0 = time.perf_counter()
+    par.dryrun(DRYRUN_SHARDS, device=dev)
+    log(f"[mesh] dryrun({DRYRUN_SHARDS}) on {dev}: ok in {time.perf_counter() - t0!r} s")
+
+    # (c) instML100k on the 2x2 mesh, then one step split by CUDA events.
+    for dtype, route in (("float32", "tiled"), ("float64", "bell")):
+        _mesh_run("instML100k", dataclasses.replace(ml, iters=10), golden, 0.0, dev, torch, {}, MESH, dtype,
+                  route)  # warm-up
+        ph, counts = _mesh_run("instML100k", ml, golden, MESH_FLOOR[dtype], dev, torch, launches, MESH, dtype, route)
+        kernel = "tiled_deltas" if route == "tiled" else "bell_side_delta"
+        want = ml.iters * 4 * (1 if route == "tiled" else 2)
+        if counts[kernel] != want:
+            raise AssertionError(f"instML100k {dtype} mesh: {kernel} launched {counts[kernel]} times, not {want}")
+    a2 = 2.0 * ml.alpha
+    t_split = _step_split(torch, f"instML100k f32 mesh {MESH} (tiled)",
+                          lambda n: step.tiled_train(mesh, L, R, Ab, At, a2, n),
+                          lambda: [dense_tiled.tiled_deltas(L[ub][ib], R[ib][ub], Ab[ub][ib], At=At[ub][ib])
+                                   for ub, ib, _ in mesh.shards()])
+    del L, R, Ab, At
+    data, L, R, tables = par.bell_inputs(ml, RunConfig(dtype="float64"), mesh)
+    m, preps = data.meta, step.bell_preps(mesh, tables, data.meta)
+    b_split = _step_split(torch, f"instML100k f64 mesh {MESH} (bell)",
+                          lambda n: step.bell_train(mesh, L, R, tables, a2, n, m),
+                          lambda: step.bell_partials(mesh, L, R, tables, a2, m, preps))
+
+    def twin_partials():
+        for ub, ib, _ in mesh.shards():
+            t = tables[ub][ib]
+            bell.bell_side_delta_plain(L[ub][ib], R[ib][ub], t.ucols, t.uvals, m.user, a2)
+            bell.bell_side_delta_plain(R[ib][ub], L[ub][ib], t.irows, t.ivals, m.item, a2)
+
+    k = ml.features
+    slots = sum(t.ucols.numel() + t.irows.numel() for row in tables for t in row)
+    delta = {"err": worst, "ms": b_split[1], "plain_ms": cuda_event_ms(twin_partials, 3), "flops": 2 * 4.0 * k * ml.nnz,
+             "nbytes": 8 * k * (m.pu * (m.u_blk + 1) + m.pi * (m.i_blk + 1)) + (4 + 8) * slots
+             + m.pu * m.pi * 8 * k * (m.user.n_nz + m.item.n_nz)}
+    log(f"[kernels] bell_side_delta at instML100k f64 on {MESH}, one step's partials (8 launches): {delta['nbytes']} B "
+        f"(L, R and every shard's tables read once, every shard's partials written), {delta['flops']!r} FLOP; the whole "
+        f"step {b_split[0]!r} ms, the tiled route's {t_split[0]!r} ms")
+    del L, R, tables, preps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) gen-inst1e6 f32 on the (4, 1) mesh: the checkerboard BELL with the device init.
+    with open(INST1E6_OUT) as fh:
+        golden = fh.read()
+    if not trainer._device_init(big, RunConfig(dtype="float32"), None):
+        raise AssertionError(f"{INST1E6} f32 must draw its factors on the card")
+    _, counts = _mesh_run(INST1E6, big, golden, INST1E6_BELL_FLOOR["float32"], dev, torch, launches, INST1E6_MESH,
+                          "float32", "bell")
+    if counts["bell_side_delta"] != 2 * 4 * big.iters:
+        raise AssertionError(f"{INST1E6} mesh: bell_side_delta launched {counts['bell_side_delta']} times")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tiled_deltas": tiled, "bell_side_delta": delta}
+
+
 def device_rng_phase(torch, dev, spec):
     """The card's glibc words against the host generator's across block
     boundaries and two calls, at a small block and at the default one; then
@@ -1563,10 +1823,12 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     """The kernels line: every number measured in this run, in `highest`.
     The train kernels' bound counts 6*k FLOP per rated cell and step, the
     top-1's 2*k per (user, item); bytes count each input tensor read once
-    and each output written once.  B5's raw deltas are one launch, one
-    step's deltas, and its fused step one step (the B5 probe's slope in
-    turns), both at gen-inst1e6's shape (``big``) and bound alike; then
-    ``bell_records``."""
+    and each output written once.  B5's raw deltas are one launch at
+    instML100k's 2x2 shard shape (the sharded route's; gen-inst1e6's
+    logged beside), its fused step one step at gen-inst1e6's shape
+    (``big``, the B5 probe's slope in turns); then ``bell_records`` and
+    ``bell_side_delta``, one step's partials of the 2x2 mesh at instML100k
+    in f64 (``mesh_phase``)."""
     from recsys_tpu_torch.engine import trainer
     from recsys_tpu_torch.ops import dense_fused as df
     from recsys_tpu_torch.ops import dense_stream as ds
@@ -1629,9 +1891,14 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     L, R, A, At = _timing_inputs(big, dev, torch)
     b5_ms = cuda_event_ms(lambda: dt.tiled_deltas(L, R, A, At=At), 10)
     b5_plain = cuda_event_ms(lambda: dt.tiled_deltas_plain(L, R, A), 5)
-    # The raw deltas left the main path: their launches are the B5 probe's.
-    add("tiled_deltas", launches["B5 fused probe", "all shapes"]["tiled_deltas"], errs["tiled_deltas"], b5_ms,
-        b5_plain, 6.0 * big.nnz * big.features, a_b + 2 * f_b)
+    # The raw deltas' main path is the sharded tiled route: one launch a
+    # shard and step at instML100k's 2x2 shard shape (``mesh_phase``).
+    tl = times["mesh"]["tiled_deltas"]
+    add("tiled_deltas", launches["instML100k mesh", "float32"]["tiled_deltas"], tl["err"], tl["ms"], tl["plain_ms"],
+        6.0 * tl["nnz"] * ml100k.features, tl["nbytes"])
+    log(f"[kernels] tiled_deltas at {INST1E6}, one launch: {b5_ms!r} ms, twin {b5_plain!r} ms, bound "
+        f"{_bound(6.0 * big.nnz * big.features, a_b + 2 * f_b)!r} ms, max_abs_err against the twin "
+        f"{errs['tiled_deltas']!r}; the B5 probe's launches {launches['B5 fused probe', 'all shapes']['tiled_deltas']}")
     # The fused step: ms a step from the probe's slope in turns.
     step_plain = cuda_event_ms(lambda: dt.tiled_train_plain(L, R, A, iters=1, alpha2=2.0 * big.alpha), 5)
     add("tiled_step", launches[INST1E6, "auto"]["tiled_step"], errs["tiled_step"], times["B5 step"], step_plain,
@@ -1640,6 +1907,9 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
         f"{_bound(8.0 * plan.U * plan.I * plan.K, a_b + 2 * f_b)[0]!r} ms at the f32 peak")
     del L, R, A, At
     out += bell_records(torch, dev, ml100k, launches, errs, times)
+    bd = times["mesh"]["bell_side_delta"]
+    out.append(_record("bell_side_delta", launches["instML100k mesh", "float64"]["bell_side_delta"], bd["err"],
+                       bd["ms"], bd["plain_ms"], bd["flops"], bd["nbytes"], F64_FLOPS))
     out += probe_records(torch, dev, launches, errs, p1_rows, p3)
     for rec in out:
         log(f"[kernels] {rec['name']}: {rec['ms']!r} ms vs bound {rec['bound_ms']!r} ms "
@@ -1833,11 +2103,14 @@ def main() -> int:
         lap("P3 probe")
         coo_phase(torch, dev, launches)
         lap("COO")
+        mesh_times = mesh_phase(torch, dev, launches, big)
+        lap("mesh")
         times = {"B1": (train1["auto", "highest"], plain1["highest"]),
                  "B3": (train2["auto", "highest"], plain2["highest"])}
         times["B5 step"] = b5_times[INST1E6]["auto"]["per_step"]
         times["B4"] = b4_times
         times["bf16 bell"], times["P2 forms"] = bf16_big, p2_per["forms"]
+        times["mesh"] = mesh_times
         kernels = kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows, p3)
         lap("kernels line")
     except Exception as e:  # noqa: BLE001 - report any failed phase, exit non-zero

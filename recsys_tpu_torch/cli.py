@@ -13,8 +13,10 @@ from the file if it exists, and then runs ``trainer.recommend`` with
 is the exact mode: on the card it takes the BELL route, whose factors are
 the reference binary's bit for bit.  ``--path`` forces a route: ``bell``,
 ``dense``, ``pallas`` or ``coo`` (the COO step: prefix sums for f32 on the
-card, sorted segment sums otherwise).  ``--mesh``, which the port does
-not have yet, raises.
+card, sorted segment sums otherwise).  ``--mesh RxC`` runs the sharded
+engine (``parallel/engine.py``) on an R x C mesh whose shards all sit on
+``--device``; with ``--checkpoint`` it is refused (the checkpointed route
+trains on one device).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ def main(argv=None) -> int:
     p.add_argument("--dtype", default=None, help="float32|float64|bfloat16 (default: f32 on cuda, f64 on cpu)")
     p.add_argument("--path", default="auto", choices=["auto", "dense", "bell", "coo", "pallas"])
     p.add_argument("--precision", default="auto", choices=["auto", "highest", "bf16x3", "default"])
-    p.add_argument("--mesh", default=None, help="RxC mesh (not ported yet: raises)")
+    p.add_argument("--mesh", default=None, help="RxC mesh of shards, all on --device")
     p.add_argument("--block-items", type=int, default=4096, help="item-block size of recommend()'s top-1 (--checkpoint)")
     p.add_argument("--no-time", action="store_true", help="suppress the trailing time line")
     p.add_argument("--strict", action="store_true", help="refuse bfloat16 (the port has no measured bf16 policy)")
@@ -56,6 +58,10 @@ def main(argv=None) -> int:
         args.dtype = "float64" if device.type == "cpu" else "float32"
     mesh_shape = None
     if args.mesh:
+        if args.checkpoint:
+            print("error: --mesh with --checkpoint is refused: the checkpointed route trains on one device",
+                  file=sys.stderr)
+            return 2
         r, c = args.mesh.lower().split("x")
         mesh_shape = (int(r), int(c))
     cfg = RunConfig(dtype=args.dtype, path=args.path, mesh_shape=mesh_shape, precision=args.precision,

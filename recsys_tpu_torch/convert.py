@@ -8,7 +8,10 @@ device as the port's padded f32 tensors (K-major for the resident and
 stream kernels, lane-major for the tiled one) and back, so a test can hand
 the same factors to both packages.  The BELL route's degree-permuted
 tables with their zero rows (``pad_factors_for_bell``) keep the run's
-dtype, f32 or f64.
+dtype, f32 or f64.  The sharded engine's whole padded tables (either
+package's ``factorize_sharded``) go to host factors by
+``sharded_to_state`` and from the JAX package's padding to the port's by
+``from_jax_sharded``.
 """
 
 from __future__ import annotations
@@ -99,3 +102,31 @@ def from_checkpoint(path: str, spec, device) -> tuple[torch.Tensor, torch.Tensor
     from recsys_tpu_torch.utils.checkpoint import load
 
     return from_state(load(path).state, spec, device)
+
+
+def sharded_to_state(L, R, spec) -> MFState:
+    """Either package's ``factorize_sharded`` tables (padded rows and
+    columns, tensors or arrays) -> an ``MFState`` of host arrays at the
+    true (users, k) / (items, k) shapes, bf16 as float32."""
+    def host(x, n):
+        if isinstance(x, torch.Tensor):
+            x = (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+        x = np.asarray(x)
+        return np.ascontiguousarray(x[:n, : spec.features], np.float32 if x.dtype.itemsize < 4 else x.dtype)
+
+    return MFState(L=host(L, spec.users), R=host(R, spec.items))
+
+
+def from_jax_sharded(L, R, spec, users_pad: int, items_pad: int, K: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX sharded engine's padded tables (its padding: mesh multiples,
+    or on its tiled route 8-row blocks and k to 128) -> the port's padded
+    (users_pad, K) / (items_pad, K) tensors on ``device`` in their dtype,
+    zeros outside the true factors."""
+    state = sharded_to_state(L, R, spec)
+
+    def pad(x, n):
+        out = np.zeros((n, K), x.dtype)
+        out[: x.shape[0], : x.shape[1]] = x
+        return torch.from_numpy(out).to(device)
+
+    return pad(state.L, users_pad), pad(state.R, items_pad)

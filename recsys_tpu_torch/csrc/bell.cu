@@ -59,6 +59,19 @@
 //  * Padding slots (index = the opposite zero row) are skipped: no value test,
 //    a stored rating of 0 is a real entry.
 //
+// rs_bell_side_delta: the same side in delta form, the per-shard step of the
+// sharded engine (recsys_tpu/parallel/step.py::make_bell_train :185, whose
+// per-shard partial is ops/bell.py::_delta_side :578).  The dot, e and each
+// slot's term are as above; the row's change is summed from 0 in slot order
+// and written as it is, the row not added:
+//
+//     d = 0;  d[f] = d[f] + e * F_other[c][f]     slot after slot
+//     out[j] = d                                  (bf16: bf(d), the f32 sum rounded once)
+//
+// out holds the side's n_nz rows.  The caller sums the shards' partials along
+// the mesh axis and adds the sum to the rows.  One flag picks the form in
+// both the warp and the block form; the update form's arithmetic is unchanged.
+//
 // rs_gather_rows / rs_gather_err_grad are P2's functions at the probe's shapes:
 // one thread per float4 of a gathered row, and a warp per slot whose err is
 // the butterfly sum of its lanes' products (another order than the XLA
@@ -220,28 +233,28 @@ __device__ __forceinline__ void add_slots(typename Step<T>::C (&acc)[KPL], unsig
   }
 }
 
-// The row's start (acc) from its own values.
+// The row's start (acc) from its own values; 0 in the delta form.
 template <typename T, int KPL>
 __device__ __forceinline__ void load_row(typename Step<T>::C (&acc)[KPL], const T* __restrict__ row, int k,
-                                         int lane) {
+                                         int lane, bool delta) {
   using S = Step<T>;
 #pragma unroll
   for (int m = 0; m < KPL; ++m) {
     const int f = m * 32 + lane;
-    acc[m] = S::start(f < k ? S::ld(row + f) : typename S::C(0));
+    acc[m] = delta ? typename S::C(0) : S::start(f < k ? S::ld(row + f) : typename S::C(0));
   }
 }
 
 // The row's end into out (own: the row's values in the snapshot; f32 and
-// f64 do not read them).
+// f64 do not read them); the delta form stores acc as it is.
 template <typename T, int KPL>
 __device__ __forceinline__ void store_row(const typename Step<T>::C (&acc)[KPL], const T* __restrict__ own,
-                                          T* __restrict__ row, int k, int lane) {
+                                          T* __restrict__ row, int k, int lane, bool delta) {
   using S = Step<T>;
 #pragma unroll
   for (int m = 0; m < KPL; ++m) {
     const int f = m * 32 + lane;
-    if (f < k) row[f] = S::st(S::end(acc[m], sizeof(T) == 2 ? S::ld(own + f) : acc[m]));
+    if (f < k) row[f] = S::st(delta ? acc[m] : S::end(acc[m], sizeof(T) == 2 ? S::ld(own + f) : acc[m]));
   }
 }
 
@@ -251,7 +264,7 @@ template <typename T, int KPL>
 __device__ __forceinline__ void warp_rows(const T* __restrict__ own, const T* __restrict__ other,
                                           T* __restrict__ out, const int* __restrict__ idx,
                                           const T* __restrict__ vals, const Bucket* __restrict__ bk, int nb,
-                                          long long g, int k, int pad, typename Step<T>::C alpha2) {
+                                          long long g, int k, int pad, typename Step<T>::C alpha2, bool delta) {
   using S = Step<T>;
   using C = typename S::C;
   const int lane = threadIdx.x & 31;
@@ -269,7 +282,7 @@ __device__ __forceinline__ void warp_rows(const T* __restrict__ own, const T* __
   C acc[KPL];
   if (b.rpw == 1) {  // one row, its slots 32 at a time
     const long long j = b.b0 + r0;
-    load_row<T, KPL>(acc, own + j * k, k, lane);
+    load_row<T, KPL>(acc, own + j * k, k, lane, delta);
     for (int s0 = 0; s0 < w; s0 += 32) {
       const int s = s0 + lane;
       int c = pad;
@@ -282,7 +295,7 @@ __device__ __forceinline__ void warp_rows(const T* __restrict__ own, const T* __
       const unsigned live = __ballot_sync(FULL, s < w && c != pad);
       add_slots<T, KPL>(acc, live, 0, min(32, w - s0), c, e, other, k, lane);
     }
-    store_row<T, KPL>(acc, own + j * k, out + j * k, k, lane);
+    store_row<T, KPL>(acc, own + j * k, out + j * k, k, lane, delta);
     return;
   }
   // rows * w <= 32 slots: lane -> (row q = lane / w, slot s = lane % w).
@@ -298,9 +311,9 @@ __device__ __forceinline__ void warp_rows(const T* __restrict__ own, const T* __
   const unsigned live = __ballot_sync(FULL, q < rows && c != pad);
   for (int r = 0; r < rows; ++r) {
     const long long j = b.b0 + r0 + r;
-    load_row<T, KPL>(acc, own + j * k, k, lane);
+    load_row<T, KPL>(acc, own + j * k, k, lane, delta);
     add_slots<T, KPL>(acc, live, r * w, r * w + w, c, e, other, k, lane);
-    store_row<T, KPL>(acc, own + j * k, out + j * k, k, lane);
+    store_row<T, KPL>(acc, own + j * k, out + j * k, k, lane, delta);
   }
 }
 
@@ -308,9 +321,9 @@ template <typename T, int KPL>
 __global__ void __launch_bounds__(BLOCK)
     side_update(const T* __restrict__ own, const T* __restrict__ other, T* __restrict__ out,
                 const int* __restrict__ idx, const T* __restrict__ vals, const Bucket* __restrict__ bk,
-                int nb, long long warps, int k, int pad, typename Step<T>::C alpha2) {
+                int nb, long long warps, int k, int pad, typename Step<T>::C alpha2, bool delta) {
   const long long g = static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
-  if (g < warps) warp_rows<T, KPL>(own, other, out, idx, vals, bk, nb, g, k, pad, alpha2);  // warp-uniform
+  if (g < warps) warp_rows<T, KPL>(own, other, out, idx, vals, bk, nb, g, k, pad, alpha2, delta);  // warp-uniform
 }
 
 constexpr int WBLOCK = 512;          // threads of the block form
@@ -361,7 +374,8 @@ __global__ void __launch_bounds__(WBLOCK)
     side_update_wide(const T* __restrict__ own, const T* __restrict__ other, T* __restrict__ out,
                      const int* __restrict__ idx, const T* __restrict__ vals,
                      const Bucket* __restrict__ bk, int nb, long long blocks, const Bucket* __restrict__ nk,
-                     int nbn, long long warps, T* escr, int k, int pad, typename Step<T>::C alpha2) {
+                     int nbn, long long warps, T* escr, int k, int pad, typename Step<T>::C alpha2,
+                     bool delta) {
   using S = Step<T>;
   using C = typename S::C;
   // f32 and f64 form a chunk's terms in place of its rows; a bf16 term is
@@ -373,7 +387,7 @@ __global__ void __launch_bounds__(WBLOCK)
   const long long g = blockIdx.x;
   if (g >= blocks) {  // block-uniform
     const long long wg = (g - blocks) * (WBLOCK / 32) + (t >> 5);
-    if (wg < warps) warp_rows<T, KPL>(own, other, out, idx, vals, nk, nbn, wg, k, pad, alpha2);  // warp-uniform
+    if (wg < warps) warp_rows<T, KPL>(own, other, out, idx, vals, nk, nbn, wg, k, pad, alpha2, delta);  // warp-uniform
     return;
   }
   int lo = 0, hi = nb - 1;  // the bucket holding block g
@@ -397,7 +411,7 @@ __global__ void __launch_bounds__(WBLOCK)
 #pragma unroll
   for (int m = 0; m < KPT; ++m) {
     const int f = m * WBLOCK + t;
-    acc[m] = S::start(f < k ? S::ld(own + j * k + f) : C(0));
+    acc[m] = delta ? C(0) : S::start(f < k ? S::ld(own + j * k + f) : C(0));
   }
   __syncthreads();
   // The dots, a thread a slot, f = 0..k-1 against the staged own row.
@@ -509,7 +523,7 @@ __global__ void __launch_bounds__(WBLOCK)
 #pragma unroll
   for (int m = 0; m < KPT; ++m) {
     const int f = m * WBLOCK + t;
-    if (f < k) out[j * k + f] = S::st(S::end(acc[m], S::cv(fo[f])));
+    if (f < k) out[j * k + f] = S::st(delta ? acc[m] : S::end(acc[m], S::cv(fo[f])));
   }
 }
 
@@ -527,6 +541,7 @@ struct Side {
   int k, pad;
   double alpha2;
   cudaStream_t stream;
+  bool delta;  // the delta form (rs_bell_side_delta)
 };
 
 template <typename T, int KPL>
@@ -536,7 +551,7 @@ int launch_side(const Side& s) {
     side_update<T, KPL><<<static_cast<unsigned>((s.warps + WARPS - 1) / WARPS), BLOCK, 0, s.stream>>>(
         static_cast<const T*>(s.own), static_cast<const T*>(s.other), static_cast<T*>(s.out), s.idx,
         static_cast<const T*>(s.vals), static_cast<const Bucket*>(s.narrow), s.nb_narrow, s.warps, s.k,
-        s.pad, a2);
+        s.pad, a2, s.delta);
     return cudaGetLastError();
   }
   const size_t smem = wide_smem(s.k, sizeof(T)).total;
@@ -547,7 +562,8 @@ int launch_side(const Side& s) {
   side_update_wide<T, KPL><<<static_cast<unsigned>(grid), WBLOCK, smem, s.stream>>>(
       static_cast<const T*>(s.own), static_cast<const T*>(s.other), static_cast<T*>(s.out), s.idx,
       static_cast<const T*>(s.vals), static_cast<const Bucket*>(s.wide), s.nb_wide, s.blocks,
-      static_cast<const Bucket*>(s.narrow), s.nb_narrow, s.warps, static_cast<T*>(s.escr), s.k, s.pad, a2);
+      static_cast<const Bucket*>(s.narrow), s.nb_narrow, s.warps, static_cast<T*>(s.escr), s.k, s.pad, a2,
+      s.delta);
   return cudaGetLastError();
 }
 
@@ -667,22 +683,41 @@ int grid_for(long long work) {
 // escr a scratch table of vals' shape and type (used by the block form);
 // pad is the opposite zero row's index.  dtype: 0 float, 1 double, 2
 // bfloat16.  Returns the first non-zero cudaError_t, else 0.
-extern "C" int rs_bell_side_update(const void* own, const void* other, void* out, const int* idx,
-                                   const void* vals, const void* narrow, int nb_narrow,
-                                   long long warps, const void* wide, int nb_wide, long long blocks,
-                                   void* escr, int k, int pad, double alpha2, int dtype,
-                                   void* stream) {
+static int side_call(const void* own, const void* other, void* out, const int* idx, const void* vals,
+                     const void* narrow, int nb_narrow, long long warps, const void* wide, int nb_wide,
+                     long long blocks, void* escr, int k, int pad, double alpha2, int dtype, void* stream,
+                     bool delta) {
   if (k <= 0 || warps < 0 || blocks < 0 || warps + blocks == 0 || (warps > 0 && nb_narrow <= 0) ||
       (blocks > 0 && nb_wide <= 0))
     return cudaErrorInvalidValue;
   const Side s{own, other, out, idx, vals, narrow, wide, nb_narrow, nb_wide, warps, blocks,
-               escr, k, pad, alpha2, static_cast<cudaStream_t>(stream)};
+               escr, k, pad, alpha2, static_cast<cudaStream_t>(stream), delta};
   switch (dtype) {
     case 0: return dispatch_k<float>(s);
     case 1: return dispatch_k<double>(s);
     case 2: return dispatch_k<__nv_bfloat16>(s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+extern "C" int rs_bell_side_update(const void* own, const void* other, void* out, const int* idx,
+                                   const void* vals, const void* narrow, int nb_narrow,
+                                   long long warps, const void* wide, int nb_wide, long long blocks,
+                                   void* escr, int k, int pad, double alpha2, int dtype,
+                                   void* stream) {
+  return side_call(own, other, out, idx, vals, narrow, nb_narrow, warps, wide, nb_wide, blocks, escr, k, pad,
+                   alpha2, dtype, stream, false);
+}
+
+// The delta form (ops/bell.py::bell_side_delta): the arguments of
+// rs_bell_side_update, out (n_nz, k) receiving each row's change summed
+// from 0; own is read for the dots alone.
+extern "C" int rs_bell_side_delta(const void* own, const void* other, void* out, const int* idx,
+                                  const void* vals, const void* narrow, int nb_narrow,
+                                  long long warps, const void* wide, int nb_wide, long long blocks,
+                                  void* escr, int k, int pad, double alpha2, int dtype, void* stream) {
+  return side_call(own, other, out, idx, vals, narrow, nb_narrow, warps, wide, nb_wide, blocks, escr, k, pad,
+                   alpha2, dtype, stream, true);
 }
 
 // `iters` BELL steps (ops/bell.py::bell_train): step it reads the last

@@ -28,8 +28,10 @@ Routes, chosen by ``choose_path`` in the JAX engine's decision order:
   prefix-sum form for the speed dtypes on the card when the ratings
   outnumber the rows (``_coo_use_cumsum``), else the sorted segment sums;
   then ``recommend``.
-* Any mesh raises ``NotImplementedError`` naming ROADMAP A9.  Nothing falls
-  back to another route.
+* A mesh (``cfg.mesh_shape``) hands ``run`` and ``factorize`` to the
+  sharded engine, ``parallel/engine.py``, as the JAX CLI's ``_dispatch_run``
+  does; its shards all sit on ``device``.  Nothing falls back to another
+  route.
 """
 
 from __future__ import annotations
@@ -426,11 +428,16 @@ def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", st
     ``stream_train`` or B5's fused ``tiled_step``, and returns f32 factors at
     their true shapes; the ``bell`` and ``dense`` routes return factors in
     the run's dtype, as does ``coo``.  ``a_max_bytes`` and ``tiled`` force a plan kind, as in
-    ``run``.
+    ``run``.  With ``cfg.mesh_shape`` the sharded engine trains (its shards
+    on ``device``) and the factors come back at their true shapes.
     """
     device = _check_device(device)
     if cfg.mesh_shape is not None:
-        raise NotImplementedError("the sharded engine (--mesh) is not ported yet (ROADMAP A9)")
+        from recsys_tpu_torch.parallel import engine as parallel_engine
+
+        sharded, _ = parallel_engine.factorize_sharded(spec, cfg, state=state, device=device)
+        return _host_state(MFState(sharded.L[: spec.users, : spec.features],
+                                   sharded.R[: spec.items, : spec.features]))
     path = choose_path(spec, cfg, device)
     if path == "host":
         return _factorize_host_serial(spec, state)
@@ -497,7 +504,9 @@ def run(spec: ProblemSpec, cfg: RunConfig, device, *, a_max_bytes: int = RESIDEN
 
     device = _check_device(device)
     if cfg.mesh_shape is not None:
-        raise NotImplementedError("the sharded engine (--mesh) is not ported yet (ROADMAP A9)")
+        from recsys_tpu_torch.parallel import engine as parallel_engine
+
+        return parallel_engine.run(spec, cfg, device)
     path = choose_path(spec, cfg, device)
     if path == "host":
         from recsys_tpu_torch.engine.oracle import top1_numpy

@@ -127,6 +127,8 @@ SIGNATURES = {
     # own, other, out, idx, vals, narrow, nb_narrow, warps, wide, nb_wide,
     # blocks, escr, k, pad, alpha2, dtype, stream
     "rs_bell_side_update": [*[_P] * 6, _I, _LL, _P, _I, _LL, _P, _I, _I, _D, _I, _P],
+    # the same arguments; out receives each row's change (the delta form)
+    "rs_bell_side_delta": [*[_P] * 6, _I, _LL, _P, _I, _LL, _P, _I, _I, _D, _I, _P],
     # L, R, l0, l1, r0, r1; per side (user, item): cols, vals, narrow,
     # nb_narrow, warps, wide, nb_wide, blocks, escr; iters, k, users,
     # items, alpha2, dtype, stream

@@ -47,11 +47,18 @@ exact in f32).  The sums run in the f32/f64 order (f = 0..k-1, slots in
 file order), so kernel and twin agree bit for bit; against the JAX step
 on the CPU see ``tests/test_torch_bell.py``.
 
+The sharded engine's per-shard step (``parallel/step.py:185``) takes each
+side's partial from 0 (JAX ``_delta_side``), sums the partials across the
+mesh and then adds the sum to the rows: ``bell_side_delta`` is that
+partial, the same kernel in its delta form (each row's terms summed from 0
+in slot order, the row not added; bf16 rounds the f32 sum once), and
+``bell_side_delta_plain`` its twin.  The checkerboard builders
+(:653-857) are ported as they are, with the value tables flat per shard.
+
 Not ported: the TPU gather-engine and XLA-fusion workarounds (the chunk
 grain ``CHUNK_*``/``_chunk_grain`` :385-409 with its ``WIDE_F64_*`` fault
 cap, ``REGATHER_FOR_GRADIENT`` :435, the 3xf32 split gather
-``SPLIT_GATHER_F64`` :478-530); the sharded BELL (:653-857) waits for
-ROADMAP A9.
+``SPLIT_GATHER_F64`` :478-530).
 """
 
 from __future__ import annotations
@@ -378,20 +385,26 @@ def _alpha(alpha2: float, dtype) -> float:
     return float(torch.tensor(alpha2, dtype=torch.float64).to(dtype)) if dtype == torch.bfloat16 else float(alpha2)
 
 
-def _side_plain(F_own, F_other, buckets, alpha2):
+def _side_plain(F_own, F_other, buckets, alpha2, delta: bool = False):
     """Twin of one side's update over prepared buckets (see
     ``bell_side_update_plain``): f32 and f64 add each slot's term into the
-    row, bf16 sums the terms from 0 in f32 and adds them once."""
+    row, bf16 sums the terms from 0 in f32 and adds them once.  ``delta``
+    gives the rows' changes alone, (n_nz, k), summed from 0 in slot order
+    (bf16: the f32 sum rounded once)."""
     bf16 = F_own.dtype == torch.bfloat16
     a2 = torch.tensor(_alpha(alpha2, F_own.dtype), dtype=torch.float32 if bf16 else F_own.dtype,
                       device=F_own.device)
-    out = F_own.clone()
+    n_nz = buckets[-1][1] if buckets else 0
+    out = F_own.new_empty((n_nz, F_own.shape[1])) if delta else F_own.clone()
     for bucket in buckets:
         fo, terms = _bucket_terms(F_own, F_other, bucket, a2)
-        acc = torch.zeros_like(fo) if bf16 else fo
+        acc = torch.zeros_like(fo) if bf16 or delta else fo
         for s in range(bucket[2]):  # slots in file order
             acc = acc + terms[s]
-        out[bucket[0]:bucket[1]] = (fo + _bf(acc)).bfloat16() if bf16 else acc
+        if delta:
+            out[bucket[0]:bucket[1]] = acc
+        else:
+            out[bucket[0]:bucket[1]] = (fo + _bf(acc)).bfloat16() if bf16 else acc
     return out
 
 
@@ -403,6 +416,14 @@ def bell_side_update_plain(F_own, F_other, cols, vals, side: BellSide, alpha2: f
     slots leave the row as it is.  A bf16 side computes in f32 with the
     rounding points of the module docstring."""
     return _side_plain(F_own, F_other, _twin_buckets(cols, vals, side, F_other.shape[0] - 1), alpha2)
+
+
+def bell_side_delta_plain(F_own, F_other, cols, vals, side: BellSide, alpha2: float):
+    """Plain torch twin of ``bell_side_delta``: the (n_nz, k) changes of
+    one side's rows, each summed from 0 over its slots in file order, with
+    the dot, e and terms of ``bell_side_update_plain``; a bf16 side sums in
+    f32 and rounds the sum once (JAX ``_delta_side``'s output)."""
+    return _side_plain(F_own, F_other, _twin_buckets(cols, vals, side, F_other.shape[0] - 1), alpha2, delta=True)
 
 
 def bell_gd_step_plain(L, R, tables: BellTables, alpha2: float, meta: BellMeta):
@@ -524,24 +545,58 @@ def bell_side_update(F_own, F_other, cols, vals, side: BellSide, alpha2: float, 
 bell_side_update.launches = 0
 
 
-def _launch(F_own, F_other, cols, vals, alpha2, out, desc):
-    """One ``rs_bell_side_update`` call into ``out`` over the side's
-    descriptors ``desc`` (``_side_desc``), on tensors already checked;
-    counted in ``bell_side_update.launches``.  The block form's e goes to
-    a scratch table like ``vals``."""
+def _launch(F_own, F_other, cols, vals, alpha2, out, desc, delta: bool = False):
+    """One ``rs_bell_side_update`` call (``rs_bell_side_delta`` with
+    ``delta``) into ``out`` over the side's descriptors ``desc``
+    (``_side_desc``), on tensors already checked; counted in
+    ``bell_side_update.launches`` (``bell_side_delta.launches``).  The block
+    form's e goes to a scratch table like ``vals``."""
     if desc.warps or desc.blocks:
         dev = out.device
         escr = torch.empty_like(vals) if desc.blocks else vals
+        entry = "rs_bell_side_delta" if delta else "rs_bell_side_update"
         with torch.cuda.device(dev):
-            rc = _build.load().rs_bell_side_update(
+            rc = getattr(_build.load(), entry)(
                 *_ptrs(F_own, F_other, out, cols, vals, desc.narrow), desc.narrow.shape[0], desc.warps,
                 *_ptrs(desc.wide), desc.wide.shape[0], desc.blocks, *_ptrs(escr), F_own.shape[1],
                 F_other.shape[0] - 1, _alpha(alpha2, F_own.dtype), _DTYPE_CODE[F_own.dtype], _stream(dev),
             )
         if rc != 0:
-            raise RuntimeError(f"rs_bell_side_update failed: CUDA error {rc}")
-        bell_side_update.launches += 1
+            raise RuntimeError(f"{entry} failed: CUDA error {rc}")
+        (bell_side_delta if delta else bell_side_update).launches += 1
     return out
+
+
+def side_prep(cols, vals, side: BellSide, pad: int, wide: int = WIDE_MIN):
+    """What ``bell_side_delta`` makes for a side's tables on every call,
+    made once for a run of many: the twin's buckets for CPU tables (``pad``
+    the opposite zero row's index), the kernel's descriptors on the
+    tables' CUDA device (``wide`` as ``bell_side_update``'s)."""
+    if cols.device.type == "cpu":
+        return _twin_buckets(cols, vals, side, pad)
+    return _side_desc(side, _kernel_device(cols), wide)
+
+
+def bell_side_delta(F_own, F_other, cols, vals, side: BellSide, alpha2: float, *, wide: int = WIDE_MIN,
+                    prep=None):
+    """One side's partial of a sharded BELL step (JAX ``_delta_side``):
+    the (side.n_nz, k) changes of the rows with at least one slot, each
+    row's terms ``e * F_other[c]`` summed from 0 in file order, the dot and
+    e as ``bell_side_update``'s; bf16 rounds the f32 sum once.  Arguments
+    as ``bell_side_update``'s; ``prep`` is ``side_prep``'s result for these
+    tables, made here if not given.  CPU tensors go to
+    ``bell_side_delta_plain``'s arithmetic; CUDA tensors to the kernel's
+    delta form, which counts each launch in ``.launches``."""
+    _check(F_own, F_other, cols, vals, side)
+    if prep is None:
+        prep = side_prep(cols, vals, side, F_other.shape[0] - 1, wide)
+    if F_own.device.type == "cpu":
+        return _side_plain(F_own, F_other, prep, alpha2, delta=True)
+    out = F_own.new_empty((side.n_nz, F_own.shape[1]))
+    return _launch(F_own, F_other, cols, vals, alpha2, out, prep, delta=True)
+
+
+bell_side_delta.launches = 0
 
 
 def bell_gd_step(L, R, tables: BellTables, alpha2: float, meta: BellMeta):
@@ -588,3 +643,168 @@ def bell_train(L, R, tables: BellTables, alpha2: float, meta: BellMeta, iters: i
         raise RuntimeError(f"rs_bell_train failed: CUDA error {rc}")
     bell_side_update.launches += iters * sum(1 for d in (udesc, idesc) if d.warps or d.blocks)
     return bufs_l[(iters - 1) % 2], bufs_r[(iters - 1) % 2]
+
+
+# ---------------------------------------------------------------------
+# Sharded BELL: the checkerboard (2-D mesh) form (JAX bell.py:653-857)
+# ---------------------------------------------------------------------
+
+
+class ShardedBellMeta(NamedTuple):
+    """Static metadata shared by every shard: bucket shapes are uniform
+    across shards, per-shard raggedness is padding slots against the
+    per-block zero row."""
+
+    user: BellSide  # bounds/n_nz in block-local row space; size = u_blk
+    item: BellSide
+    features: int
+    u_blk: int  # true rows per user block (the block tables carry +1 zero row)
+    i_blk: int
+    pu: int
+    pi: int
+
+
+class ShardedBellTables(NamedTuple):
+    """Host tables stacked (pu, pi, S): shard (ub, ib) reads its [ub, ib]
+    row.  Index and value tables are flat per shard (every bucket's
+    row-major (w, n) table in turn; the JAX package keeps the values per
+    bucket, (pu, pi, w, n)).  Indices are block-local with ``blk`` (the
+    appended zero row) marking padding slots."""
+
+    ucols: np.ndarray  # int32 (pu, pi, S_u)
+    uvals: np.ndarray  # dtype (pu, pi, S_u)
+    irows: np.ndarray  # int32 (pu, pi, S_i)
+    ivals: np.ndarray
+
+
+class ShardedBellData(NamedTuple):
+    meta: ShardedBellMeta
+    tables: ShardedBellTables
+    user_perm: np.ndarray
+    item_perm: np.ndarray
+    inv_user_perm: np.ndarray
+    inv_item_perm: np.ndarray
+
+
+def _sharded_side_tables(shard, own_local, other_local, vals, own_blk_dim, other_blk_dim, n_shards, dtype):
+    """One side's shard-uniform tables (JAX :689): bucket bounds from the
+    non-increasing envelope of the per-row max local degree across every
+    shard, always the half-width guarded rule (the envelope is no entry
+    count, so the small-side rule does not apply).  Returns (bounds, n_nz,
+    flat cols (n_shards, S), flat vals (n_shards, S))."""
+    from recsys_tpu_torch.utils.hostmem import hugepage_empty, hugepage_zeros
+
+    key = shard.astype(np.int64) * own_blk_dim + own_local
+    d = np.bincount(key, minlength=n_shards * own_blk_dim).reshape(n_shards, own_blk_dim)
+    w_need = d.max(axis=0) if len(vals) else np.zeros(own_blk_dim, np.int64)
+    env = np.maximum.accumulate(w_need[::-1])[::-1]
+    bounds = _guarded_buckets(env, MIN_BUCKET_ROWS)
+    n_nz = bounds[-1][1] if bounds else 0
+
+    order = np.argsort(key, kind="stable")  # keeps file order within a row
+    key_s = key[order]
+    starts = np.zeros(n_shards * own_blk_dim + 1, np.int64)
+    np.cumsum(np.bincount(key_s, minlength=n_shards * own_blk_dim), out=starts[1:])
+    slot = np.arange(len(key_s), dtype=np.int64) - starts[key_s]
+    own_s, shard_s, other_s, vals_s = own_local[order], shard[order], other_local[order], vals[order]
+
+    cols_t, vals_t = [], []
+    for (b0, b1, w) in bounds:
+        n = b1 - b0
+        ct = hugepage_empty((n_shards, w, n), np.int32)
+        ct[...] = other_blk_dim  # pad -> zero row
+        vt = hugepage_zeros((n_shards, w, n), dtype)
+        sel = (own_s >= b0) & (own_s < b1)
+        ct[shard_s[sel], slot[sel], own_s[sel] - b0] = other_s[sel]
+        vt[shard_s[sel], slot[sel], own_s[sel] - b0] = vals_s[sel].astype(dtype)
+        cols_t.append(ct.reshape(n_shards, -1))
+        vals_t.append(vt.reshape(n_shards, -1))
+    if not cols_t:
+        return tuple(bounds), n_nz, np.zeros((n_shards, 0), np.int32), np.zeros((n_shards, 0), dtype)
+    return tuple(bounds), n_nz, np.concatenate(cols_t, axis=1), np.concatenate(vals_t, axis=1)
+
+
+def make_sharded_bell(spec, pu: int, pi: int, dtype=np.float32) -> ShardedBellData:
+    """Checkerboard BELL (JAX :742): users and items permuted by GLOBAL
+    degree, the permuted spaces cut into pu x pi blocks, and each shard
+    given BELL tables over its local entries with shard-uniform shapes."""
+    require_row_major(spec)
+    _, uperm, uinv = _degree_perm(spec.rows, spec.users)
+    _, iperm, iinv = _degree_perm(spec.cols, spec.items)
+    u_blk = -(-spec.users // pu)
+    i_blk = -(-spec.items // pi)
+    up, ip = uinv[spec.rows], iinv[spec.cols]
+    ub, ib = up // u_blk, ip // i_blk
+    shard = (ub * pi + ib).astype(np.int64)
+    ul = (up - ub * u_blk).astype(np.int64)
+    il = (ip - ib * i_blk).astype(np.int64)
+    ubounds, u_nz, ucols, uvals = _sharded_side_tables(shard, ul, il, spec.vals, u_blk, i_blk, pu * pi, dtype)
+    ibounds, i_nz, irows, ivals = _sharded_side_tables(shard, il, ul, spec.vals, i_blk, u_blk, pu * pi, dtype)
+    meta = ShardedBellMeta(
+        user=BellSide(bounds=ubounds, n_nz=u_nz, size=u_blk),
+        item=BellSide(bounds=ibounds, n_nz=i_nz, size=i_blk),
+        features=spec.features, u_blk=u_blk, i_blk=i_blk, pu=pu, pi=pi,
+    )
+    tables = ShardedBellTables(*(x.reshape(pu, pi, -1) for x in (ucols, uvals, irows, ivals)))
+    return ShardedBellData(meta=meta, tables=tables, user_perm=uperm, item_perm=iperm,
+                           inv_user_perm=uinv, inv_item_perm=iinv)
+
+
+def shard_tables(tables: ShardedBellTables, ub: int, ib: int, device, dtype=None) -> BellTables:
+    """Shard (ub, ib)'s flat tables as ``device_tables`` puts them on
+    ``device`` (the values cast to ``dtype`` when given)."""
+    return device_tables(BellTables(*(x[ub, ib] for x in tables)), device, dtype)
+
+
+def pad_factors_sharded_bell(state, data: ShardedBellData, dtype):
+    """Degree-permute the factors and lay them out block-strided with one
+    appended zero row per block (JAX :791): block b's rows are
+    ``[b*(blk+1), (b+1)*(blk+1))``, its zero row last (local index
+    ``blk``, the row every padding slot gathers).  numpy in ``dtype``."""
+    from recsys_tpu_torch.utils.hostmem import hugepage_zeros
+
+    m = data.meta
+    k = state.L.shape[1]
+
+    def lay(F, perm, blocks, blk):
+        out = hugepage_zeros((blocks * (blk + 1), k), dtype)
+        pos = np.arange(len(perm))
+        out[(pos // blk) * (blk + 1) + pos % blk] = np.asarray(F)[perm].astype(dtype)
+        return out
+
+    return lay(state.L, data.user_perm, m.pu, m.u_blk), lay(state.R, data.item_perm, m.pi, m.i_blk)
+
+
+def unpermute_factors_sharded(L, R, data: ShardedBellData):
+    """Back to original row order, dropping the per-block zero rows and the
+    block padding (JAX :812; numpy)."""
+    m = data.meta
+
+    def unlay(F, inv, blk):
+        pos = np.arange(len(inv))
+        return np.asarray(F)[(pos // blk) * (blk + 1) + pos % blk][inv]
+
+    return unlay(L, data.inv_user_perm, m.u_blk), unlay(R, data.inv_item_perm, m.i_blk)
+
+
+def sharded_lay_index(perm: np.ndarray, blk: int, blocks: int) -> np.ndarray:
+    """int32 (blocks*(blk+1),) gather map (JAX :831) building the
+    block-strided permuted layout from factors in original row order; zero
+    rows and block padding read index ``len(perm)`` (out of range: the
+    caller fills those rows with 0)."""
+    dim = len(perm)
+    idx = np.full(blocks * (blk + 1), dim, np.int64)
+    pos = np.arange(dim, dtype=np.int64)
+    idx[(pos // blk) * (blk + 1) + pos % blk] = perm.astype(np.int64)
+    return idx.astype(np.int32)
+
+
+def sharded_unpermute_index(inv_perm: np.ndarray, blk: int, dim_pad: int) -> np.ndarray:
+    """int32 (dim_pad,) gather map (JAX :847): row ``r`` of the standard
+    padded layout <- the block-strided permuted position of original row
+    ``r``; padding rows read block 0's zero row."""
+    dim = len(inv_perm)
+    idx = np.full(dim_pad, blk, np.int64)
+    p = inv_perm.astype(np.int64)
+    idx[:dim] = (p // blk) * (blk + 1) + p % blk
+    return idx.astype(np.int32)

@@ -3,7 +3,8 @@
 :40).  The JAX module leaves its three products to XLA, outside any Pallas
 kernel, so here they are ``torch.matmul``: on a CUDA device in f64 they
 are DGEMMs, and in f32 they run with TF32 off.  ``dense_gd_step_weighted``
-(:52), the sharded form, waits for ROADMAP A9.
+(:52) has no caller in the JAX package (its sharded dense step is
+``parallel/step.py``'s own, ported there) and is not ported.
 
     E  = M * (A - L.R^T)
     L' = L + 2a * E.R

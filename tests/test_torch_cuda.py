@@ -827,3 +827,50 @@ def test_stream_v2_sparse_equals_dense_and_b3_dense(a_dtype, k):
     if other.split != walk.split:
         with pytest.raises(ValueError, match="split"):
             stream_v2.stream_v2_train(Lt, Rp, A, walk=other, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+def test_bell_side_delta_matches_twin_bits(dtype):
+    # The delta form of bell_side_update, both forms, on every shard of a
+    # 2x4 checkerboard with hub rows of ~375 slots a shard (the block form).
+    import numpy as np
+
+    from recsys_tpu_torch.models.mf import init_factors
+    from recsys_tpu_torch.ops import bell
+
+    dev = _cuda()
+    spec = checks.hub_spec(30)
+    data = bell.make_sharded_bell(spec, 2, 4, np.float64)
+    m, a2 = data.meta, 2 * spec.alpha
+    Lp, Rp = (torch.from_numpy(x).to(dev, dtype) for x in
+              bell.pad_factors_sharded_bell(init_factors(spec.users, spec.items, spec.features), data, np.float64))
+    before = bell.bell_side_delta.launches
+    for ub in range(2):
+        for ib in range(4):
+            t = bell.shard_tables(data.tables, ub, ib, dev, dtype)
+            l, r = Lp[ub * (m.u_blk + 1):(ub + 1) * (m.u_blk + 1)], Rp[ib * (m.i_blk + 1):(ib + 1) * (m.i_blk + 1)]
+            for own, other, cols, vals, side in ((l, r, t.ucols, t.uvals, m.user), (r, l, t.irows, t.ivals, m.item)):
+                twin = bell.bell_side_delta_plain(own, other, cols, vals, side, a2)
+                for wide in (bell.WIDE_MIN, bell.WARP_FORM):
+                    got = bell.bell_side_delta(own, other, cols, vals, side, a2, wide=wide)
+                    torch.cuda.synchronize()
+                    assert checks.same_bits(got, twin)
+    assert bell.bell_side_delta.launches == before + 2 * 2 * 8
+
+
+@pytest.mark.cuda
+def test_sharded_tiled_route_launches_tiled_deltas():
+    # The sharded tiled route runs B5's raw deltas once a shard and step.
+    from recsys_tpu_torch.parallel import engine as par
+
+    dev = _cuda()
+    spec = generate_instance(32, 40, 10, 2, 8, iters=7, alpha=0.01, seed=11)
+    cfg = RunConfig(dtype="float32", mesh_shape=(2, 2))
+    before = dense_tiled.tiled_deltas.launches
+    got, mesh = par.factorize_sharded(spec, cfg, device=dev)
+    torch.cuda.synchronize()
+    assert par.sharded_route(spec, cfg, mesh) == "tiled"
+    assert dense_tiled.tiled_deltas.launches == before + 7 * 4
+    want, _ = par.factorize_sharded(spec, cfg, device="cpu")
+    assert checks.factor_rel((got.L, got.R), (want.L.to(dev), want.R.to(dev))) <= checks.TILED_FACTOR_RTOL["highest"]

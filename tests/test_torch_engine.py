@@ -69,16 +69,18 @@ def test_dense_plan_instml100k():
 def test_unported_routes_raise_and_never_fall_back(spec20):
     # Exact f64 on a sparse, non-toy shape routes to BELL; COO (ported)
     # runs what it is asked in both dtypes, as the JAX engine's coo route
-    # does; the mesh is not ported yet and raises, naming its item.
+    # does; so does a mesh (the sharded engine), as the JAX one does.
     spec = generate_instance(200, 2000, 10, 2, 5, iters=100_000, alpha=1e-4, seed=1)
     cfg = RunConfig(dtype="float64")
     assert trainer.choose_path(spec, cfg, "cpu") == "bell"
     for dtype in ("float64", "float32"):
         out, _ = trainer.run(spec20, RunConfig(dtype=dtype, path="coo"), "cpu")
         assert out == jax_trainer.run(spec20, RunConfig(dtype=dtype, path="coo"))[0]
+    from recsys_tpu.parallel import engine as jax_parallel
+
+    mesh_cfg = RunConfig(dtype="float32", path="pallas", mesh_shape=(2, 4))
+    assert trainer.run(spec20, mesh_cfg, "cpu")[0] == jax_parallel.run(spec20, mesh_cfg)[0]
     ml = load_problem(str(FIXTURES / "instML100k.in"))
-    with pytest.raises(NotImplementedError, match="A9"):
-        trainer.run(ml, RunConfig(dtype="float32", path="pallas", mesh_shape=(2, 2)), "cpu")
     with pytest.raises(ValueError, match="float32"):
         trainer.run(ml, RunConfig(dtype="float64", path="pallas"), "cpu")
 
@@ -114,16 +116,13 @@ def test_cli_run_matches_oracle(spec20, tmp_path):
 @pytest.mark.parametrize("flag", [["--path", "coo"], ["--mesh", "2x2"]])
 def test_cli_refuses_what_is_not_ported(flag):
     # A flag the port cannot honour raises; it is never accepted and
-    # ignored.  --path coo is ported: it runs and prints the golden.
+    # ignored.  --path coo and --mesh are ported: each runs and prints the
+    # golden.
     argv = ["run", str(FIXTURES / "inst0.in"), "--device", "cpu", "--no-time", *flag]
-    if flag[0] == "--path":
-        buf = io.StringIO()
-        with redirect_stdout(buf):
-            assert cli.main(argv) == 0
-        assert buf.getvalue() == read_golden("inst0")
-        return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(argv)
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        assert cli.main(argv) == 0
+    assert buf.getvalue() == read_golden("inst0")
 
 
 @pytest.mark.parametrize("entry", ["factorize", "recommend"])
@@ -147,6 +146,7 @@ def test_factorize_refuses_unported_routes():
     want, _ = factorize_numpy(small)
     np.testing.assert_allclose(got.L, want.L, rtol=1e-12)
     np.testing.assert_allclose(got.R, want.R, rtol=1e-12)
-    spec = generate_instance(200, 2000, 10, 2, 5, iters=100_000, alpha=1e-4, seed=1)
-    with pytest.raises(NotImplementedError, match="A9"):
-        trainer.factorize(spec, RunConfig(dtype="float32", mesh_shape=(2, 2)), "cpu")
+    # The mesh is ported too: the sharded engine gives the same factors.
+    got = trainer.factorize(small, RunConfig(dtype="float64", path="coo", mesh_shape=(2, 2)), "cpu")
+    np.testing.assert_allclose(got.L, want.L, rtol=1e-12)
+    np.testing.assert_allclose(got.R, want.R, rtol=1e-12)

@@ -26,6 +26,8 @@ import recsys_tpu_torch, recsys_tpu_torch.cli, recsys_tpu_torch.convert, recsys_
 import recsys_tpu_torch.probes.gather, recsys_tpu_torch.probes.stream_v2
 import recsys_tpu_torch.probes.tiled_fused, recsys_tpu_torch.probes.tiled_clocks
 from recsys_tpu_torch.ops import coo, device_rng, lane, stream_v2
+import recsys_tpu_torch.parallel.engine, recsys_tpu_torch.parallel.mesh, recsys_tpu_torch.parallel.sharding
+import recsys_tpu_torch.parallel.step
 from recsys_tpu_torch.config import RunConfig
 from recsys_tpu_torch.engine import trainer
 from recsys_tpu_torch.io.generator import generate_instance
@@ -44,6 +46,9 @@ out, _ = trainer.run(load_problem(sys.argv[1]), RunConfig(dtype="float64", path=
 assert out == open(sys.argv[2]).read()
 out, _ = trainer.run(load_problem(sys.argv[1]), RunConfig(dtype="float64", path="coo"), "cpu")
 assert out == open(sys.argv[2]).read()
+out, _ = trainer.run(load_problem(sys.argv[1]), RunConfig(dtype="float64", mesh_shape=(2, 4)), "cpu")
+assert out == open(sys.argv[2]).read()
+recsys_tpu_torch.parallel.engine.dryrun(4, device="cpu")
 device_rng.device_init_factors(5, 4, 3)
 lane.lane_cumsum_loop(lane.lane_gather_loop(*recsys_tpu_torch.probes.gather.gather_inputs(2, 64, "cpu", __import__("numpy").random.default_rng(0)), 2), 2)
 lane.lane_cumsum_loop_block(lane.lane_gather_loop_direct(*recsys_tpu_torch.probes.gather.gather_inputs(2, 64, "cpu", __import__("numpy").random.default_rng(0)), 2), 2)
@@ -83,6 +88,21 @@ def test_cuda_request_without_a_card_raises():
     spec = load_problem(str(FIXTURES / "inst0.in"))
     with pytest.raises(RuntimeError, match="cuda"):
         trainer.run(spec, RunConfig(dtype="float32", path="pallas"), "cuda")
+
+
+def test_mesh_on_cuda_without_a_card_raises():
+    """A mesh asked for on "cuda" raises without a card: its shards are not
+    put on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    from recsys_tpu_torch.parallel import engine as par
+
+    spec = load_problem(str(FIXTURES / "inst0.in"))
+    for entry in (lambda: trainer.run(spec, RunConfig(dtype="float32", mesh_shape=(2, 2)), "cuda"),
+                  lambda: trainer.factorize(spec, RunConfig(dtype="float64", mesh_shape=(1, 2)), "cuda"),
+                  lambda: par.factorize_sharded(spec, RunConfig(dtype="float32", mesh_shape=(2, 2)))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            entry()
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script-alone"])
