@@ -144,6 +144,22 @@ each printed as it runs:
    updates; gen-inst1e6 f32 through ``run()`` on the (4, 1) mesh (the
    checkerboard BELL with the device init, floor 0.99).  Each run prints a
    ``[mesh]`` line: phases, wall, agreement, launches.
+17. the multi-process layer (``recsys_tpu_torch/parallel/multihost.py``,
+   ranks started by ``parallel/launch.py``): one rank over NCCL in this
+   process, then 2 and 4 ranks sharing the card over gloo (NCCL refuses two
+   ranks on one GPU), each rank a process, on instML100k 2x2 (f64
+   ``bell`` on 2 and 4 ranks, byte for byte; f32 ``tiled`` on 1 and 2),
+   and 3 ranks on a 2x3 mesh at a small generated instance (f64 ``bell``,
+   f32 ``tiled``; one mesh row sums 3 partials).  Every rank's whole
+   factors equal the one-process engine's in raw bits, its text the one
+   process's; the kernels' launches, summed over the ranks, go into the
+   kernels line; each rank's step is split by CUDA events into its shards'
+   kernels, the exchange of partials and the rest (``[multihost]`` lines,
+   with the card's name and power limit).  Then the CLI: ``bench``
+   instML100k (its JSON line, ``path`` the auto route), and ``generate``
+   a small instance into build/, ``run`` it in f64 and ``oracle`` it, the
+   outputs byte equal less the time line.  A rank's failure, timeout or
+   missing line fails the phase.
 
 Every main path runs with the launch counts set to 0 just before it and
 read just after.  The last two lines are a JSON object of the kernels'
@@ -229,6 +245,20 @@ FORCE_RESIDENT = 1 << 62
 # demands the byte match).
 MESH, INST1E6_MESH, DRYRUN_SHARDS = (2, 2), (4, 1), 8
 MESH_FLOOR = {"float32": 0.99, "float64": 1.0}
+# The multi-process phase: ranks sharing the card over gloo (NCCL refuses
+# two ranks on one GPU), as (ranks, mesh, cases); the 2x3 mesh on 3 ranks
+# runs a small generated instance (generate_instance's five dims, iters,
+# alpha, seed), where one mesh row sums 3 partials, 2 of one rank and 1 of
+# another; steps of each rank's step split; the ranks' time limit.
+MULTIHOST_GEN = [600, 900, 16, 2, 20, 200, 0.001, 7]
+# key: (mesh, dtype, path, the sharded route it takes); "ml" is instML100k.
+MULTIHOST_CASES = {"ml f64": (MESH, "float64", "auto", "bell"), "ml f32": (MESH, "float32", "auto", "tiled"),
+                   "gen f64": ((2, 3), "float64", "bell", "bell"), "gen f32": ((2, 3), "float32", "pallas", "tiled")}
+MULTIHOST_RUNS = ((2, MESH, ("ml f64", "ml f32")), (4, MESH, ("ml f64",)), (3, (2, 3), ("gen f64", "gen f32")))
+MULTIHOST_REPS, MULTIHOST_TIMEOUT = 20, 240
+# The CLI's check: ``generate`` this instance into build/, ``run`` it in f64
+# on the card (``bell``) and hold it against ``oracle``.
+CLI_GEN = ("inst300-500-20-2-30", ["--iters", "500", "--alpha", "0.001", "--seed", "3"])
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "resident_train_top1": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:663"),
@@ -1672,6 +1702,152 @@ def mesh_phase(torch, dev, launches, big):
     return {"tiled_deltas": tiled, "bell_side_delta": delta}
 
 
+def _multihost_cases(dev, torch):
+    """The multi-process phase's cases (``parallel/launch.py``), each with
+    its sharded route, mesh and the one-process engine's factor digest,
+    text digest and wall on the card (``factorize_sharded`` +
+    ``recommend_sharded``, the reference the ranks must equal in raw bits)."""
+    import hashlib
+
+    from recsys_tpu_torch import testing as checks
+    from recsys_tpu_torch.io.writers import format_recommendations
+    from recsys_tpu_torch.parallel import engine as par
+    from recsys_tpu_torch.parallel import launch
+    from recsys_tpu_torch.parallel.mesh import make_mesh
+
+    cases = {}
+    for key, (shape, dtype, path, route) in MULTIHOST_CASES.items():
+        if key.startswith("ml"):
+            case = {"name": f"instML100k {dtype}", "input": ML100K + ".in",
+                    "golden": ML100K + ".out" if dtype == "float64" else None}
+        else:
+            case = {"name": f"gen 2x3 {dtype}", "gen": MULTIHOST_GEN}
+        case.update(dtype=dtype, path=path, mesh=list(shape))
+        spec, cfg = launch.case_spec(case), launch.case_config(case)
+        mesh = make_mesh(spec.users, spec.items, shape, device=dev)
+        if par.sharded_route(spec, cfg, mesh) != route:
+            raise AssertionError(f"{case['name']} on {shape} does not take the sharded {route!r} route")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = par.factorize_sharded(spec, cfg, mesh=mesh)
+        text = format_recommendations(par.recommend_sharded(state, spec, mesh), spec.rated_counts(), spec.items)
+        wall = time.perf_counter() - t0
+        kernel = "tiled_deltas" if route == "tiled" else "bell_side_delta"
+        cases[key] = {"case": case, "route": route, "shape": shape, "digest": checks.factor_digest(state),
+                      "text": hashlib.sha256(text.encode()).hexdigest(), "wall": wall, "kernel": kernel,
+                      "launches": spec.iters * shape[0] * shape[1] * (1 if route == "tiled" else 2)}
+        log(f"[multihost] one process, {case['name']} on {shape[0]}x{shape[1]} ({route}): wall {wall!r} s (the "
+            "reference the ranks must equal in raw bits)")
+    return cases
+
+
+def _check_ranks(label, ranks, lines, cases, keys, smi, counts):
+    """Hold each rank's line of each case against the one-process engine
+    (factor and text digests), the golden, its route and the kernel's
+    launches summed over the ranks (added into ``counts``); log the ranks'
+    walls and step splits."""
+    for key in keys:
+        c = cases[key]
+        got = [next((x for x in rank if x["case"] == c["case"]["name"]), None) for rank in lines]
+        if len(got) != ranks or any(x is None for x in got):
+            raise AssertionError(f"{label} {c['case']['name']}: a rank printed no line")
+        bad = [x["rank"] for x in got if x["factors_sha256"] != c["digest"] or x["text_sha256"] != c["text"]
+               or x["route"] != c["route"] or (c["case"].get("golden") and x["golden"] is not True)]
+        total = sum(x["launches"][c["kernel"]] for x in got)
+        for k in counts:
+            counts[k] += sum(x["launches"][k] for x in got)
+        for x in got:
+            split = (f"step {x['step_ms']!r} ms: kernels {x['kernels_ms']!r}, exchange {x['exchange_ms']!r}, rest "
+                     f"{x['rest_ms']!r}" if "step_ms" in x else "no step split")
+            log(f"[multihost] {label} {c['case']['name']} on {c['shape'][0]}x{c['shape'][1]} ({c['route']}) rank "
+                f"{x['rank']}: wall {x['wall_s']!r} s (one process {c['wall']!r} s) train {x['train_s']!r} s | "
+                f"{split} | {c['kernel']} launches {x['launches'][c['kernel']]} | golden {x['golden']} | "
+                f"factors = one process {x['factors_sha256'] == c['digest']} | {smi}")
+        if bad or total != c["launches"]:
+            raise AssertionError(f"{label} {c['case']['name']}: ranks {bad} differ from the one-process engine or "
+                                 f"its golden, or {c['kernel']} launched {total} times, not {c['launches']}")
+
+
+def multihost_phase(torch, dev, launches, smi):
+    """The multi-process layer (``parallel/multihost.py``) through its
+    launcher (``parallel/launch.py``): (a) one rank over NCCL in this
+    process on the card, instML100k 2x2 in f64 (checkerboard ``bell``,
+    byte for byte) and f32 `highest` (sharded ``tiled``); (b) 2 and 4 ranks
+    sharing the card over gloo, each a process, on instML100k 2x2 (f64 on 2
+    and 4 ranks, f32 on 2), and 3 ranks on a 2x3 mesh at ``MULTIHOST_GEN``
+    (f64 ``bell``, f32 ``tiled``).  Every rank's whole factors must equal
+    the one-process engine's in raw bits, its text the one process's (and
+    the golden), every rank print its line, and the sharded kernel's
+    launches, summed over the ranks, be a shard's and step's each; any
+    rank's failure or timeout fails the phase.  Then ``_cli_checks``.  Each rank's step is split
+    by CUDA events into its shards' kernels, the exchange of partials and
+    the rest.  The ranks' launches go into ``launches["multihost", "all
+    ranks"]``."""
+    import json
+
+    from recsys_tpu_torch.parallel import launch, multihost
+
+    cases = _multihost_cases(dev, torch)
+    counts = dict.fromkeys(launch.KERNELS, 0)
+    multihost.initialize(f"127.0.0.1:{launch.free_port()}", 1, 0, device=dev)
+    try:
+        lines = [[launch.run_case(cases[key]["case"], dev, MULTIHOST_REPS) for key in ("ml f64", "ml f32")]]
+    finally:
+        multihost.shutdown()
+    _check_ranks("nccl 1 rank", 1, lines, cases, ("ml f64", "ml f32"), smi, counts)
+    for ranks, _, keys in MULTIHOST_RUNS:
+        t0 = time.perf_counter()
+        results = launch.spawn(ranks, ["--device", str(dev), "--backend", "gloo", "--reps", str(MULTIHOST_REPS),
+                                       "--cases", json.dumps([cases[k]["case"] for k in keys])], MULTIHOST_TIMEOUT)
+        lines = launch.rank_lines(results)
+        log(f"[multihost] gloo {ranks} ranks on one card: {time.perf_counter() - t0!r} s with the ranks' start")
+        _check_ranks(f"gloo {ranks} ranks", ranks, lines, cases, keys, smi, counts)
+    launches["multihost", "all ranks"] = counts
+    log(f"[multihost] launches over every rank of the phase: {counts}")
+    _cli_checks(torch, dev, smi)
+
+
+def _cli_checks(torch, dev, smi):
+    """The CLI's subcommands: ``python -m recsys_tpu_torch.cli bench``
+    instML100k (its JSON line parses, ``path`` the auto route), then
+    ``generate`` ``CLI_GEN`` into build/, ``run`` it in f64 on the card and
+    ``oracle`` it: the two outputs byte equal, less the time line."""
+    import contextlib
+    import io
+
+    from recsys_tpu_torch import cli
+    from recsys_tpu_torch.config import RunConfig
+    from recsys_tpu_torch.engine import trainer
+    from recsys_tpu_torch.io.parser import load_problem
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-P", "-m", "recsys_tpu_torch.cli", "bench", ML100K + ".in", "--device",
+                        str(dev), "--repeats", "3"], capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    if r.returncode != 0:
+        raise AssertionError(f"cli bench exited with {r.returncode}: {r.stderr[-2000:]}")
+    row = json.loads(r.stdout.splitlines()[-1])
+    want = trainer.choose_path(load_problem(ML100K + ".in"), RunConfig(dtype="float32"), dev)
+    log(f"[multihost] cli bench instML100k --repeats 3: {json.dumps(row)} | {smi}")
+    if row["path"] != want or row["repeats"] != 3 or not row["wall_s"] > 0:
+        raise AssertionError(f"cli bench: path {row['path']!r}, not the auto route {want!r}")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    gen = os.path.join(ROOT, "build", f"{CLI_GEN[0]}.in")
+    outs = []
+    for argv in (["generate", CLI_GEN[0], gen, *CLI_GEN[1]], ["run", gen, "--device", str(dev), "--dtype", "float64"],
+                 ["oracle", gen]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(argv)
+        lines = buf.getvalue().splitlines(keepends=True)
+        if rc != 0 or (argv[0] != "generate" and not lines[-1].startswith("time : ")):
+            raise AssertionError(f"cli {argv[0]}: exit {rc}, last line {lines[-1:]}")
+        outs.append("".join(lines[:-1]))
+    log(f"[multihost] cli generate {CLI_GEN[0]}, run --dtype float64 on {dev} and oracle: byte equal less the time "
+        f"line {outs[1] == outs[2]} ({outs[1].count(chr(10))} lines)")
+    if outs[1] != outs[2] or not outs[1]:
+        raise AssertionError("cli run --dtype float64 differs from oracle")
+
+
 def device_rng_phase(torch, dev, spec):
     """The card's glibc words against the host generator's across block
     boundaries and two calls, at a small block and at the default one; then
@@ -1828,7 +2004,8 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     logged beside), its fused step one step at gen-inst1e6's shape
     (``big``, the B5 probe's slope in turns); then ``bell_records`` and
     ``bell_side_delta``, one step's partials of the 2x2 mesh at instML100k
-    in f64 (``mesh_phase``)."""
+    in f64 (``mesh_phase``).  The launches of the two sharded kernels add
+    the multi-process phase's, every rank's (``multihost_phase``)."""
     from recsys_tpu_torch.engine import trainer
     from recsys_tpu_torch.ops import dense_fused as df
     from recsys_tpu_torch.ops import dense_stream as ds
@@ -1894,7 +2071,9 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     # The raw deltas' main path is the sharded tiled route: one launch a
     # shard and step at instML100k's 2x2 shard shape (``mesh_phase``).
     tl = times["mesh"]["tiled_deltas"]
-    add("tiled_deltas", launches["instML100k mesh", "float32"]["tiled_deltas"], tl["err"], tl["ms"], tl["plain_ms"],
+    ranks = launches["multihost", "all ranks"]
+    add("tiled_deltas", launches["instML100k mesh", "float32"]["tiled_deltas"] + ranks["tiled_deltas"], tl["err"],
+        tl["ms"], tl["plain_ms"],
         6.0 * tl["nnz"] * ml100k.features, tl["nbytes"])
     log(f"[kernels] tiled_deltas at {INST1E6}, one launch: {b5_ms!r} ms, twin {b5_plain!r} ms, bound "
         f"{_bound(6.0 * big.nnz * big.features, a_b + 2 * f_b)!r} ms, max_abs_err against the twin "
@@ -1908,7 +2087,8 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     del L, R, A, At
     out += bell_records(torch, dev, ml100k, launches, errs, times)
     bd = times["mesh"]["bell_side_delta"]
-    out.append(_record("bell_side_delta", launches["instML100k mesh", "float64"]["bell_side_delta"], bd["err"],
+    out.append(_record("bell_side_delta", launches["instML100k mesh", "float64"]["bell_side_delta"]
+                       + ranks["bell_side_delta"], bd["err"],
                        bd["ms"], bd["plain_ms"], bd["flops"], bd["nbytes"], F64_FLOPS))
     out += probe_records(torch, dev, launches, errs, p1_rows, p3)
     for rec in out:
@@ -2051,7 +2231,7 @@ def main() -> int:
         t_lap = now
 
     try:
-        device_phase(torch)
+        smi = device_phase(torch)
         lap("device")
         build_phase()
         lap("build")
@@ -2105,6 +2285,8 @@ def main() -> int:
         lap("COO")
         mesh_times = mesh_phase(torch, dev, launches, big)
         lap("mesh")
+        multihost_phase(torch, dev, launches, smi)
+        lap("multihost")
         times = {"B1": (train1["auto", "highest"], plain1["highest"]),
                  "B3": (train2["auto", "highest"], plain2["highest"])}
         times["B5 step"] = b5_times[INST1E6]["auto"]["per_step"]

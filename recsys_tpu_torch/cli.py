@@ -1,12 +1,14 @@
-"""Command-line interface of the port (the ``run`` subcommand of
-``recsys_tpu/cli.py``, :47-236):
+"""Command-line interface of the port (``recsys_tpu/cli.py``):
 
     python -m recsys_tpu_torch.cli run <file.in> [--device cuda] [--dtype ...] [--precision ...]
     python -m recsys_tpu_torch.cli run <file.in> --checkpoint ck.npz [--checkpoint-every 500]
+    python -m recsys_tpu_torch.cli oracle <file.in> [--no-time] [--dump-mats PATH --record N]
+    python -m recsys_tpu_torch.cli bench <file.in> [--repeats N] [the run flags]
+    python -m recsys_tpu_torch.cli generate inst<u>-<i>-<k>-<min>-<max> <out.in> [--iters --alpha --seed]
 
-It prints the reference binaries' stdout contract: one top-1 item index
-per user, then ``time : <seconds>`` (``matFact.c:127,134``).  Flags keep
-the JAX CLI's names.  ``--checkpoint`` trains in chunks of
+``run`` prints the reference binaries' stdout contract: one top-1 item
+index per user, then ``time : <seconds>`` (``matFact.c:127,134``).  Flags
+keep the JAX CLI's names.  ``--checkpoint`` trains in chunks of
 ``--checkpoint-every`` iterations through ``trainer.factorize``, resuming
 from the file if it exists, and then runs ``trainer.recommend`` with
 ``--block-items`` (``recsys_tpu/cli.py:155-163``).  ``--dtype float64``
@@ -17,20 +19,31 @@ card, sorted segment sums otherwise).  ``--mesh RxC`` runs the sharded
 engine (``parallel/engine.py``) on an R x C mesh whose shards all sit on
 ``--device``; with ``--checkpoint`` it is refused (the checkpointed route
 trains on one device).
+
+``oracle`` runs the numpy f64 engine (``engine/oracle.py``) and prints
+the same contract, or with ``--dump-mats`` writes the reference's ``.mats``
+dump of the first ``--record`` iterations.  ``bench`` runs once to warm
+up, then ``--repeats`` timed runs, and prints one JSON line with the JAX
+CLI's keys: ``wall_s`` is the best run, ``path`` the route
+(``trainer.choose_path``, or the sharded route under ``--mesh``).
+``generate`` writes a seeded instance (``io/generator.py``).  bfloat16
+goes through one gate in ``run`` and ``bench``: a warning, and under
+``--strict`` a refusal (exit 2; the port has no measured bf16 policy).
+The multi-process layer is the library entry ``parallel.multihost.run``,
+as in the JAX package: no subcommand reaches it.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import sys
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="recsys-tpu-torch")
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("run", help="factorize + print top-1 recommendations")
+def _add_common(p) -> None:
+    """The flags ``run`` and ``bench`` share."""
     p.add_argument("input", help="path to .in instance file")
     p.add_argument("-v", "--verbose", action="store_true", help="print dataset/config info to stderr")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
@@ -41,16 +54,46 @@ def main(argv=None) -> int:
     p.add_argument("--block-items", type=int, default=4096, help="item-block size of recommend()'s top-1 (--checkpoint)")
     p.add_argument("--no-time", action="store_true", help="suppress the trailing time line")
     p.add_argument("--strict", action="store_true", help="refuse bfloat16 (the port has no measured bf16 policy)")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="recsys-tpu-torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("run", help="factorize + print top-1 recommendations")
+    _add_common(p)
     p.add_argument("--checkpoint", metavar="PATH", default=None, help="snapshot/resume file")
     p.add_argument("--checkpoint-every", type=int, default=500, metavar="N", help="iterations between snapshots")
     p.add_argument("--profile", metavar="DIR", default=None, help="write a torch.profiler chrome trace here")
+
+    orc = sub.add_parser("oracle", help="numpy float64 reference engine")
+    orc.add_argument("input")
+    orc.add_argument("--no-time", action="store_true")
+    orc.add_argument("--dump-mats", metavar="PATH", default=None,
+                     help="write the .mats debug dump (initial/per-iter/final L,R,B) and exit")
+    orc.add_argument("--record", type=int, default=5, help="iterations to record in the dump")
+
+    bench = sub.add_parser("bench", help="timed run, JSON metrics line")
+    _add_common(bench)
+    bench.add_argument("--repeats", type=int, default=3)
+
+    gen = sub.add_parser("generate", help="generate an instance file")
+    gen.add_argument("name", help="inst<users>-<items>-<k>-<minnz>-<maxnz>")
+    gen.add_argument("out", help="output .in path")
+    gen.add_argument("--iters", type=int, default=100)
+    gen.add_argument("--alpha", type=float, default=0.0001)
+    gen.add_argument("--seed", type=int, default=42)
     args = ap.parse_args(argv)
+
+    if args.cmd == "generate":
+        return _cmd_generate(args)
+    if args.cmd == "oracle":
+        return _cmd_oracle(args)
 
     import torch
 
     from recsys_tpu_torch.config import RunConfig
-    from recsys_tpu_torch.io.parser import load_problem
     from recsys_tpu_torch.engine import trainer
+    from recsys_tpu_torch.io.parser import load_problem
     from recsys_tpu_torch.utils.timing import Timer
 
     device = torch.device(args.device)
@@ -58,7 +101,7 @@ def main(argv=None) -> int:
         args.dtype = "float64" if device.type == "cpu" else "float32"
     mesh_shape = None
     if args.mesh:
-        if args.checkpoint:
+        if getattr(args, "checkpoint", None):
             print("error: --mesh with --checkpoint is refused: the checkpointed route trains on one device",
                   file=sys.stderr)
             return 2
@@ -66,13 +109,32 @@ def main(argv=None) -> int:
         mesh_shape = (int(r), int(c))
     cfg = RunConfig(dtype=args.dtype, path=args.path, mesh_shape=mesh_shape, precision=args.precision,
                     block_items=args.block_items)
-    if cfg.dtype == "bfloat16":
-        print("warning: bfloat16 is a lossy speed mode judged by argmax agreement "
-              "(floor 98%); --dtype float32 --precision bf16x3 is the accurate fast tier",
-              file=sys.stderr)
-        if args.strict:
-            print("error: refusing bfloat16 under --strict", file=sys.stderr)
-            return 2
+    if not _bf16_gate(cfg, args):
+        return 2
+
+    def banner(spec):
+        if args.verbose:
+            print(
+                f"dataset: {spec.users}x{spec.items} k={spec.features} nnz={spec.nnz} "
+                f"iters={spec.iters} alpha={spec.alpha} | dtype={cfg.dtype} "
+                f"path={_route(spec, cfg, device)} device={device}",
+                file=sys.stderr,
+            )
+
+    if args.cmd == "bench":
+        spec = load_problem(args.input)
+        banner(spec)
+        trainer.run(spec, cfg, device)  # warm-up: builds and loads the kernels
+        times = []
+        for _ in range(args.repeats):
+            with Timer() as t:
+                trainer.run(spec, cfg, device)
+            times.append(t.seconds)
+        best = min(times)
+        print(json.dumps({"instance": os.path.basename(args.input), "wall_s": best,
+                          "updates_per_s": spec.iters * spec.nnz / best, "dtype": cfg.dtype,
+                          "path": _route(spec, cfg, device), "repeats": args.repeats}))
+        return 0
 
     prof = contextlib.nullcontext()
     if args.profile:
@@ -82,13 +144,7 @@ def main(argv=None) -> int:
         prof = torch.profiler.profile(activities=acts)
     with prof, Timer() as t:
         spec = load_problem(args.input)
-        if args.verbose:
-            print(
-                f"dataset: {spec.users}x{spec.items} k={spec.features} nnz={spec.nnz} "
-                f"iters={spec.iters} alpha={spec.alpha} | dtype={cfg.dtype} "
-                f"path={trainer.choose_path(spec, cfg, device)} device={device}",
-                file=sys.stderr,
-            )
+        banner(spec)
         if args.checkpoint:
             from recsys_tpu_torch.io.writers import format_recommendations
             from recsys_tpu_torch.utils.checkpoint import run_with_checkpoints
@@ -104,6 +160,64 @@ def main(argv=None) -> int:
     sys.stdout.write(out)
     if not args.no_time:
         print(t.line())
+    return 0
+
+
+def _route(spec, cfg, device) -> str:
+    """The route ``run`` takes: ``choose_path``'s, or on a mesh the sharded
+    engine's (``tiled``, ``bell``, ``dense``, ``coo_seg``, ``coo``)."""
+    from recsys_tpu_torch.engine import trainer
+
+    if cfg.mesh_shape is None:
+        return trainer.choose_path(spec, cfg, device)
+    from recsys_tpu_torch.parallel import engine as parallel_engine
+    from recsys_tpu_torch.parallel.mesh import make_mesh
+
+    return parallel_engine.sharded_route(spec, cfg, make_mesh(spec.users, spec.items, cfg.mesh_shape, device=device))
+
+
+def _bf16_gate(cfg, args) -> bool:
+    """bfloat16 in ``run`` and ``bench``: a warning, and False (refused)
+    under ``--strict`` (JAX ``_bf16_gate``; the port has no measured policy,
+    so ``--strict`` refuses every shape)."""
+    if cfg.dtype != "bfloat16":
+        return True
+    print("warning: bfloat16 is a lossy speed mode judged by argmax agreement "
+          "(floor 98%); --dtype float32 --precision bf16x3 is the accurate fast tier",
+          file=sys.stderr)
+    if args.strict:
+        print("error: refusing bfloat16 under --strict", file=sys.stderr)
+        return False
+    return True
+
+
+def _cmd_oracle(args) -> int:
+    from recsys_tpu_torch.engine.oracle import dump_mats, run_oracle
+    from recsys_tpu_torch.io.parser import load_problem
+    from recsys_tpu_torch.utils.timing import Timer
+
+    if args.dump_mats:
+        spec = load_problem(args.input)
+        with open(args.dump_mats, "w") as f:
+            f.write(dump_mats(spec, record=args.record))
+        return 0
+    with Timer() as t:
+        spec = load_problem(args.input)
+        out = run_oracle(spec)
+    sys.stdout.write(out)
+    if not args.no_time:
+        print(t.line())
+    return 0
+
+
+def _cmd_generate(args) -> int:
+    from recsys_tpu_torch.io.generator import generate_instance, parse_instance_name
+    from recsys_tpu_torch.io.parser import save_problem
+
+    u, i, k, lo, hi = parse_instance_name(args.name)
+    spec = generate_instance(u, i, k, lo, hi, iters=args.iters, alpha=args.alpha, seed=args.seed)
+    save_problem(spec, args.out)
+    print(f"wrote {args.out}: {u}x{i} k={k} nnz={spec.nnz}", file=sys.stderr)
     return 0
 
 

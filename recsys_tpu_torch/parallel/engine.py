@@ -1,22 +1,28 @@
 """The sharded engine end to end: ingest, shard, train, top-1 (port of
-``recsys_tpu/parallel/engine.py``, the single-process part).
+``recsys_tpu/parallel/engine.py``).
 
 One process drives every shard of a (pu, pi) mesh (``mesh.make_mesh``): by
 default all on the run's device, so an H100 holds a 2x2 or 2x4 mesh as the
-JAX tests' 8 virtual CPU devices do.  Factors come from the glibc init in
+JAX tests' 8 virtual CPU devices do.  On a multi-process mesh
+(``parallel/multihost.py``) each rank runs the same code over the shards it
+owns: host ``prep`` stays whole on every rank, as in JAX, and ``upload``
+puts only the blocks of this rank's shards on its device (JAX's
+``putter``).  Factors come from the glibc init in
 the serial draw order (or, for f32 and bf16 BELL above
 ``trainer.DEVICE_INIT_MIN_DRAWS``, from the same stream drawn on the
 device), are laid into blocks, trained by ``parallel/step.py`` and handed
-back as whole padded tables on the mesh's first device.  Routes follow
+back as whole padded tables on the mesh's first device (on every rank, by
+one gather a table, ``step.gather``).  Routes follow
 the JAX engine: f32/bf16 with an implicit mask on ``dense``/``pallas``
 take B5's raw deltas per shard (``tiled``), ``bell`` the checkerboard
 BELL, f32/bf16 with at least users + items ratings the prefix-sum COO
 (``coo_seg``), the rest the segment-sum COO (``coo``) or, where the route
-is ``dense``, the dense step.  ``recsys_tpu/parallel/multihost.py`` (one
-process a host) is not ported here (ROADMAP A9b).
+is ``dense``, the dense step.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -61,16 +67,32 @@ def _on(x: np.ndarray, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(dtype).to(device)
 
 
-def _blocks(X: np.ndarray, u_blk: int, i_blk: int, mesh: Mesh, dtype) -> list[list[torch.Tensor]]:
-    """Shard (ub, ib)'s block of a (users_pad, items_pad) host array on its device."""
-    return [[_on(X[ub * u_blk:(ub + 1) * u_blk, ib * i_blk:(ib + 1) * i_blk], dev, dtype)
-             for ib, dev in enumerate(row)] for ub, row in enumerate(mesh.devices)]
+def _host(x: np.ndarray, dtype) -> torch.Tensor:
+    """A host array as a CPU tensor of ``dtype`` (no copy when it has it):
+    ``step.replicate`` copies only the blocks this rank reads from it."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+
+
+def _local(mesh: Mesh, make) -> list[list]:
+    """``make(ub, ib, device)`` for each shard this rank owns, None for the
+    others', as a (pu, pi) grid."""
+    return [[None if dev is None else make(ub, ib, dev) for ib, dev in enumerate(row)]
+            for ub, row in enumerate(mesh.devices)]
+
+
+def _blocks(X: np.ndarray, u_blk: int, i_blk: int, mesh: Mesh, dtype) -> list[list[torch.Tensor | None]]:
+    """Shard (ub, ib)'s block of a (users_pad, items_pad) host array on its
+    device, for this rank's shards."""
+    return _local(mesh, lambda ub, ib, dev: _on(X[ub * u_blk:(ub + 1) * u_blk, ib * i_blk:(ib + 1) * i_blk], dev,
+                                                dtype))
 
 
 def factorize_sharded(spec: ProblemSpec, cfg: RunConfig = RunConfig(), state: MFState | None = None,
                       mesh: Mesh | None = None, device="cuda") -> tuple[MFState, Mesh]:
     """Train over the mesh (default: ``cfg.mesh_shape``'s shards all on
-    ``device``); returns (padded factors on the mesh's first device, mesh).
+    ``device``); returns (padded factors on the mesh's first device, mesh);
+    on a multi-process mesh this rank trains its shards and every rank
+    gets the whole factors.
     The tables are padded as the route pads them: to mesh-axis multiples,
     and on ``tiled`` each block to 128 rows and k to 32 columns; slice
     ``[:users, :k]`` for the factors.  Phases ``prep``, ``upload`` and
@@ -99,23 +121,23 @@ def factorize_sharded(spec: ProblemSpec, cfg: RunConfig = RunConfig(), state: MF
             bucket = shp.bucket_coo_seg if route == "coo_seg" else shp.bucket_coo
             shards, u_blk, i_blk = bucket(spec, pu, pi, dtype=ndt)
     with phase("upload") as psync:
-        L = step.replicate(_on(L0, mesh.home, tdt), u_blk, mesh, AXIS_USERS)
-        R = step.replicate(_on(R0, mesh.home, tdt), i_blk, mesh, AXIS_ITEMS)
+        L = step.replicate(_host(L0, tdt), u_blk, mesh, AXIS_USERS)
+        R = step.replicate(_host(R0, tdt), i_blk, mesh, AXIS_ITEMS)
         if route == "dense":
             data = (_blocks(A, u_blk, i_blk, mesh, tdt), _blocks(M, u_blk, i_blk, mesh, tdt))
         elif route == "coo":
-            data = ([[step.coo_shard(type(shards)(*(x[ub, ib] for x in shards)), u_blk, i_blk, dev, tdt)
-                      for ib, dev in enumerate(row)] for ub, row in enumerate(mesh.devices)],)
+            data = (_local(mesh, lambda ub, ib, dev: step.coo_shard(type(shards)(*(x[ub, ib] for x in shards)),
+                                                                    u_blk, i_blk, dev, tdt)),)
         else:
-            data = ([[tuple(_on(x[ub, ib], dev, tdt if name.startswith(("vals", "w")) else torch.int64)
-                            for name, x in zip(shards._fields, shards))
-                      for ib, dev in enumerate(row)] for ub, row in enumerate(mesh.devices)],)
+            data = (_local(mesh, lambda ub, ib, dev: tuple(
+                _on(x[ub, ib], dev, tdt if name.startswith(("vals", "w")) else torch.int64)
+                for name, x in zip(shards._fields, shards))),)
         psync((L, R, data))
     train = {"dense": step.dense_train, "coo": step.coo_train, "coo_seg": step.coo_seg_train}[route]
     with phase("train") as psync:
         train(mesh, L, R, *data, alpha2, spec.iters)
         psync((L, R))
-    return MFState(L=step.gather(L, mesh.home), R=step.gather(R, mesh.home)), mesh
+    return MFState(L=step.gather(L, mesh, AXIS_USERS), R=step.gather(R, mesh, AXIS_ITEMS)), mesh
 
 
 def _lay(F: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
@@ -128,13 +150,20 @@ def _lay(F: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
     return out
 
 
+def _lay_blocks(F: torch.Tensor, idx: np.ndarray, blk: int, mesh: Mesh, axis: str):
+    """``step.replicate`` of ``_lay(F, idx)``, each block laid out by its
+    own slice of ``idx``, and only the blocks this rank's shards read."""
+    return step.replicate_blocks(lambda b: _lay(F, idx[b * blk:(b + 1) * blk]), mesh, axis)
+
+
 def bell_inputs(spec: ProblemSpec, cfg: RunConfig, mesh: Mesh, state: MFState | None = None):
     """The checkerboard BELL's ``prep`` and ``upload`` phases: (data, L, R,
     tables), L and R the block-strided degree-permuted factors as
     ``step.replicate`` holds them, ``tables[ub][ib]`` shard (ub, ib)'s
-    ``BellTables`` on its device.  The factors come from ``state``, the host
-    glibc init, or (``trainer._device_init``) the same stream drawn on the
-    mesh's first device and laid out there by ``index_select``."""
+    ``BellTables`` on its device, for this rank's shards.  The factors come
+    from ``state``, the host glibc init, or (``trainer._device_init``) the
+    same stream drawn whole on the rank's device, where only the blocks its
+    shards read are laid out, by ``index_select``."""
     from recsys_tpu_torch.engine import trainer
 
     pu, pi = mesh.shape
@@ -152,16 +181,16 @@ def bell_inputs(spec: ProblemSpec, cfg: RunConfig, mesh: Mesh, state: MFState | 
     with phase("upload") as psync:
         if on_device:
             Ld, Rd = device_rng.device_init_factors(spec.users, spec.items, spec.features, device=mesh.home)
-            L0 = _lay(Ld.to(tdt), bell.sharded_lay_index(data.user_perm, m.u_blk, pu))
+            L = _lay_blocks(Ld.to(tdt), bell.sharded_lay_index(data.user_perm, m.u_blk, pu), m.u_blk + 1, mesh,
+                            AXIS_USERS)
             del Ld
-            R0 = _lay(Rd.to(tdt), bell.sharded_lay_index(data.item_perm, m.i_blk, pi))
+            R = _lay_blocks(Rd.to(tdt), bell.sharded_lay_index(data.item_perm, m.i_blk, pi), m.i_blk + 1, mesh,
+                            AXIS_ITEMS)
             del Rd
         else:
-            L0, R0 = _on(L0, mesh.home, tdt), _on(R0, mesh.home, tdt)
-        L = step.replicate(L0, m.u_blk + 1, mesh, AXIS_USERS)
-        R = step.replicate(R0, m.i_blk + 1, mesh, AXIS_ITEMS)
-        tables = [[bell.shard_tables(data.tables, ub, ib, dev, tdt) for ib, dev in enumerate(row)]
-                  for ub, row in enumerate(mesh.devices)]
+            L = step.replicate(_host(L0, tdt), m.u_blk + 1, mesh, AXIS_USERS)
+            R = step.replicate(_host(R0, tdt), m.i_blk + 1, mesh, AXIS_ITEMS)
+        tables = _local(mesh, lambda ub, ib, dev: bell.shard_tables(data.tables, ub, ib, dev, tdt))
         psync((L, R, tables))
     return data, L, R, tables
 
@@ -180,7 +209,7 @@ def _factorize_sharded_bell(spec: ProblemSpec, cfg: RunConfig, mesh: Mesh, state
     del tables
     uidx = bell.sharded_unpermute_index(data.inv_user_perm, m.u_blk, pu * m.u_blk)
     iidx = bell.sharded_unpermute_index(data.inv_item_perm, m.i_blk, pi * m.i_blk)
-    return MFState(L=_lay(step.gather(L, mesh.home), uidx), R=_lay(step.gather(R, mesh.home), iidx))
+    return MFState(L=_lay(step.gather(L, mesh, AXIS_USERS), uidx), R=_lay(step.gather(R, mesh, AXIS_ITEMS), iidx))
 
 
 def tiled_dims(spec: ProblemSpec, pu: int, pi: int) -> tuple[int, int, int, int, int]:
@@ -194,10 +223,11 @@ def tiled_dims(spec: ProblemSpec, pu: int, pi: int) -> tuple[int, int, int, int,
 
 def tiled_inputs(spec: ProblemSpec, mesh: Mesh, state: MFState | None = None):
     """The sharded tiled route's ``prep`` and ``upload`` phases: (L, R, A,
-    At), f32 factors as ``step.replicate`` holds them and each shard's
-    block of A (its most compact exact storage) and its transpose on the
-    shard's device, made once for the run.  Padding rows and columns hold
-    A = 0 and zero factors, so they add exact zeros."""
+    At), f32 factors as ``step.replicate`` holds them and each of this
+    rank's shards' block of A (its most compact exact storage) and its
+    transpose on the shard's device, each built from that block's ratings
+    alone, once for the run.  Padding rows and columns hold A = 0 and zero
+    factors, so they add exact zeros."""
     from recsys_tpu_torch.engine.trainer import _a_storage
 
     pu, pi = mesh.shape
@@ -209,14 +239,20 @@ def tiled_inputs(spec: ProblemSpec, mesh: Mesh, state: MFState | None = None):
         L0[: spec.users, : spec.features] = state.L
         R0 = np.zeros((items_pad, K), np.float32)
         R0[: spec.items, : spec.features] = state.R
+    storage = _a_storage(spec)[0]
+    ub_of, ib_of = spec.rows // u_blk, spec.cols // i_blk
+
+    def a_block(ub, ib, dev):
+        on = (ub_of == ub) & (ib_of == ib)
+        block = dataclasses.replace(spec, users=u_blk, items=i_blk, rows=spec.rows[on] - ub * u_blk,
+                                    cols=spec.cols[on] - ib * i_blk, vals=spec.vals[on])
+        return dense_tiled.device_dense_A(block, u_blk, i_blk, storage, dev)
+
     with phase("upload") as psync:
-        A = dense_tiled.device_dense_A(spec, users_pad, items_pad, _a_storage(spec)[0], mesh.home)
-        Ab = [[A[ub * u_blk:(ub + 1) * u_blk, ib * i_blk:(ib + 1) * i_blk].to(dev).contiguous()
-               for ib, dev in enumerate(row)] for ub, row in enumerate(mesh.devices)]
-        del A
-        At = [[a.t().contiguous() for a in row] for row in Ab]
-        L = step.replicate(_on(L0, mesh.home, torch.float32), u_blk, mesh, AXIS_USERS)
-        R = step.replicate(_on(R0, mesh.home, torch.float32), i_blk, mesh, AXIS_ITEMS)
+        Ab = _local(mesh, a_block)
+        At = [[None if a is None else a.t().contiguous() for a in row] for row in Ab]
+        L = step.replicate(_host(L0, torch.float32), u_blk, mesh, AXIS_USERS)
+        R = step.replicate(_host(R0, torch.float32), i_blk, mesh, AXIS_ITEMS)
         psync((L, R, Ab, At))
     return L, R, Ab, At
 
@@ -228,13 +264,14 @@ def _factorize_sharded_tiled(spec: ProblemSpec, mesh: Mesh, state: MFState | Non
     with phase("train") as psync:
         step.tiled_train(mesh, L, R, Ab, At, 2.0 * spec.alpha, spec.iters, precision)
         psync((L, R))
-    return MFState(L=step.gather(L, mesh.home), R=step.gather(R, mesh.home))
+    return MFState(L=step.gather(L, mesh, AXIS_USERS), R=step.gather(R, mesh, AXIS_ITEMS))
 
 
 def sharded_top1_device(state: MFState, spec: ProblemSpec, mesh: Mesh) -> torch.Tensor:
     """Distributed masked top-1 (JAX ``engine.py:222``): int32
-    (users_pad,) global item indices on the mesh's first device, from the
-    padded tables ``state`` (block sizes from their shapes).  The rated-items
+    (users_pad,) global item indices on the mesh's first device (on every
+    rank's), from the padded tables ``state`` (block sizes from their
+    shapes; on a multi-process mesh every rank passes the whole tables).  The rated-items
     table masks unless some user rated most of the item space; then the
     dense mask (``sharding.rated_mask_padded``)."""
     pu, pi = mesh.shape
@@ -249,12 +286,12 @@ def sharded_top1_device(state: MFState, spec: ProblemSpec, mesh: Mesh) -> torch.
         tpad[: spec.users] = table
         cap = (16_000_000 // max(u_blk, 1)) // 128 * 128
         block = min(max(cap, 128), -(-i_blk // 128) * 128)
-        rated = step.replicate(torch.from_numpy(tpad).to(mesh.home), u_blk, mesh, AXIS_USERS)
+        rated = step.replicate(torch.from_numpy(tpad), u_blk, mesh, AXIS_USERS)
         tops = step.top1_rated(mesh, L, R, rated, i_blk, spec.items, block)
     else:
         mask = shp.rated_mask_padded(spec, pu, pi, users_pad=users_pad, items_pad=items_pad)
         tops = step.top1_dense(mesh, L, R, _blocks(mask, u_blk, i_blk, mesh, torch.bool), i_blk)
-    return torch.cat([t.to(mesh.home) for t in tops])
+    return torch.cat(step.share(tops, mesh, AXIS_USERS))
 
 
 def recommend_sharded(state: MFState, spec: ProblemSpec, mesh: Mesh) -> np.ndarray:

@@ -279,3 +279,14 @@ def hub_spec(features: int, seed: int = 0, *, users: int = 300, items: int = 200
     vals = rng.integers(0, 6, rows.size).astype(np.float64)
     return ProblemSpec(iters=4, alpha=1e-4, features=features, users=users, items=items,
                        rows=rows, cols=cols, vals=vals)
+
+
+def factor_digest(state) -> str:
+    """sha256 of the factor tables' raw bytes, L then R (as their device
+    holds them: a multi-process run's ranks and one process compare by it)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in state:
+        h.update(x.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()

@@ -874,3 +874,46 @@ def test_sharded_tiled_route_launches_tiled_deltas():
     assert dense_tiled.tiled_deltas.launches == before + 7 * 4
     want, _ = par.factorize_sharded(spec, cfg, device="cpu")
     assert checks.factor_rel((got.L, got.R), (want.L.to(dev), want.R.to(dev))) <= checks.TILED_FACTOR_RTOL["highest"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,path", [("float32", "auto"), ("float64", "bell")])
+def test_world_of_one_rank_over_nccl_keeps_the_bits(dtype, path):
+    # One rank over NCCL on the card: the multi-process mesh's gathers run
+    # over the world of one; the factors equal the one-process engine's.
+    from recsys_tpu_torch.parallel import engine as par
+    from recsys_tpu_torch.parallel import launch, multihost
+
+    dev = _cuda()
+    spec = generate_instance(40, 60, 6, 1, 8, iters=12, alpha=0.01, seed=5)
+    cfg = RunConfig(dtype=dtype, path=path, mesh_shape=(2, 2))
+    multihost.initialize(f"127.0.0.1:{launch.free_port()}", 1, 0, device=torch.device("cuda", 0))
+    try:
+        state, mesh = multihost.factorize_multihost(spec, cfg, device=torch.device("cuda", 0))
+        assert mesh.groups is not None
+        digest = checks.factor_digest(state)
+    finally:
+        multihost.shutdown()
+    want, _ = par.factorize_sharded(spec, cfg, device=dev)
+    assert digest == checks.factor_digest(want)
+
+
+@pytest.mark.cuda
+def test_two_ranks_over_gloo_on_one_card_keep_the_bits():
+    # Two ranks share the card over gloo (NCCL refuses two ranks on one GPU).
+    import json
+
+    from recsys_tpu_torch.parallel import engine as par
+    from recsys_tpu_torch.parallel import launch
+
+    dev = _cuda()
+    gen = [40, 60, 6, 1, 8, 12, 0.01, 5]
+    cases = [{"name": f"{dtype} {path}", "gen": gen, "dtype": dtype, "path": path, "mesh": [2, 2]}
+             for dtype, path in (("float32", "auto"), ("float64", "bell"))]
+    lines = launch.rank_lines(launch.spawn(2, ["--device", "cuda:0", "--backend", "gloo", "--cases",
+                                               json.dumps(cases)], 300))
+    spec = generate_instance(*gen[:5], iters=gen[5], alpha=gen[6], seed=gen[7])
+    for case in cases:
+        want, _ = par.factorize_sharded(spec, launch.case_config(case), device=dev)
+        got = {x["factors_sha256"] for rank in lines for x in rank if x["case"] == case["name"]}
+        assert got == {checks.factor_digest(want)}

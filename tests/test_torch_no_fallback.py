@@ -27,7 +27,7 @@ import recsys_tpu_torch.probes.gather, recsys_tpu_torch.probes.stream_v2
 import recsys_tpu_torch.probes.tiled_fused, recsys_tpu_torch.probes.tiled_clocks
 from recsys_tpu_torch.ops import coo, device_rng, lane, stream_v2
 import recsys_tpu_torch.parallel.engine, recsys_tpu_torch.parallel.mesh, recsys_tpu_torch.parallel.sharding
-import recsys_tpu_torch.parallel.step
+import recsys_tpu_torch.parallel.step, recsys_tpu_torch.parallel.multihost, recsys_tpu_torch.parallel.launch
 from recsys_tpu_torch.config import RunConfig
 from recsys_tpu_torch.engine import trainer
 from recsys_tpu_torch.io.generator import generate_instance
@@ -60,6 +60,17 @@ with tempfile.TemporaryDirectory() as tmp:
                                    "--path", "pallas", "--checkpoint", os.path.join(tmp, "ck.npz"),
                                    "--checkpoint-every", "7"])
     assert checkpoint.load(os.path.join(tmp, "ck.npz")).completed_iters == 20
+from recsys_tpu_torch.parallel import multihost
+multihost.initialize()
+out, _ = multihost.run(load_problem(sys.argv[1]), RunConfig(dtype="float64", mesh_shape=(1, 2)), "cpu")
+assert out == open(sys.argv[2]).read()
+with tempfile.TemporaryDirectory() as tmp:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        recsys_tpu_torch.cli.main(["oracle", sys.argv[1], "--no-time"])
+        recsys_tpu_torch.cli.main(["generate", "inst6-7-2-1-3", os.path.join(tmp, "g.in"), "--iters", "3"])
+        recsys_tpu_torch.cli.main(["bench", os.path.join(tmp, "g.in"), "--device", "cpu", "--repeats", "1"])
+    assert buf.getvalue().startswith(open(sys.argv[2]).read()) and '"wall_s"' in buf.getvalue()
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "recsys_tpu" or m.startswith("recsys_tpu."))
 assert not leaked, leaked
@@ -103,6 +114,25 @@ def test_mesh_on_cuda_without_a_card_raises():
                   lambda: par.factorize_sharded(spec, RunConfig(dtype="float32", mesh_shape=(2, 2)))):
         with pytest.raises(RuntimeError, match="cuda"):
             entry()
+
+
+def test_nccl_without_cuda_raises_and_never_switches_to_gloo():
+    """``initialize`` with ``backend="nccl"`` on a CPU device, or NCCL (the
+    CUDA default) where CUDA is absent, raises and joins no group: no
+    backend switch, no rank moved to the CPU."""
+    import torch.distributed as dist
+
+    from recsys_tpu_torch.parallel import multihost
+
+    with pytest.raises(ValueError, match="nccl"):
+        multihost.initialize("127.0.0.1:1", 1, 0, "nccl", device="cpu")
+    assert not dist.is_initialized()
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    for backend in ("nccl", None):
+        with pytest.raises(RuntimeError, match="cuda"):
+            multihost.initialize("127.0.0.1:1", 1, 0, backend, device="cuda")
+        assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script-alone"])

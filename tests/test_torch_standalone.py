@@ -162,7 +162,7 @@ def test_run_config_defaults_equal():
 @pytest.mark.parametrize("module", ["ops/coo.py", "ops/device_rng.py", "ops/lane.py", "ops/stream_v2.py",
                                     "probes/gather.py", "probes/stream_v2.py", "engine/trainer.py", "ops/bell.py",
                                     "parallel/mesh.py", "parallel/sharding.py", "parallel/step.py",
-                                    "parallel/engine.py"])
+                                    "parallel/engine.py", "parallel/multihost.py", "parallel/launch.py", "cli.py"])
 def test_new_modules_import_neither_jax_nor_the_jax_package(module):
     import ast
 
