@@ -160,6 +160,17 @@ each printed as it runs:
    a small instance into build/, ``run`` it in f64 and ``oracle`` it, the
    outputs byte equal less the time line.  A rank's failure, timeout or
    missing line fails the phase.
+18. the bench harness (``recsys_tpu_torch/bench``): the card's HBM copy rate
+   (``roofline.measured_hbm_gbps``) and the cost of a synchronise
+   (``timing.sync_floor_seconds``); ``sweep.run_instance`` with one repeat
+   on instML100k f32 (``pallas``: a byte match and a slope) and
+   inst200-10000-50-100-300 f64 (``bell``: all 200 lines, 200/201 of the
+   golden's), each a ``[bench]`` row from the card with its device memory
+   peak and a share of the roofline in (0, 105]; ``scaling.measure_mesh``
+   on instML100k at 50 iterations on 1x1, 2x1 and 2x2, every shard on the
+   card; and the CLI's ``run --dtype bfloat16 --strict`` on instML100k and
+   on gen-instML1M (written to a temporary directory), each running or
+   refused before training as ``bench/bf16_policy.MEASURED`` says.
 
 Every main path runs with the launch counts set to 0 just before it and
 read just after.  The last two lines are a JSON object of the kernels'
@@ -181,7 +192,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-ML100K = os.path.join(ROOT, "tests", "fixtures", "instML100k")
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+ML100K = os.path.join(FIXTURES, "instML100k")
 ML1M_OUT = os.path.join(ROOT, "tests", "fixtures", "gen-instML1M.out")
 INST1E6 = "gen-inst1e6-100-700-1-3"
 INST1E6_OUT = os.path.join(ROOT, "tests", "fixtures", INST1E6 + ".out")
@@ -197,11 +209,9 @@ ML1M_FLOOR = {"highest": 0.99, "bf16x3": 0.99, "default": 0.95}
 # gen-inst1e6's f32 run reads 0.9938 in the JAX package's tiled route
 # (bench_results.jsonl); `default` runs as `highest` on the tiled route.
 INST1E6_FLOOR = {"highest": 0.99, "bf16x3": 0.98, "default": 0.99}
-# Published H100 SXM peaks (NVIDIA data sheet, 700 W): f32 on the CUDA
-# cores, bf16 on the tensor cores, HBM bandwidth, and f64 on the CUDA
-# cores (the BELL kernel's elementwise products and sums).
-F32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 989e12, 3.35e12
-F64_FLOPS = 34e12
+# The card's peaks (f32 and f64 on the CUDA cores, bf16 on the tensor
+# cores) and HBM rate are the H100 SXM data sheet's, held in
+# recsys_tpu_torch/bench/roofline.py and read by ``_bound``.
 # Shared memory of an H100 SXM: 128 B a clock per SM (32 banks of 4 B) at
 # the 1,980 MHz boost clock on 132 SMs.
 SMEM_BYTES_S = 128 * 1.98e9 * 132
@@ -259,6 +269,13 @@ MULTIHOST_REPS, MULTIHOST_TIMEOUT = 20, 240
 # The CLI's check: ``generate`` this instance into build/, ``run`` it in f64
 # on the card (``bell``) and hold it against ``oracle``.
 CLI_GEN = ("inst300-500-20-2-30", ["--iters", "500", "--alpha", "0.001", "--seed", "3"])
+
+# The bench phase: (instance, sweep dtype, the route it must take) of each
+# ``sweep.run_instance`` row; the mesh shapes and iterations of
+# ``scaling.measure_mesh``; the instances of the CLI's bf16 ``--strict`` check.
+BENCH_ROWS = (("instML100k", "float32", "pallas"), ("inst200-10000-50-100-300", "float64", "bell"))
+BENCH_MESH_SHAPES, BENCH_MESH_ITERS = ((1, 1), (2, 1), (2, 2)), 50
+BENCH_CLI = ("instML100k", "gen-instML1M")
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "resident_train_top1": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:663"),
@@ -969,7 +986,7 @@ def _bell_big_readings(torch, dev, spec):
         bell_wide.step_ms(INST1E6, L, R, t, data.meta, a2, (bell.WIDE_MIN, bell.WARP_FORM), steps=1, rounds=3)
         bell_wide.side_ms(INST1E6, L, R, t, data.meta, a2, rounds=3)
         nbytes, flops = _bell_work(L, R, t, data.meta, spec.nnz)
-        peak = F64_FLOPS if tdtype == torch.float64 else F32_FLOPS
+        peak = "float64" if tdtype == torch.float64 else "float32"
         log(f"[kernels] bell_side_update at {INST1E6} {name}, one step: {nbytes} B, {flops!r} FLOP, "
             f"bound {_bound(flops, nbytes, peak)!r} ms")
         if tdtype == torch.bfloat16:
@@ -1848,6 +1865,86 @@ def _cli_checks(torch, dev, smi):
         raise AssertionError("cli run --dtype float64 differs from oracle")
 
 
+def bench_phase(torch, dev, launches, smi):
+    """The bench harness on the card: ``BENCH_ROWS`` through
+    ``sweep.run_instance`` (one repeat), each row from ``cuda`` with a device
+    memory peak above 0 and a share of the roofline in (0, 105], on its
+    route, instML100k f32 a byte match with a slope and inst200-10000 f64
+    200/201 = 0.99502 of its golden (all 200 users' lines); the sharded
+    engine through ``scaling.measure_mesh``; then ``_bf16_cli_checks``.
+    Every run has its own launch-count window."""
+    from recsys_tpu_torch.bench import roofline, scaling, sweep
+    from recsys_tpu_torch.config import RunConfig
+    from recsys_tpu_torch.utils.timing import sync_floor_seconds
+
+    log(f"[bench] measured_hbm_gbps {roofline.measured_hbm_gbps(dev)!r} GB/s (data sheet "
+        f"{roofline.HBM_BYTES_S / 1e9:g}) | sync_floor_seconds {sync_floor_seconds(dev)!r} s | {smi}")
+    kernel = {"pallas": "resident_train_top1", "bell": "bell_side_update"}
+    for name, dtype, route in BENCH_ROWS:
+        counts = {}
+        with counted(counts):
+            row = sweep.run_instance(name, dtype, 1, dev)
+        launches[f"bench {name}", dtype] = counts
+        log(f"[bench] {json.dumps(row)} | launches {_nonzero(counts)}")
+        pct = row["pct_roofline"]
+        bad = [what for what, ok in (
+            ("backend", row["backend"] == "cuda"), ("route", row["path"] == route),
+            ("memory peak", (row["hbm_peak_mb"] or 0) > 0), ("share", pct is not None and 0 < pct <= 105),
+            ("launches", counts[kernel[route]] > 0),
+            ("golden", row["golden_exact"] is True and row["per_iter_marginal_ms"] is not None if dtype == "float32"
+             else row["agreement"] == round(200 / 201, 4) and row["golden_exact"] is False))
+            if not ok]
+        if bad:
+            raise AssertionError(f"bench {name} {dtype}: {bad} wrong in {row}")
+    spec = sweep.load_instance("instML100k", FIXTURES)
+    counts = {}
+    with counted(counts):
+        rows = scaling.measure_mesh(dataclasses.replace(spec, iters=BENCH_MESH_ITERS), RunConfig(dtype="float32"),
+                                    BENCH_MESH_SHAPES, dev)
+    launches["bench mesh", "float32"] = counts
+    for pu, pi, wall, spread, route in rows:
+        log(f"[bench] measure_mesh instML100k {BENCH_MESH_ITERS} iterations {pu}x{pi} ({route}, every shard on "
+            f"the card): wall {wall!r} s, spread {spread!r} | {smi}")
+    if [(pu, pi) for pu, pi, *_ in rows] != list(BENCH_MESH_SHAPES) or counts["tiled_deltas"] == 0:
+        raise AssertionError(f"measure_mesh: rows {rows}, launches {_nonzero(counts)}")
+    _bf16_cli_checks(torch, dev, launches)
+
+
+def _bf16_cli_checks(torch, dev, launches):
+    """``cli run --dtype bfloat16 --strict`` on each of ``BENCH_CLI``
+    (gen-instML1M written from ``GEN_SPECS`` into a temporary directory): a
+    shape at or above the floor in ``bf16_policy.MEASURED`` runs (exit 0,
+    one line a user, kernels launched), one below it is refused (exit 2,
+    nothing printed, no kernel launched)."""
+    from recsys_tpu_torch import cli
+    from recsys_tpu_torch.bench import bf16_policy, sweep
+    from recsys_tpu_torch.io.parser import save_problem
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in BENCH_CLI:
+            spec = sweep.load_instance(name, FIXTURES)
+            path = os.path.join(tmp, f"{name}.in")
+            save_problem(spec, path)
+            agree = bf16_policy.lookup(spec)
+            if agree is None:
+                raise AssertionError(f"bf16_policy.MEASURED has no row of {name}'s shape")
+            runs = agree >= bf16_policy.FLOOR
+            counts = {}
+            out, err = io.StringIO(), io.StringIO()
+            with counted(counts), contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = cli.main(["run", path, "--device", str(dev), "--dtype", "bfloat16", "--strict", "--no-time"])
+            launches[f"bench cli bf16 {name}", "strict"] = counts
+            log(f"[bench] cli run {name} --dtype bfloat16 --strict: exit {rc}, {out.getvalue().count(chr(10))} "
+                f"lines, measured {agree!r} (floor {bf16_policy.FLOOR}) | launches {_nonzero(counts)} | "
+                f"{err.getvalue().strip()[:300]}")
+            ok = (rc == 0 and out.getvalue().count("\n") == spec.users and any(counts.values())) if runs else \
+                (rc == 2 and out.getvalue() == "" and not any(counts.values()))
+            if not ok:
+                raise AssertionError(f"cli bf16 --strict on {name}: exit {rc}, expected it to "
+                                     f"{'run' if runs else 'be refused before training'}")
+            del spec
+
+
 def device_rng_phase(torch, dev, spec):
     """The card's glibc words against the host generator's across block
     boundaries and two calls, at a small block and at the default one; then
@@ -1979,14 +2076,17 @@ def tiled_step_profile(torch, dev, spec, name):
     del L, R, A, At
 
 
-def _bound(flops, nbytes, peak=F32_FLOPS):
-    """(bound_ms, bound_by): operations at ``peak`` (by default f32 on the
-    CUDA cores, `highest`) against bytes over HBM, whichever takes longer."""
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
+def _bound(flops, nbytes, peak="float32"):
+    """(bound_ms, bound_by): operations at the data sheet's peak of the
+    dtype ``peak`` (by default f32 on the CUDA cores, `highest`;
+    ``bench/roofline.py``) against bytes over HBM, whichever takes longer."""
+    from recsys_tpu_torch.bench import roofline
+
+    t_ops, t_bytes = flops / roofline.PEAK_FLOPS[peak], nbytes / roofline.HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _record(name, launches, err, ms, plain_ms, flops, nbytes, peak=F32_FLOPS, library_ms=None):
+def _record(name, launches, err, ms, plain_ms, flops, nbytes, peak="float32", library_ms=None):
     """One kernel's entry of the kernels line."""
     bound_ms, bound_by = _bound(flops, nbytes, peak)
     source, replaces = KERNELS[name]
@@ -2089,7 +2189,7 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     bd = times["mesh"]["bell_side_delta"]
     out.append(_record("bell_side_delta", launches["instML100k mesh", "float64"]["bell_side_delta"]
                        + ranks["bell_side_delta"], bd["err"],
-                       bd["ms"], bd["plain_ms"], bd["flops"], bd["nbytes"], F64_FLOPS))
+                       bd["ms"], bd["plain_ms"], bd["flops"], bd["nbytes"], "float64"))
     out += probe_records(torch, dev, launches, errs, p1_rows, p3)
     for rec in out:
         log(f"[kernels] {rec['name']}: {rec['ms']!r} ms vs bound {rec['bound_ms']!r} ms "
@@ -2137,7 +2237,7 @@ def bell_records(torch, dev, ml100k, launches, errs, times, steps=100):
     out = [_record("bell_side_update", launches["instML100k f64", "auto"]["bell_side_update"],
                    errs["bell_side_update"], step_ms[bell.WIDE_MIN],
                    cuda_event_ms(lambda: bell.bell_gd_step_plain(L, R, t, a2, m), 3),
-                   flops, nbytes, F64_FLOPS)]
+                   flops, nbytes, "float64")]
     # The warp form alone, the form the block form replaced: the same entry
     # point with no row in a block (``bell.WARP_FORM``), timed alike.
     log(f"[redesign] bell_side_update at instML100k f64, one step: warp form alone "
@@ -2145,7 +2245,7 @@ def bell_records(torch, dev, ml100k, launches, errs, times, steps=100):
     gathered = 8 * k * (t.ucols.numel() + t.irows.numel()) + 2 * 8 * k * (m.user.n_nz + m.item.n_nz)
     log(f"[kernels] bell_side_update at instML100k f64, counting every gathered row (the slots, "
         f"{t.ucols.numel()} + {t.irows.numel()}) and the own rows read and written: {gathered} B, "
-        f"{_bound(flops, gathered, F64_FLOPS)[0]!r} ms")
+        f"{_bound(flops, gathered, 'float64')[0]!r} ms")
     del L, R, t
     bf = times["bf16 bell"]
     out.append(_record("bell_side_update_bf16", launches[f"{INST1E6} bfloat16", "auto"]["bell_side_update"],
@@ -2287,6 +2387,8 @@ def main() -> int:
         lap("mesh")
         multihost_phase(torch, dev, launches, smi)
         lap("multihost")
+        bench_phase(torch, dev, launches, smi)
+        lap("bench")
         times = {"B1": (train1["auto", "highest"], plain1["highest"]),
                  "B3": (train2["auto", "highest"], plain2["highest"])}
         times["B5 step"] = b5_times[INST1E6]["auto"]["per_step"]

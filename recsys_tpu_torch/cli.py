@@ -27,8 +27,11 @@ up, then ``--repeats`` timed runs, and prints one JSON line with the JAX
 CLI's keys: ``wall_s`` is the best run, ``path`` the route
 (``trainer.choose_path``, or the sharded route under ``--mesh``).
 ``generate`` writes a seeded instance (``io/generator.py``).  bfloat16
-goes through one gate in ``run`` and ``bench``: a warning, and under
-``--strict`` a refusal (exit 2; the port has no measured bf16 policy).
+goes through one gate in ``run`` and ``bench``, after the instance is
+loaded and before training (``bench/bf16_policy.py``, built from the card's
+sweep rows): a shape at or above the agreement floor runs with a note; a
+shape below it, or with no measured agreement, warns, and under ``--strict``
+is refused (exit 2).
 The multi-process layer is the library entry ``parallel.multihost.run``,
 as in the JAX package: no subcommand reaches it.
 """
@@ -53,7 +56,8 @@ def _add_common(p) -> None:
     p.add_argument("--mesh", default=None, help="RxC mesh of shards, all on --device")
     p.add_argument("--block-items", type=int, default=4096, help="item-block size of recommend()'s top-1 (--checkpoint)")
     p.add_argument("--no-time", action="store_true", help="suppress the trailing time line")
-    p.add_argument("--strict", action="store_true", help="refuse bfloat16 (the port has no measured bf16 policy)")
+    p.add_argument("--strict", action="store_true",
+                   help="refuse bfloat16 on shapes below the measured agreement floor or never measured")
 
 
 def main(argv=None) -> int:
@@ -109,8 +113,6 @@ def main(argv=None) -> int:
         mesh_shape = (int(r), int(c))
     cfg = RunConfig(dtype=args.dtype, path=args.path, mesh_shape=mesh_shape, precision=args.precision,
                     block_items=args.block_items)
-    if not _bf16_gate(cfg, args):
-        return 2
 
     def banner(spec):
         if args.verbose:
@@ -124,6 +126,8 @@ def main(argv=None) -> int:
     if args.cmd == "bench":
         spec = load_problem(args.input)
         banner(spec)
+        if not _bf16_gate(spec, cfg, args):
+            return 2
         trainer.run(spec, cfg, device)  # warm-up: builds and loads the kernels
         times = []
         for _ in range(args.repeats):
@@ -145,6 +149,8 @@ def main(argv=None) -> int:
     with prof, Timer() as t:
         spec = load_problem(args.input)
         banner(spec)
+        if not _bf16_gate(spec, cfg, args):
+            return 2
         if args.checkpoint:
             from recsys_tpu_torch.io.writers import format_recommendations
             from recsys_tpu_torch.utils.checkpoint import run_with_checkpoints
@@ -176,19 +182,19 @@ def _route(spec, cfg, device) -> str:
     return parallel_engine.sharded_route(spec, cfg, make_mesh(spec.users, spec.items, cfg.mesh_shape, device=device))
 
 
-def _bf16_gate(cfg, args) -> bool:
-    """bfloat16 in ``run`` and ``bench``: a warning, and False (refused)
-    under ``--strict`` (JAX ``_bf16_gate``; the port has no measured policy,
-    so ``--strict`` refuses every shape)."""
+def _bf16_gate(spec, cfg, args) -> bool:
+    """bfloat16 in ``run`` and ``bench`` (JAX ``_bf16_gate``): the card's
+    measured agreement for this shape (``bench.bf16_policy.check``); False
+    (refused) under ``--strict`` below the floor or on a shape never
+    measured."""
     if cfg.dtype != "bfloat16":
         return True
-    print("warning: bfloat16 is a lossy speed mode judged by argmax agreement "
-          "(floor 98%); --dtype float32 --precision bf16x3 is the accurate fast tier",
-          file=sys.stderr)
-    if args.strict:
-        print("error: refusing bfloat16 under --strict", file=sys.stderr)
-        return False
-    return True
+    from recsys_tpu_torch.bench.bf16_policy import check
+
+    if check(spec, strict=args.strict):
+        return True
+    print("error: refusing bfloat16 under --strict", file=sys.stderr)
+    return False
 
 
 def _cmd_oracle(args) -> int:

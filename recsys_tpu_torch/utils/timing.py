@@ -5,7 +5,9 @@
 the callable it yields synchronises the CUDA device that holds its
 argument (a no-op for CPU tensors), because kernel launches return
 before the device finishes.  With no collector active, ``phase`` yields
-a no-op and adds nothing to the hot path.
+a no-op and adds nothing to the hot path.  ``sync_floor_seconds`` is the
+cost of one such synchronise on finished work, which the sweep subtracts
+from each phase once a synchronise (JAX ``utils/timing.py:90``).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ class Timer:
         return f"{msg} : {self.seconds:.6f}"
 
 
-_COLLECTOR: dict | None = None
+_COLLECTOR: tuple[dict, dict | None] | None = None
 
 
 def _noop_sync(x=None):
@@ -57,12 +59,31 @@ def device_sync(x=None):
     return x
 
 
+def sync_floor_seconds(device="cuda", samples: int = 5) -> float:
+    """The least seconds of one ``device_sync`` on work already finished on
+    ``device``: the fixed cost each phase's closing synchronise adds to its
+    wall (JAX ``utils/timing.py:90`` read a relay round trip; on a card it is
+    ``torch.cuda.synchronize``).  0.0 on the CPU, where nothing waits."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0.0
+    x = torch.ones(8, device=device)
+    torch.cuda.synchronize(device)
+    best = float("inf")
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        device_sync(x)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
 @contextlib.contextmanager
-def collect_phases(out: dict):
-    """Collect named phase walls (seconds) into ``out`` for the duration."""
+def collect_phases(out: dict, syncs: dict | None = None):
+    """Collect named phase walls (seconds) into ``out`` for the duration;
+    with ``syncs``, also how many times each phase synchronised a card."""
     global _COLLECTOR
     prev = _COLLECTOR
-    _COLLECTOR = out
+    _COLLECTOR = (out, syncs)
     try:
         yield out
     finally:
@@ -76,10 +97,16 @@ def phase(name: str):
     if _COLLECTOR is None:
         yield _noop_sync
         return
-    collector = _COLLECTOR
+    collector, syncs = _COLLECTOR
+
+    def psync(x=None):
+        if syncs is not None and any(t.device.type == "cuda" for t in _tensors(x)):
+            syncs[name] = syncs.get(name, 0) + 1
+        return device_sync(x)
+
     t0 = time.perf_counter()
     try:
-        yield device_sync
+        yield psync
     finally:
         collector[name] = collector.get(name, 0.0) + time.perf_counter() - t0
 

@@ -81,9 +81,13 @@ def test_bench_prints_the_jax_keys(argv, capsys):
 
 
 def test_bench_refuses_bf16_under_strict(capsys):
-    rc = cli.main(["bench", str(FIXTURES / "inst0.in"), "--device", "cpu", "--dtype", "bfloat16", "--strict"])
+    """On a shape the card's rows put below the bf16 floor (inst500-500:
+    0.734, ``bench/bf16_policy.MEASURED``), ``bench --strict`` refuses."""
+    rc = cli.main(["bench", str(FIXTURES / "inst500-500-20-2-100.in"), "--device", "cpu", "--dtype", "bfloat16",
+                   "--strict"])
     captured = capsys.readouterr()
     assert rc == 2 and captured.out == ""
+    assert "73.40% argmax agreement" in captured.err
     assert "refusing bfloat16 under --strict" in captured.err
 
 

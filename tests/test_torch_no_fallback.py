@@ -28,6 +28,8 @@ import recsys_tpu_torch.probes.tiled_fused, recsys_tpu_torch.probes.tiled_clocks
 from recsys_tpu_torch.ops import coo, device_rng, lane, stream_v2
 import recsys_tpu_torch.parallel.engine, recsys_tpu_torch.parallel.mesh, recsys_tpu_torch.parallel.sharding
 import recsys_tpu_torch.parallel.step, recsys_tpu_torch.parallel.multihost, recsys_tpu_torch.parallel.launch
+import recsys_tpu_torch.bench.roofline, recsys_tpu_torch.bench.sweep, recsys_tpu_torch.bench.bf16_policy
+import recsys_tpu_torch.bench.scaling
 from recsys_tpu_torch.config import RunConfig
 from recsys_tpu_torch.engine import trainer
 from recsys_tpu_torch.io.generator import generate_instance
@@ -71,6 +73,11 @@ with tempfile.TemporaryDirectory() as tmp:
         recsys_tpu_torch.cli.main(["generate", "inst6-7-2-1-3", os.path.join(tmp, "g.in"), "--iters", "3"])
         recsys_tpu_torch.cli.main(["bench", os.path.join(tmp, "g.in"), "--device", "cpu", "--repeats", "1"])
     assert buf.getvalue().startswith(open(sys.argv[2]).read()) and '"wall_s"' in buf.getvalue()
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    recsys_tpu_torch.bench.sweep.main(["--device", "cpu", "--instances", "inst0", "--dtype", "float64", "--repeats", "1"])
+assert '"golden_exact": true' in buf.getvalue()
+recsys_tpu_torch.bench.scaling.measure_mesh(spec, RunConfig(dtype="float32"), [(1, 2)], "cpu", repeats=1)
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "recsys_tpu" or m.startswith("recsys_tpu."))
 assert not leaked, leaked
