@@ -26,7 +26,15 @@ dump of the first ``--record`` iterations.  ``bench`` runs once to warm
 up, then ``--repeats`` timed runs, and prints one JSON line with the JAX
 CLI's keys: ``wall_s`` is the best run, ``path`` the route
 (``trainer.choose_path``, or the sharded route under ``--mesh``).
-``generate`` writes a seeded instance (``io/generator.py``).  bfloat16
+``generate`` writes a seeded instance (``io/generator.py``).
+``run --profile DIR`` runs under ``torch.profiler`` and a phase collector
+(``utils/timing.py``) and writes two files to DIR: ``trace.json``, the
+Chrome trace, whose timeline carries the program's ``phase:<name>``
+ranges (the engine's phases and the spans inside them: ``parse``,
+``plan``, ``upload``'s ``densify``, ``h2d`` and ``walk``, ``format``, ...),
+and ``spans.json``, the job's record: its phases, its spans with their
+parents and their times since the job began, and its counts
+(``h2d_bytes``).  bfloat16
 goes through one gate in ``run`` and ``bench``, after the instance is
 loaded and before training (``bench/bf16_policy.py``, built from the card's
 sweep rows): a shape at or above the agreement floor runs with a note; a
@@ -60,14 +68,16 @@ def _add_common(p) -> None:
                    help="refuse bfloat16 on shapes below the measured agreement floor or never measured")
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="recsys-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("run", help="factorize + print top-1 recommendations")
     _add_common(p)
     p.add_argument("--checkpoint", metavar="PATH", default=None, help="snapshot/resume file")
     p.add_argument("--checkpoint-every", type=int, default=500, metavar="N", help="iterations between snapshots")
-    p.add_argument("--profile", metavar="DIR", default=None, help="write a torch.profiler chrome trace here")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler chrome trace (trace.json, with the program's phase: ranges) "
+                        "and the job's spans and counts (spans.json) here")
 
     orc = sub.add_parser("oracle", help="numpy float64 reference engine")
     orc.add_argument("input")
@@ -86,7 +96,20 @@ def main(argv=None) -> int:
     gen.add_argument("--iters", type=int, default=100)
     gen.add_argument("--alpha", type=float, default=0.0001)
     gen.add_argument("--seed", type=int, default=42)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def _loaded_span(name: str):
+    """``utils.timing.span(name)`` once the port's timing module is loaded.
+    Until it is, no collector is open and nothing could record, and the
+    argument parsing of ``oracle`` and ``generate`` imports no torch."""
+    timing = sys.modules.get("recsys_tpu_torch.utils.timing")
+    return contextlib.nullcontext() if timing is None else timing.span(name)
+
+
+def main(argv=None) -> int:
+    with _loaded_span("args"):
+        args = _parser().parse_args(argv)
 
     if args.cmd == "generate":
         return _cmd_generate(args)
@@ -98,7 +121,7 @@ def main(argv=None) -> int:
     from recsys_tpu_torch.config import RunConfig
     from recsys_tpu_torch.engine import trainer
     from recsys_tpu_torch.io.parser import load_problem
-    from recsys_tpu_torch.utils.timing import Timer
+    from recsys_tpu_torch.utils import timing
 
     device = torch.device(args.device)
     if args.dtype is None:
@@ -124,14 +147,15 @@ def main(argv=None) -> int:
             )
 
     if args.cmd == "bench":
-        spec = load_problem(args.input)
+        with timing.span("parse"):
+            spec = load_problem(args.input)
         banner(spec)
         if not _bf16_gate(spec, cfg, args):
             return 2
         trainer.run(spec, cfg, device)  # warm-up: builds and loads the kernels
         times = []
         for _ in range(args.repeats):
-            with Timer() as t:
+            with timing.Timer() as t:
                 trainer.run(spec, cfg, device)
             times.append(t.seconds)
         best = min(times)
@@ -140,29 +164,33 @@ def main(argv=None) -> int:
                           "path": _route(spec, cfg, device), "repeats": args.repeats}))
         return 0
 
-    prof = contextlib.nullcontext()
+    prof = collect = contextlib.nullcontext()
+    phases: dict = {}
     if args.profile:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
-    with prof, Timer() as t:
-        spec = load_problem(args.input)
+        collect = timing.collect_phases(phases)
+    with prof, collect, timing.Timer() as t:
+        with timing.span("parse"):
+            spec = load_problem(args.input)
         banner(spec)
         if not _bf16_gate(spec, cfg, args):
             return 2
         if args.checkpoint:
-            from recsys_tpu_torch.io.writers import format_recommendations
             from recsys_tpu_torch.utils.checkpoint import run_with_checkpoints
 
             state = run_with_checkpoints(spec, cfg, args.checkpoint, args.checkpoint_every, device)
             top1 = trainer.recommend(state, spec, cfg, device)
-            out = format_recommendations(top1, spec.rated_counts(), spec.items)
+            out = trainer.format_top1(top1, spec)
         else:
             out, _ = trainer.run(spec, cfg, device)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        with open(os.path.join(args.profile, "spans.json"), "w") as f:
+            json.dump(timing.record_of(phases).as_dict(), f, indent=1)
     sys.stdout.write(out)
     if not args.no_time:
         print(t.line())

@@ -46,7 +46,7 @@ from recsys_tpu_torch.config import ProblemSpec, RunConfig
 from recsys_tpu_torch.models.mf import MFState, init_factors
 from recsys_tpu_torch.ops import bell, coo, dense, dense_fused, dense_stream, dense_tiled, device_rng, topk
 from recsys_tpu_torch.ops.bell import bell_slot_ratio
-from recsys_tpu_torch.utils.timing import phase
+from recsys_tpu_torch.utils.timing import h2d, phase, span
 
 # Decision constants, unchanged from the JAX engine (trainer.py:62-94).
 DENSE_BUDGET_BYTES = 2 << 30
@@ -228,18 +228,18 @@ def dense_plan(spec: ProblemSpec, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES, ti
 def _dense_inputs(spec: ProblemSpec, plan: DensePlan, device, state: MFState | None = None):
     """(Lt, Rt, A^T, train keywords) on ``device`` in the plan's layout,
     timed as the ``prep`` and ``upload`` phases.  On the card the keywords
-    hold the training kernel's walk of the rated cells, built here: B3's
-    on ``stream``, B1's and B2's on ``resident``."""
+    hold the training kernel's walk of the rated cells, built here (the
+    ``walk`` span): B3's on ``stream``, B1's and B2's on ``resident``."""
     with phase("prep"):
         Lt, Rt, _ = dense_fused.pad_factors_for_pallas(spec, state=state)
     with phase("upload") as psync:
         A = dense_fused.device_dense_AT(spec, plan.U, plan.I, plan.a_dtype, device)
-        Lt = torch.from_numpy(Lt).to(device)
-        Rt = torch.from_numpy(Rt).to(device)
+        Lt, Rt = h2d(Lt, device), h2d(Rt, device)
         walk = None
         if A.is_cuda:  # the sparse walks' tables: B3's on stream, B1's and B2's on resident
             build = dense_stream.stream_walk if plan.kind == "stream" else dense_fused.resident_walk
-            walk = build(A, Lt.shape[0])
+            with span("walk"):
+                walk = build(A, Lt.shape[0])
         psync((A, Lt, Rt, walk.tables if walk else ()))
     return Lt, Rt, A, ({"walk": walk} if walk else {})
 
@@ -274,8 +274,7 @@ def _tiled_train(spec: ProblemSpec, plan: DensePlan, precision: str, device, sta
         L, R, _ = dense_tiled.pad_factors_lane_major(spec, state=state)
     with phase("upload") as psync:
         A = dense_tiled.device_dense_A(spec, plan.U, plan.I, plan.a_dtype, device)
-        L = torch.from_numpy(L).to(device)
-        R = torch.from_numpy(R).to(device)
+        L, R = h2d(L, device), h2d(R, device)
         psync((A, L, R))
     with phase("train") as psync:
         L, R = dense_tiled.tiled_train(L, R, A, iters=spec.iters, alpha2=2.0 * spec.alpha,
@@ -298,6 +297,29 @@ def _dense_route_ok(spec: ProblemSpec, cfg: RunConfig) -> None:
         raise ValueError("pallas path requires all ratings non-zero (implicit mask)")
 
 
+def _route_plan(spec: ProblemSpec, cfg: RunConfig, device, a_max_bytes: int,
+                tiled: bool) -> tuple[str, DensePlan | None]:
+    """The route (``choose_path``) and, on ``pallas``, its checks and
+    ``dense_plan``, timed as the ``plan`` span."""
+    with span("plan"):
+        path = choose_path(spec, cfg, device)
+        if path == "host" or path in _DEVICE_ROUTES:
+            return path, None
+        if path != "pallas":
+            raise ValueError(f"unknown path {path!r}")
+        _dense_route_ok(spec, cfg)
+        return path, dense_plan(spec, a_max_bytes=a_max_bytes, tiled=tiled)
+
+
+def format_top1(top1: np.ndarray, spec: ProblemSpec) -> str:
+    """The printed list of ``top1`` (``format_recommendations`` with the
+    rated counts), timed as the ``format`` span."""
+    from recsys_tpu_torch.io.writers import format_recommendations
+
+    with span("format"):
+        return format_recommendations(top1, spec.rated_counts(), spec.items)
+
+
 def _device_init(spec: ProblemSpec, cfg: RunConfig, state: MFState | None) -> bool:
     """The f32 and bf16 BELL routes draw their initial factors on the
     device when no state is given and the draws reach
@@ -311,7 +333,7 @@ def _permute_pad(F: torch.Tensor, perm: np.ndarray) -> torch.Tensor:
     """``F``'s rows in ``perm``'s order plus a zero row at the end, by one
     ``index_select`` (the JAX engine's ``take(..., mode="fill")``,
     trainer.py:388-391): the pad row's index reads row 0 and is zeroed."""
-    idx = torch.from_numpy(np.append(perm, 0).astype(np.int64)).to(F.device)
+    idx = h2d(np.append(perm, 0).astype(np.int64), F.device)
     out = F.index_select(0, idx)
     out[-1] = 0
     return out
@@ -344,7 +366,7 @@ def _factorize_bell_device(spec: ProblemSpec, cfg: RunConfig, device, state: MFS
             R0 = _permute_pad(R.to(tdt), data.item_perm)
             del R
         else:
-            L0, R0 = (torch.from_numpy(x).to(tdt).to(device) for x in (Lp0, Rp0))
+            L0, R0 = (h2d(torch.from_numpy(x).to(tdt), device) for x in (Lp0, Rp0))
             del Lp0, Rp0
         tables = bell.device_tables(data.tables, device, tdt)
         psync((L0, R0, *tables))
@@ -352,8 +374,9 @@ def _factorize_bell_device(spec: ProblemSpec, cfg: RunConfig, device, state: MFS
         Lp, Rp = bell.bell_train(L0, R0, tables, 2.0 * spec.alpha, data.meta, spec.iters, donate=True)
         psync((Lp, Rp))
     del L0, R0, tables
-    L = Lp.index_select(0, torch.from_numpy(data.inv_user_perm).to(device=device, dtype=torch.int64))
-    R = Rp.index_select(0, torch.from_numpy(data.inv_item_perm).to(device=device, dtype=torch.int64))
+    with span("unpermute"):
+        L = Lp.index_select(0, h2d(data.inv_user_perm, device, torch.int64))
+        R = Rp.index_select(0, h2d(data.inv_item_perm, device, torch.int64))
     return MFState(L=L, R=R)
 
 
@@ -366,8 +389,8 @@ def _factorize_dense(spec: ProblemSpec, cfg: RunConfig, device, state: MFState |
             state = init_factors(spec.users, spec.items, spec.features)
         A, M = dense.make_dense_inputs(spec, dtype=np.float64 if dt == torch.float64 else np.float32)
     with phase("upload") as psync:
-        L0, R0 = (torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt) for x in state)
-        A, M = (torch.from_numpy(x).to(device=device, dtype=dt) for x in (A, M))
+        L0, R0 = (h2d(np.asarray(x), device, dt) for x in state)
+        A, M = (h2d(x, device, dt) for x in (A, M))
         psync((L0, R0, A, M))
     with phase("train") as psync:
         L, R = dense.dense_train(L0, R0, A, M, 2.0 * spec.alpha, spec.iters)
@@ -396,7 +419,7 @@ def _factorize_coo(spec: ProblemSpec, cfg: RunConfig, device, state: MFState | N
             state = init_factors(spec.users, spec.items, spec.features)
         data = (coo.make_coo_seg_inputs if cumsum else coo.make_coo_inputs)(spec, dtype=np.float64)
     with phase("upload") as psync:
-        L, R = (torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt) for x in state)
+        L, R = (h2d(np.asarray(x), device, dt) for x in state)
         data = coo.to_device(data, device, dt)
         psync((L, R, *data))
     step = coo.coo_gd_step_cumsum if cumsum else coo.coo_gd_step
@@ -438,15 +461,11 @@ def factorize(spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda", st
         sharded, _ = parallel_engine.factorize_sharded(spec, cfg, state=state, device=device)
         return _host_state(MFState(sharded.L[: spec.users, : spec.features],
                                    sharded.R[: spec.items, : spec.features]))
-    path = choose_path(spec, cfg, device)
+    path, plan = _route_plan(spec, cfg, device, a_max_bytes, tiled)
     if path == "host":
         return _factorize_host_serial(spec, state)
     if path in _DEVICE_ROUTES:
         return _host_state(_DEVICE_ROUTES[path](spec, cfg, device, state))
-    if path != "pallas":
-        raise ValueError(f"unknown path {path!r}")
-    _dense_route_ok(spec, cfg)
-    plan = dense_plan(spec, a_max_bytes=a_max_bytes, tiled=tiled)
     if plan.kind == "tiled":
         return convert.tiled_to_state(*_tiled_train(spec, plan, mxu_precision(cfg), device, state), spec)
     Lt, Rt, A, train_kw = _dense_inputs(spec, plan, device, state)
@@ -464,7 +483,7 @@ def _on(device, x) -> torch.Tensor:
     array is copied up."""
     if isinstance(x, torch.Tensor):
         return x.to(device).contiguous()
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return h2d(np.ascontiguousarray(x), device)
 
 
 def recommend(state: MFState, spec: ProblemSpec, cfg: RunConfig = RunConfig(), device="cuda") -> np.ndarray:
@@ -484,10 +503,10 @@ def recommend(state: MFState, spec: ProblemSpec, cfg: RunConfig = RunConfig(), d
     R_pad = torch.nn.functional.pad(R, (0, 0, 0, items_pad - spec.items))
     max_rated = int(np.bincount(spec.rows, minlength=spec.users).max()) if spec.nnz else 0
     if max_rated <= max(spec.items // 8, 128):
-        rated = torch.from_numpy(topk.make_rated_table(spec)).to(device)
+        rated = h2d(topk.make_rated_table(spec), device)
         top1 = topk.top1_rated_blocked(L, R_pad, rated, block, spec.items)
     else:
-        mask_blocks = torch.from_numpy(topk.make_mask_blocks(spec, block)).to(device)
+        mask_blocks = h2d(topk.make_mask_blocks(spec, block), device)
         top1 = topk.top1_blocked(L, R_pad, mask_blocks, block)
     return top1.cpu().numpy()
 
@@ -500,14 +519,12 @@ def run(spec: ProblemSpec, cfg: RunConfig, device, *, a_max_bytes: int = RESIDEN
     them).  On the tiled kind and the bell, dense and coo routes the
     trained factors stay on the device for ``recommend``
     (trainer.py:763-767)."""
-    from recsys_tpu_torch.io.writers import format_recommendations
-
     device = _check_device(device)
     if cfg.mesh_shape is not None:
         from recsys_tpu_torch.parallel import engine as parallel_engine
 
         return parallel_engine.run(spec, cfg, device)
-    path = choose_path(spec, cfg, device)
+    path, plan = _route_plan(spec, cfg, device, a_max_bytes, tiled)
     if path == "host":
         from recsys_tpu_torch.engine.oracle import top1_numpy
 
@@ -515,20 +532,14 @@ def run(spec: ProblemSpec, cfg: RunConfig, device, *, a_max_bytes: int = RESIDEN
             state = _factorize_host_serial(spec)
         with phase("top1"):
             top1 = top1_numpy(np.asarray(state.L), np.asarray(state.R), spec)
-        return format_recommendations(top1, spec.rated_counts(), spec.items), top1
-    if path in _DEVICE_ROUTES:
+    elif path in _DEVICE_ROUTES:
         state = _DEVICE_ROUTES[path](spec, cfg, device)
         with phase("top1"):
             top1 = recommend(state, spec, cfg, device)
-        return format_recommendations(top1, spec.rated_counts(), spec.items), top1
-    if path != "pallas":
-        raise ValueError(f"unknown path {path!r}")
-    _dense_route_ok(spec, cfg)
-    plan = dense_plan(spec, a_max_bytes=a_max_bytes, tiled=tiled)
-    if plan.kind == "tiled":
+    elif plan.kind == "tiled":
         L, R = _tiled_train(spec, plan, mxu_precision(cfg), device)
         with phase("top1"):
             top1 = recommend(convert.tiled_views(L, R, spec), spec, cfg, device)
     else:
         top1 = _pallas_fused_top1(spec, plan, mxu_precision(cfg), device)
-    return format_recommendations(top1, spec.rated_counts(), spec.items), top1
+    return format_top1(top1, spec), top1

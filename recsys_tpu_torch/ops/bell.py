@@ -71,6 +71,7 @@ import torch
 from recsys_tpu_torch.ops import _build
 from recsys_tpu_torch.ops.dense_fused import _kernel_device, _ptrs
 from recsys_tpu_torch.ops.dense_stream import _stream
+from recsys_tpu_torch.utils.timing import h2d
 
 # Widest k the kernel takes: a warp holds a factor row, at most 32 values
 # a lane (csrc/bell.cu, KPL).
@@ -327,11 +328,11 @@ def device_tables(tables: BellTables, device, dtype=None) -> BellTables:
     """The host tables as tensors on ``device``, the value tables cast to
     ``dtype`` when given (numpy has no bf16: a bf16 side's values are built
     in f32 and rounded here, to nearest even as the JAX package's
-    ``astype``)."""
+    ``astype``).  Each copy is a ``timing.h2d``."""
     t = BellTables(*(torch.from_numpy(np.ascontiguousarray(x)) for x in tables))
     if dtype is not None:
         t = t._replace(uvals=t.uvals.to(dtype), ivals=t.ivals.to(dtype))
-    return BellTables(*(x.to(device) for x in t))
+    return BellTables(*(h2d(x, device) for x in t))
 
 
 # ---------------------------------------------------------------------

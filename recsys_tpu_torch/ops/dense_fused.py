@@ -42,6 +42,7 @@ import torch
 
 from recsys_tpu_torch.ops import _build
 from recsys_tpu_torch.ops.precision import cell_prod, dot, maybe_split, pred_cells, transpose
+from recsys_tpu_torch.utils.timing import h2d, span
 
 # Widest K the kernel takes: a lane holds 32 factor values, and up to 8
 # lanes share one output column (csrc/dense_fused.cu, KC and G).
@@ -104,17 +105,19 @@ def mask_is_implicit(spec) -> bool:
 
 def device_dense_AT(spec, U: int, I: int, dtype: torch.dtype, device) -> torch.Tensor:
     """Zero-padded TRANSPOSED dense A (I, U) in its storage dtype, built
-    on the host and moved to ``device`` in one copy.  int8 holds 2x the
-    rating (see ``vals_int8_exact``)."""
+    on the host (the ``densify`` span) and moved to ``device`` in one copy
+    (``timing.h2d``).  int8 holds 2x the rating (see ``vals_int8_exact``)."""
     from recsys_tpu_torch.utils.hostmem import hugepage_zeros
 
-    if dtype == torch.int8:
-        a = hugepage_zeros((I, U), np.int8)
-        a[spec.cols, spec.rows] = np.round(np.asarray(spec.vals, np.float64) * 2.0).astype(np.int8)
-        return torch.from_numpy(a).to(device)
-    a = hugepage_zeros((I, U), np.float32)
-    a[spec.cols, spec.rows] = spec.vals
-    return torch.from_numpy(a).to(dtype).to(device)
+    with span("densify"):
+        if dtype == torch.int8:
+            a = hugepage_zeros((I, U), np.int8)
+            a[spec.cols, spec.rows] = np.round(np.asarray(spec.vals, np.float64) * 2.0).astype(np.int8)
+        else:
+            a = hugepage_zeros((I, U), np.float32)
+            a[spec.cols, spec.rows] = spec.vals
+            a = torch.from_numpy(a).to(dtype)
+    return h2d(a, device)
 
 
 def load_at(At: torch.Tensor) -> torch.Tensor:
