@@ -80,7 +80,7 @@ each printed as it runs:
    one tiled step's device time by kernel (``torch.profiler``), fused and
    as the old composition, at its shape and at gen-instML1M's.
 10. main path, exact f64: instML100k through ``run()`` on the auto route
-   (``bell``, 2 launches a step) byte for byte against its golden, with
+   (``bell``, one launch a step) byte for byte against its golden, with
    phases, the slope and one twin step's time; ``--path dense`` f64 once;
    inst200-10000-50-100-300 f64 through ``run()``.
 10b. the device glibc stream: equal to the host generator's words across
@@ -90,7 +90,7 @@ each printed as it runs:
     draws its factors on the card.
 11. main path, gen-inst1e6-100-700-1-3 on the auto route (``bell``) in
    f64 (byte for byte against its golden) and in f32.
-11b. main path, bf16 on the auto route (``bell``, 2 launches a step) at
+11b. main path, bf16 on the auto route (``bell``, one launch a step) at
    gen-inst100000-1000-20-1-3, inst400-50000-30-200-500,
    inst50000-5000-100-2-5 (host init) and gen-inst1e6-100-700-1-3 (device
    init), each agreement beside the JAX package's own bf16 reading and
@@ -985,6 +985,8 @@ def _bell_big_readings(torch, dev, spec):
         bell_wide.compare(INST1E6, L, R, t, data.meta, a2, 1, twin=False)
         bell_wide.step_ms(INST1E6, L, R, t, data.meta, a2, (bell.WIDE_MIN, bell.WARP_FORM), steps=1, rounds=3)
         bell_wide.side_ms(INST1E6, L, R, t, data.meta, a2, rounds=3)
+        if tdtype != torch.bfloat16:  # the fused step against the two launches it replaced, in turns (logged)
+            bell_wide.fused_ms(INST1E6, L, R, t, data.meta, a2, steps=(1, 3), rounds=3)
         nbytes, flops = _bell_work(L, R, t, data.meta, spec.nnz)
         peak = "float64" if tdtype == torch.float64 else "float32"
         log(f"[kernels] bell_side_update at {INST1E6} {name}, one step: {nbytes} B, {flops!r} FLOP, "
@@ -1119,14 +1121,15 @@ def redesign_phase(torch, dev, launches):
     log(f"[probe] B4 tiled probe launches (bit checks): {_nonzero(counts)}")
     b4 = top1_tiled.timings(resident_sparse.ml1m_spec(), dev)
     b3_ok = slopes["sparse"]["us_per_step"] <= slopes["dense"]["us_per_step"]
-    bell_ok = sweep[bell.WIDE_MIN] <= sweep[bell.WARP_FORM]
+    bell_ok = sweep[bell.WIDE_MIN] <= sweep[bell.WARP_FORM] and sweep["fused"] <= sweep["two launches"]
     b4_ok = b4["tiled"] <= b4["dense"]
     log(f"[redesign] instML100k B1 slope highest: the engine's {engine} form {b1['highest'][engine]!r} us/iter "
         f"against dense {b1['highest']['dense']!r} -> faster {b1_ok}")
     log(f"[redesign] gen-instML1M B3 slope: sparse {slopes['sparse']['us_per_step']!r} us/iter against dense "
         f"{slopes['dense']['us_per_step']!r} -> the engine's sparse form no slower {b3_ok}")
     log(f"[redesign] instML100k f64 bell step: block form from {bell.WIDE_MIN} slots {sweep[bell.WIDE_MIN]!r} ms "
-        f"against the warp form alone {sweep[bell.WARP_FORM]!r} ms -> the engine's block form no slower {bell_ok}")
+        f"against the warp form alone {sweep[bell.WARP_FORM]!r} ms; the fused step {sweep['fused']!r} ms a step "
+        f"against two launches {sweep['two launches']!r} -> the engine's forms no slower {bell_ok}")
     log(f"[redesign] gen-instML1M B4 (highest): tiled {b4['tiled']!r} ms a call against dense {b4['dense']!r} "
         f"-> the engine's tiled form no slower {b4_ok}")
     if not (b1_ok and b3_ok and bell_ok and b4_ok):
@@ -1194,7 +1197,7 @@ def _nonzero(counts):
 
 def bell_main_phase(torch, dev, launches):
     """instML100k f64 through ``run()`` on the auto route, which must be
-    ``bell`` (2 launches a step), byte for byte against its golden, with
+    ``bell`` (one launch a step), byte for byte against its golden, with
     phases and the slope; one twin step's time; the ``dense`` route in f64
     once; inst200-10000-50-100-300 f64 through ``run()``."""
     from recsys_tpu_torch.config import RunConfig
@@ -1212,8 +1215,8 @@ def bell_main_phase(torch, dev, launches):
         raise AssertionError(f"instML100k f64 must take the bell route, got {path!r}")
     _run(dataclasses.replace(spec, iters=10), "auto", dev, torch, dtype="float64")  # warm-up
     ph, counts, _ = _golden_run("instML100k f64", spec, golden, 1.0, dev, torch, launches, "auto", "float64")
-    if counts["bell_side_update"] != 2 * spec.iters:
-        raise AssertionError(f"instML100k f64 must launch bell_side_update {2 * spec.iters} times: {counts}")
+    if counts["bell_side_update"] != spec.iters:
+        raise AssertionError(f"instML100k f64 must launch bell_side_update {spec.iters} times: {counts}")
     _, _, ph1k = _run(dataclasses.replace(spec, iters=1000), "auto", dev, torch, dtype="float64")
     slope = (ph["train"] - ph1k["train"]) / (spec.iters - 1000)
     log(f"[main] instML100k f64 bell: slope {slope * 1e6!r} us/iter (1000 vs {spec.iters} iters)")
@@ -1237,7 +1240,7 @@ def bell_main_phase(torch, dev, launches):
 
 def inst1e6_bell_phase(torch, dev, launches, spec):
     """gen-inst1e6-100-700-1-3 through ``run()`` on the auto route, which
-    must be ``bell``, once in f64 and once in f32 (2 launches a step)."""
+    must be ``bell``, once in f64 and once in f32 (one launch a step)."""
     import gc
 
     from recsys_tpu_torch.config import RunConfig
@@ -1256,8 +1259,8 @@ def inst1e6_bell_phase(torch, dev, launches, spec):
             raise AssertionError(f"{INST1E6} {dtype} must take the bell route on the card, got {path!r}")
         _, counts, _ = _golden_run(f"{INST1E6} {dtype}", spec, golden, INST1E6_BELL_FLOOR[dtype], dev, torch,
                                 launches, "auto", dtype)
-        if counts["bell_side_update"] != 2 * spec.iters:
-            raise AssertionError(f"{INST1E6} {dtype} must launch bell_side_update {2 * spec.iters} times")
+        if counts["bell_side_update"] != spec.iters:
+            raise AssertionError(f"{INST1E6} {dtype} must launch bell_side_update {spec.iters} times")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1289,8 +1292,8 @@ def bf16_bell_phase(torch, dev, launches, big):
         floor = INST1E6_BF16_FLOOR if spec is big else BF16_BELL_FLOOR.get(name, 0.0)
         _, counts, agree = _golden_run(f"{name} bfloat16", spec, golden, floor, dev, torch, launches, "auto",
                                        "bfloat16")
-        if counts["bell_side_update"] != 2 * spec.iters:
-            raise AssertionError(f"{name} bfloat16 must launch bell_side_update {2 * spec.iters} times: {counts}")
+        if counts["bell_side_update"] != spec.iters:
+            raise AssertionError(f"{name} bfloat16 must launch bell_side_update {spec.iters} times: {counts}")
         jax = JAX_BF16_BELL.get(name)
         log(f"[main] {name} bfloat16 on bell: agreement {agree!r} against the JAX package's "
             f"{'not read' if jax is None else repr(jax)} and the port's twin's "
@@ -2210,7 +2213,7 @@ def _bell_work(L, R, t, meta, nnz):
 
 def bell_records(torch, dev, ml100k, launches, errs, times, steps=100):
     """The kernels line's entries of ``bell_side_update`` (one step, its
-    two launches, at instML100k in f64; 4*k f64 FLOP per rating and side),
+    its one launch, at instML100k in f64; 4*k f64 FLOP per rating and side),
     of its bf16 instance (one step at gen-inst1e6, ``times["bf16 bell"]``
     from ``_bell_big_readings``, 2 B a value, its f32 arithmetic at the
     f32 peak), ``gather_rows`` and both forms of ``gather_err_grad`` (one

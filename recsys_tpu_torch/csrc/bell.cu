@@ -44,7 +44,9 @@
 // and update) and moves each gathered row (slots * k values) plus the own rows
 // in and out.  But the dot of a slot is a chain of k dependent adds by
 // contract, and a row's updates are a chain over its slots, so it is bound by
-// latency unless many chains are in flight.
+// latency unless many chains are in flight: a step lasts as long as its
+// longest row's chain, or as its waves of blocks where the card cannot hold
+// them all at once.
 //
 // What the design does about that.
 //  * A warp owns a row and keeps its accumulator in registers, KPL values a
@@ -58,6 +60,9 @@
 //    lanes with dots.
 //  * Padding slots (index = the opposite zero row) are skipped: no value test,
 //    a stored rating of 0 is a real entry.
+//  * Both sides of a step run in one launch (rs_bell_train): they read only
+//    the snapshot and write their own tables, so their chains overlap
+//    instead of adding up.
 //
 // rs_bell_side_delta: the same side in delta form, the per-shard step of the
 // sharded engine (recsys_tpu/parallel/step.py::make_bell_train :185, whose
@@ -90,26 +95,43 @@
 // the same butterfly: the first form's bits (nvcc contracts its
 // part += (0.5f*fo)*g into an FFMA; the grouped form writes __fmaf_rn).
 //
-// Wide rows take a block (side_update_wide).  In the warp form the longest
-// rows set the step: one warp walks a hub row's slots (737 at instML100k,
-// ~20,000 at gen-inst1e6, whose item side is 100 such rows, so 100 warps on
-// the card).  But of a row's work only two kinds of chain are serial by
-// contract: each slot's dot over f, and each f's adds over the slots.  So
-// rows of a bucket at least `wide` slots wide (ops/bell.py::side_warps)
-// get a block of WBLOCK threads:
-//  * The dots: a thread a slot, f = 0..k-1 in order, the own row staged in
-//    shared memory; each e goes to a scratch table shaped like vals, read
-//    back by the same block.
-//  * The adds: the gathered rows come into shared memory in chunks of
-//    slots by cp.async, the next chunk in flight while this one is used.
-//    Every thread forms the chunk's rounded products e_t * F_other[c_t][f]
-//    in place; then thread f, keeping acc[f] in a register (KPT values a
-//    thread), adds them in slot order: a bare chain of dependent adds.
-// What bounds the block form: the gathered rows.  Each slot's opposite row
-// is read twice (dot, then the adds), k values a read; at gen-inst1e6's
-// item side that is 2 x 2M slots x 5.6 KB in f64, from device memory, as
-// the 1M-row user table does not fit in L2.  The design keeps tens of KB of
-// rows in flight a block; the k add chains are as long as the row.
+// Wide rows take a block (bell_step's block form).  In the warp form the
+// longest rows set the step: one warp walks a hub row's slots (737 at
+// instML100k, ~20,000 at gen-inst1e6, whose item side is 100 such rows, so
+// 100 warps on the card).  But of a row's work only two kinds of chain are
+// serial by contract: each slot's dot over f, and each f's adds over the
+// slots.  So rows of a bucket at least `wide` slots wide
+// (ops/bell.py::side_warps) get a block of WB threads, which walks the
+// row's rated slots (its padding is a suffix: it stops at the last rated
+// one) in chunks of ch slots:
+//  * The chunk's gathered rows come into shared memory once, while the
+//    previous chunk is added: plain 16-byte loads (FR rows a warp in
+//    flight) or cp.async, by the warps that hold no add chain.
+//  * The dots: a thread a slot, f = 0..k-1 in order, against the own row
+//    staged in shared memory; each v becomes its e in shared memory.
+//  * The adds: thread f keeps acc[f] in a register (KPT values a thread)
+//    and adds the chunk's terms e_t * F_other[c_t][f] in slot order, each
+//    formed where it is added: a chain of dependent adds, the products off
+//    it.  A padding slot's row is zeros and its e -0.0: its term is -0.0.
+// What bounds it: the gathered rows.  A block brings in a row in ~30
+// cycles alone on an SM, ~60 per block with eight on one (H100, PERF.md),
+// about what its chain of adds takes for the same slot; the dots and the
+// adds of a chunk follow each other.  Reading each row once (the
+// dots had read them from device memory, the adds again) and taking the
+// copies off the chain warp halved the widest row's time.
+//
+// One launch a step (bell_step).  Its grid is the block form's rows of both
+// sides, widest first, so the two sides' hub chains start together, then
+// the warp form's warps, WB / 32 a block.  The geometry follows the shapes
+// (ops/bell.py::step_plan): WB = 128 or 512 threads and the chunk ch from
+// k, the dtype, the bucket widths and the blocks an SM the card holds
+// (rs_bell_resident), the fewest waves first, then the larger block.  At
+// instML100k (584 rows in blocks, 1,527 warps) 512 threads take one block
+// an SM and six waves; 128 threads with chunks sized to keep eight blocks
+// an SM hold the whole step at once.  Where no size does (gen-inst1e6's
+// million narrow rows), the widest-first order still starts the hub rows
+// at the head of the grid.  rs_bell_side_update and rs_bell_side_delta
+// launch the same kernel with one side.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -182,15 +204,41 @@ struct Bucket {
   long long base, warp0, b0, n, w, rpw;
 };
 
+// The dot <fo, go> in order f = 0..k-1, the gathered row go read V at a
+// time (a word that divides the row: fewer, wider loads), from device
+// memory or, kShared, from a row staged in shared memory (kp values a row:
+// the same word divides it); the own row fo in either.
+template <typename T, typename V, bool kShared>
+__device__ __forceinline__ typename Step<T>::C dot_by(const T* fo, const T* go, int k) {
+  using S = Step<T>;
+  constexpr int N = sizeof(V) / sizeof(T);
+  const V* gv = reinterpret_cast<const V*>(go);
+  typename S::C dot = 0;
+#pragma unroll 4
+  for (int i = 0; i < k / N; ++i) {
+    V x;
+    if constexpr (kShared) x = gv[i];
+    else x = __ldg(gv + i);
+    const T* xs = reinterpret_cast<const T*>(&x);
+#pragma unroll
+    for (int u = 0; u < N; ++u) dot = S::dot(dot, S::cv(fo[i * N + u]), S::cv(xs[u]));
+  }
+  return dot;
+}
+template <typename T, bool kShared = false>
+__device__ __forceinline__ typename Step<T>::C row_dot(const T* fo, const T* go, int k) {
+  const int bytes = k * static_cast<int>(sizeof(T));
+  if (bytes % 16 == 0) return dot_by<T, uint4, kShared>(fo, go, k);
+  if (bytes % 8 == 0) return dot_by<T, uint2, kShared>(fo, go, k);
+  if (sizeof(T) < 4 && bytes % 4 == 0) return dot_by<T, unsigned, kShared>(fo, go, k);
+  return dot_by<T, T, kShared>(fo, go, k);
+}
+
 // e = alpha2 * (v - <own row, other row>), the dot in order f = 0..k-1.
 template <typename T>
 __device__ __forceinline__ typename Step<T>::C slot_err(const T* __restrict__ fo, const T* __restrict__ go, int k,
                                                         typename Step<T>::C v, typename Step<T>::C alpha2) {
-  using S = Step<T>;
-  typename S::C dot = 0;
-#pragma unroll 4
-  for (int f = 0; f < k; ++f) dot = S::dot(dot, S::ld(fo + f), S::ld(go + f));
-  return S::err(alpha2, v, dot);
+  return Step<T>::err(alpha2, v, row_dot(fo, go, k));
 }
 
 // Slots batched per load round: as many gathered rows in flight as keep the
@@ -317,18 +365,6 @@ __device__ __forceinline__ void warp_rows(const T* __restrict__ own, const T* __
   }
 }
 
-template <typename T, int KPL>
-__global__ void __launch_bounds__(BLOCK)
-    side_update(const T* __restrict__ own, const T* __restrict__ other, T* __restrict__ out,
-                const int* __restrict__ idx, const T* __restrict__ vals, const Bucket* __restrict__ bk,
-                int nb, long long warps, int k, int pad, typename Step<T>::C alpha2, bool delta) {
-  const long long g = static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
-  if (g < warps) warp_rows<T, KPL>(own, other, out, idx, vals, bk, nb, g, k, pad, alpha2, delta);  // warp-uniform
-}
-
-constexpr int WBLOCK = 512;          // threads of the block form
-constexpr int ROW_BYTES = 32 * 1024;  // gathered rows a chunk, per buffer
-
 // cp.async of 16, 8 or 4 bytes; 2 (a bf16 row of odd k) is a plain copy,
 // seen by the block after the same barrier.
 __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
@@ -339,24 +375,18 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) 
   else *static_cast<unsigned short*>(dst) = __ldg(static_cast<const unsigned short*>(src));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-// Slots a chunk of the block form: as many gathered rows as fill ROW_BYTES,
-// at most one a thread.
-__host__ __device__ __forceinline__ int wide_chunk(int k, int size) {
-  const int n = ROW_BYTES / (k * size);
-  return n < 1 ? 1 : (n > WBLOCK ? WBLOCK : n);
-}
+__device__ __forceinline__ void cp_async_wait0() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 __host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
 
-// The block form's shared memory, in bytes from its start: the own row,
-// two chunks' rows (kp values a row), three chunks' e and three chunks' c.
+// The block form's shared memory at chunks of ch slots, in bytes from its
+// start: the own row, two chunks' rows (kp values a row), three chunks' v
+// (each turned into its e) and three chunks' c.
 struct WideSmem {
   size_t rows, es, cs, total;
 };
-__host__ __device__ __forceinline__ WideSmem wide_smem(int k, int size) {
-  const int ch = wide_chunk(k, size), kp = (k + 1) & ~1;
+__host__ __device__ __forceinline__ WideSmem wide_smem(int k, int size, int ch) {
+  const int kp = (k + 1) & ~1;
   WideSmem m;
   m.rows = align16(static_cast<size_t>(k) * size);
   m.es = m.rows + align16(2 * static_cast<size_t>(ch) * kp * size);
@@ -365,84 +395,95 @@ __host__ __device__ __forceinline__ WideSmem wide_smem(int k, int size) {
   return m;
 }
 
-// Both forms in one launch: block g < blocks owns one row of a wide
-// bucket (bk, nb; warp0 is then the bucket's first block), and the blocks
-// after it run the warp form's warps (nk, nbn, warps) for the narrow
-// buckets, WBLOCK / 32 a block.  escr has vals' shape: the slots' e.
-template <typename T, int KPL>
-__global__ void __launch_bounds__(WBLOCK)
-    side_update_wide(const T* __restrict__ own, const T* __restrict__ other, T* __restrict__ out,
-                     const int* __restrict__ idx, const T* __restrict__ vals,
-                     const Bucket* __restrict__ bk, int nb, long long blocks, const Bucket* __restrict__ nk,
-                     int nbn, long long warps, T* escr, int k, int pad, typename Step<T>::C alpha2,
-                     bool delta) {
+// One side of a launch: the snapshot (own, other), the rows' output, the
+// side's flat tables, its buckets in the warp form (narrow) and in the
+// block form (wide, whose warp0 is the bucket's first block) and the
+// opposite zero row's index.
+struct SideArgs {
+  const void *own, *other;
+  void* out;
+  const int* idx;
+  const void* vals;
+  const Bucket *narrow, *wide;
+  int nb_narrow, nb_wide;
+  int pad;
+};
+
+// One launch, a whole step or one side: block g < blocks runs the block
+// form's row order[g] (its block in its side << 1 | the side), the blocks
+// after it the warp form's warps, side 0's warps0 first, then side 1's.
+struct StepArgs {
+  SideArgs side[2];
+  const int* order;
+  long long blocks, warps0, warps;
+  int k, ch;
+  bool delta;
+};
+
+__device__ __forceinline__ SideArgs pick(const StepArgs& a, int s) { return s ? a.side[1] : a.side[0]; }
+
+// The block form: one row of a wide bucket (g, its block in the side) on
+// the whole block of WB threads.
+template <typename T, int KPL, int WB>
+__device__ __forceinline__ void wide_row(const SideArgs& sa, long long g, int k, int ch,
+                                         typename Step<T>::C alpha2, bool delta) {
   using S = Step<T>;
   using C = typename S::C;
-  // f32 and f64 form a chunk's terms in place of its rows; a bf16 term is
-  // exact only in f32, so bf16 forms each where it is added.
-  constexpr bool kTermsInPlace = sizeof(T) >= 4;
-  constexpr int KPT = (32 * KPL + WBLOCK - 1) / WBLOCK;
+  constexpr int KPT = (32 * KPL + WB - 1) / WB;
+  constexpr int NW = WB / 32;
+  constexpr int FR = 4;  // rows a copying warp has in flight
+  const T* __restrict__ own = static_cast<const T*>(sa.own);
+  const T* __restrict__ other = static_cast<const T*>(sa.other);
+  T* __restrict__ out = static_cast<T*>(sa.out);
+  const int* __restrict__ idx = sa.idx;
+  const T* __restrict__ vals = static_cast<const T*>(sa.vals);
+  const int pad = sa.pad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int t = threadIdx.x;
-  const long long g = blockIdx.x;
-  if (g >= blocks) {  // block-uniform
-    const long long wg = (g - blocks) * (WBLOCK / 32) + (t >> 5);
-    if (wg < warps) warp_rows<T, KPL>(own, other, out, idx, vals, nk, nbn, wg, k, pad, alpha2, delta);  // warp-uniform
-    return;
-  }
-  int lo = 0, hi = nb - 1;  // the bucket holding block g
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  int lo = 0, hi = sa.nb_wide - 1;  // the bucket holding block g
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
-    if (bk[mid].warp0 <= g) lo = mid;
+    if (sa.wide[mid].warp0 <= g) lo = mid;
     else hi = mid - 1;
   }
-  const Bucket b = bk[lo];
+  const Bucket b = sa.wide[lo];
   const long long r = g - b.warp0, n = b.n, j = b.b0 + r;
-  const int w = static_cast<int>(b.w), ch = wide_chunk(k, sizeof(T));
+  const int w = static_cast<int>(b.w);
   const int kp = (k + 1) & ~1;  // 16-byte aligned rows for the chunk buffers where a row allows it
-  const WideSmem lay = wide_smem(k, sizeof(T));
+  const WideSmem lay = wide_smem(k, sizeof(T), ch);
   T* fo = reinterpret_cast<T*>(smem_raw);
   T* rows = reinterpret_cast<T*>(smem_raw + lay.rows);
   T* es = reinterpret_cast<T*>(smem_raw + lay.es);
   int* cs = reinterpret_cast<int*>(smem_raw + lay.cs);
 
-  for (int f = t; f < k; f += WBLOCK) fo[f] = __ldg(own + j * k + f);
+  __shared__ int end;
+  if (t == 0) end = 0;
+  for (int f = t; f < k; f += WB) fo[f] = __ldg(own + j * k + f);
   C acc[KPT];
 #pragma unroll
   for (int m = 0; m < KPT; ++m) {
-    const int f = m * WBLOCK + t;
+    const int f = m * WB + t;
     acc[m] = delta ? C(0) : S::start(f < k ? S::ld(own + j * k + f) : C(0));
   }
   __syncthreads();
-  // The dots, a thread a slot, f = 0..k-1 against the staged own row.
-  for (int s = t; s < w; s += WBLOCK) {
-    const long long p = b.base + s * n + r;
-    const int c = __ldg(idx + p);
-    if (c == pad) continue;
-    const T* go = other + static_cast<size_t>(c) * k;
-    C dot = C(0);
-    C g[16];  // 16 values in flight: the next batch loads while this one is summed in order
-#pragma unroll
-    for (int u = 0; u < 16; ++u) g[u] = u < k ? S::ld(go + u) : C(0);
-    for (int f0 = 0; f0 < k; f0 += 16) {
-      C h[16];
-#pragma unroll
-      for (int u = 0; u < 16; ++u) {
-        h[u] = g[u];
-        g[u] = f0 + 16 + u < k ? S::ld(go + f0 + 16 + u) : C(0);
-      }
-#pragma unroll
-      for (int u = 0; u < 16; ++u)
-        if (f0 + u < k) dot = S::dot(dot, S::cv(fo[f0 + u]), h[u]);
-    }
-    escr[p] = S::st(S::err(alpha2, S::ld(vals + p), dot));
-  }
-  __syncthreads();  // e is written (global, read back by this block only)
+  // end: one past the row's last rated slot (the builders put a row's
+  // padding after its ratings); no slot past it is read.
+  int last = 0;
+  for (int s = t; s < w; s += WB)
+    if (__ldg(idx + b.base + s * n + r) != pad) last = s + 1;
+  if (last) atomicMax(&end, last);
+  __syncthreads();
 
-  // The adds, chunk by chunk of slots in file order.  Chunk q's c and e
-  // come to shared memory one chunk ahead of its rows (ring of 3), its
-  // rows by cp.async one chunk ahead of its adds (ring of 2).
-  const int nch = (w + ch - 1) / ch;
+  // Chunk by chunk of slots in file order, each gathered row read once,
+  // into shared memory (ring of 2), its c and v one chunk ahead of its rows
+  // (ring of 3).  A chunk's dots, a thread a slot against the staged own
+  // row, turn each v into its e; then its adds run, thread f's chain over
+  // the chunk's slots in file order, each slot's term formed where it is
+  // added, off the chain, while the warps past the chain's (threads f < k)
+  // bring in the next chunk's rows: plain 16-byte loads, FR rows a warp in
+  // flight, where a row is whole such words; else cp.async, issued by
+  // every warp where each holds a chain.  A padding slot's row is zeros.
+  const int nch = (end + ch - 1) / ch;
   const int row_bytes = k * static_cast<int>(sizeof(T));
   const int vec = row_bytes % 16 == 0 ? 16
                   : sizeof(T) >= 4    ? static_cast<int>(sizeof(T))
@@ -450,133 +491,195 @@ __global__ void __launch_bounds__(WBLOCK)
                   : row_bytes % 4 == 0 ? 4
                                        : 2;
   const int per_row = row_bytes / vec;
+  const int fw0 = (k + 31) / 32 < NW ? (k + 31) / 32 : 0;  // the first warp with no chain, else 0
+  const bool plain = vec == 16 && fw0 > 0;
   auto slot = [&](int q, int u) { return b.base + static_cast<long long>(q * ch + u) * n + r; };
-  auto count = [&](int q) { return min(ch, w - q * ch); };
-  auto fetch_rows = [&](int q) {
-    unsigned char* dst = reinterpret_cast<unsigned char*>(rows + static_cast<size_t>(q & 1) * ch * kp);
+  auto count = [&](int q) { return min(ch, end - q * ch); };
+  auto fetch_rows = [&](int q) {  // chunk q's rows into their buffer (cp.async: issued only)
+    T* buf = rows + static_cast<size_t>(q & 1) * ch * kp;
     const int* cq = cs + (q % 3) * ch;
-    for (int i = t; i < count(q) * per_row; i += WBLOCK) {
-      const int u = i / per_row, v = i - u * per_row;
-      if (cq[u] == pad) continue;
-      cp_async(dst + static_cast<size_t>(u) * kp * sizeof(T) + v * vec,
-               reinterpret_cast<const unsigned char*>(other + static_cast<size_t>(cq[u]) * k) + v * vec, vec);
+    if (warp < fw0) return;
+    const int cnt = count(q), step = NW - fw0;
+    if (plain) {
+      for (int u0 = warp - fw0; u0 < cnt; u0 += FR * step)
+        for (int v = lane; v < per_row; v += 32) {
+          uint4 x[FR];
+#pragma unroll
+          for (int i = 0; i < FR; ++i) {
+            const int u = u0 + i * step;
+            const int c = u < cnt ? cq[u] : pad;
+            if (c != pad) x[i] = __ldg(reinterpret_cast<const uint4*>(other + static_cast<size_t>(c) * k) + v);
+          }
+#pragma unroll
+          for (int i = 0; i < FR; ++i) {
+            const int u = u0 + i * step;
+            if (u < cnt) reinterpret_cast<uint4*>(buf + static_cast<size_t>(u) * kp)[v] = cq[u] != pad ? x[i] : uint4{};
+          }
+        }
+      return;
+    }
+    for (int u = warp - fw0; u < cnt; u += step) {
+      const int c = cq[u];
+      T* d = buf + static_cast<size_t>(u) * kp;
+      if (c == pad) {
+        for (int f = lane; f < k; f += 32) d[f] = T(0);
+        continue;
+      }
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(other + static_cast<size_t>(c) * k);
+      unsigned char* dst = reinterpret_cast<unsigned char*>(d);
+      for (int v = lane; v < per_row; v += 32) cp_async(dst + v * vec, src + v * vec, vec);
+    }
+    cp_async_commit();
+  };
+  // Chunk q's dots, a thread a slot: each v turned into its e, a padding
+  // slot's e -0.0 (its row is zeros, so its term is -0.0, and x + -0.0 is
+  // x for every x).
+  auto dots = [&](int q) {
+    const T* rq = rows + static_cast<size_t>(q & 1) * ch * kp;
+    const int* cq = cs + (q % 3) * ch;
+    T* eq = es + (q % 3) * ch;
+    if (t < count(q)) {
+      const T* gt = rq + static_cast<size_t>(t) * kp;  // slot t's gathered row
+      eq[t] = cq[t] == pad ? S::st(C(-0.0)) : S::st(S::err(alpha2, S::cv(eq[t]), row_dot<T, true>(fo, gt, k)));
     }
   };
-  for (int q = 0; q < 2 && q < nch; ++q) {
+  for (int q = 0; q < 2 && q < nch; ++q)
     if (t < count(q)) {
-      const int c = __ldg(idx + slot(q, t));
-      cs[q * ch + t] = c;
-      es[q * ch + t] = c == pad ? T(0) : escr[slot(q, t)];
+      cs[q * ch + t] = __ldg(idx + slot(q, t));
+      es[q * ch + t] = vals[slot(q, t)];
     }
-  }
   __syncthreads();
-  fetch_rows(0);
-  cp_async_commit();
+  if (nch > 0) fetch_rows(0);
+  cp_async_wait0();
+  __syncthreads();
   for (int q = 0; q < nch; ++q) {
-    if (q + 1 < nch) fetch_rows(q + 1);
-    cp_async_commit();  // possibly empty: the count of groups in flight stays 2
-    int c2 = pad;       // chunk q + 2's c and e, stored after the adds
-    T e2 = T(0);
-    if (q + 2 < nch && t < count(q + 2)) {  // two independent loads (a padding slot's e is unused)
+    dots(q);
+    int c2 = pad;  // chunk q + 2's c and v, stored after the adds
+    T v2 = T(0);
+    if (q + 2 < nch && t < count(q + 2)) {
       c2 = __ldg(idx + slot(q + 2, t));
-      e2 = escr[slot(q + 2, t)];
+      v2 = vals[slot(q + 2, t)];
     }
-    cp_async_wait1();  // chunk q's rows have landed
-    __syncthreads();
-    T* rq = rows + static_cast<size_t>(q & 1) * ch * kp;
-    const int* cq = cs + (q % 3) * ch;
+    __syncthreads();  // the chunk's e are in
+    if (q + 1 < nch) fetch_rows(q + 1);
+    const T* rq = rows + static_cast<size_t>(q & 1) * ch * kp;
     const T* eq = es + (q % 3) * ch;
     const int cnt = count(q);
-    if constexpr (kTermsInPlace) {
-      // The products, every thread of the block, in place of the rows; a
-      // padding slot's term is -0.0 (x + -0.0 is x for every x).
-      for (int i = t; i < cnt * k; i += WBLOCK) {
-        const int u = i / k, f = i - u * k;
-        T* at = rq + static_cast<size_t>(u) * kp + f;
-        *at = cq[u] == pad ? T(-0.0) : S::term(eq[u], *at);
-      }
-      __syncthreads();
-    }
-    // The adds: thread f's chain over the chunk's slots in file order.
 #pragma unroll
     for (int m = 0; m < KPT; ++m) {
-      const int f = m * WBLOCK + t;
+      const int f = m * WB + t;
       if (f < k) {
         C a = acc[m];
-        if constexpr (kTermsInPlace) {
 #pragma unroll 8
-          for (int u = 0; u < cnt; ++u) a = S::add(a, rq[static_cast<size_t>(u) * kp + f]);
-        } else {
-#pragma unroll 8
-          for (int u = 0; u < cnt; ++u)
-            if (cq[u] != pad) a = S::add(a, S::term(S::cv(eq[u]), S::cv(rq[static_cast<size_t>(u) * kp + f])));
-        }
+        for (int u = 0; u < cnt; ++u) a = S::add(a, S::term(S::cv(eq[u]), S::cv(rq[static_cast<size_t>(u) * kp + f])));
         acc[m] = a;
       }
     }
+    cp_async_wait0();
     if (q + 2 < nch && t < count(q + 2)) {
       cs[((q + 2) % 3) * ch + t] = c2;
-      es[((q + 2) % 3) * ch + t] = e2;
+      es[((q + 2) % 3) * ch + t] = v2;
     }
-    __syncthreads();  // chunk q's buffers are free; chunk q + 2's c and e are in
+    __syncthreads();  // chunk q's buffers are free; chunk q + 1's rows, q + 2's c and v are in
   }
 #pragma unroll
   for (int m = 0; m < KPT; ++m) {
-    const int f = m * WBLOCK + t;
+    const int f = m * WB + t;
     if (f < k) out[j * k + f] = S::st(delta ? acc[m] : S::end(acc[m], S::cv(fo[f])));
   }
 }
 
-// The side's two forms: rows of narrow buckets by warps, of wide buckets by
-// blocks, in one launch on the stream.
-struct Side {
-  const void *own, *other;
-  void* out;
-  const int* idx;
-  const void* vals;
-  const void *narrow, *wide;
-  int nb_narrow, nb_wide;
-  long long warps, blocks;
-  void* escr;
-  int k, pad;
-  double alpha2;
-  cudaStream_t stream;
-  bool delta;  // the delta form (rs_bell_side_delta)
+// Blocks an SM the registers must allow: 8 of 128 threads where a lane
+// holds at most 2 values of a row, fewer where it holds more.
+template <int KPL, int WB>
+struct MinBlocks {
+  static constexpr int value = WB >= 512 ? 1 : KPL <= 2 ? 8 : KPL <= 8 ? 6 : KPL <= 16 ? 4 : 2;
 };
 
-template <typename T, int KPL>
-int launch_side(const Side& s) {
-  const auto a2 = Step<T>::alpha(s.alpha2);
-  if (s.blocks == 0) {  // the warp form alone
-    side_update<T, KPL><<<static_cast<unsigned>((s.warps + WARPS - 1) / WARPS), BLOCK, 0, s.stream>>>(
-        static_cast<const T*>(s.own), static_cast<const T*>(s.other), static_cast<T*>(s.out), s.idx,
-        static_cast<const T*>(s.vals), static_cast<const Bucket*>(s.narrow), s.nb_narrow, s.warps, s.k,
-        s.pad, a2, s.delta);
-    return cudaGetLastError();
+// The step (or one side): the block form's rows in the launch's order,
+// then the warp form's warps.
+template <typename T, int KPL, int WB>
+__global__ void __launch_bounds__(WB, (MinBlocks<KPL, WB>::value))
+    bell_step(const StepArgs a, typename Step<T>::C alpha2) {
+  const long long g = blockIdx.x;
+  if (g < a.blocks) {  // block-uniform
+    const int o = __ldg(a.order + g);
+    wide_row<T, KPL, WB>(pick(a, o & 1), o >> 1, a.k, a.ch, alpha2, a.delta);
+    return;
   }
-  const size_t smem = wide_smem(s.k, sizeof(T)).total;
-  cudaError_t err = cudaFuncSetAttribute(side_update_wide<T, KPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const long long grid = s.blocks + (s.warps + WBLOCK / 32 - 1) / (WBLOCK / 32);
-  side_update_wide<T, KPL><<<static_cast<unsigned>(grid), WBLOCK, smem, s.stream>>>(
-      static_cast<const T*>(s.own), static_cast<const T*>(s.other), static_cast<T*>(s.out), s.idx,
-      static_cast<const T*>(s.vals), static_cast<const Bucket*>(s.wide), s.nb_wide, s.blocks,
-      static_cast<const Bucket*>(s.narrow), s.nb_narrow, s.warps, static_cast<T*>(s.escr), s.k, s.pad, a2,
-      s.delta);
-  return cudaGetLastError();
+  const long long wg = (g - a.blocks) * (WB / 32) + (threadIdx.x >> 5);
+  if (wg >= a.warps) return;  // warp-uniform
+  const int sd = wg >= a.warps0;
+  const SideArgs s = pick(a, sd);
+  warp_rows<T, KPL>(static_cast<const T*>(s.own), static_cast<const T*>(s.other), static_cast<T*>(s.out), s.idx,
+                    static_cast<const T*>(s.vals), s.narrow, s.nb_narrow, sd ? wg - a.warps0 : wg, a.k, s.pad,
+                    alpha2, a.delta);
 }
 
-template <typename T>
-int dispatch_k(const Side& s) {
-  if (s.k <= 32) return launch_side<T, 1>(s);
-  if (s.k <= 64) return launch_side<T, 2>(s);
-  if (s.k <= 128) return launch_side<T, 4>(s);
-  if (s.k <= 256) return launch_side<T, 8>(s);
-  if (s.k <= 512) return launch_side<T, 16>(s);
-  if (s.k <= 1024) return launch_side<T, 32>(s);
-  return cudaErrorInvalidValue;
+// op.go<T, KPL, WB>() for a dtype code (0 float, 1 double, 2 bfloat16), k
+// and a block size; `bad` where none fits.
+template <typename T, int WB, typename Op>
+int by_k(int k, const Op& op, int bad) {
+  if (k <= 0) return bad;
+  if (k <= 32) return op.template go<T, 1, WB>();
+  if (k <= 64) return op.template go<T, 2, WB>();
+  if (k <= 128) return op.template go<T, 4, WB>();
+  if (k <= 256) return op.template go<T, 8, WB>();
+  if (k <= 512) return op.template go<T, 16, WB>();
+  if (k <= 1024) return op.template go<T, 32, WB>();
+  return bad;
 }
+template <typename T, typename Op>
+int by_threads(int k, int wb, const Op& op, int bad) {
+  if (wb == 128) return by_k<T, 128>(k, op, bad);
+  if (wb == 512) return by_k<T, 512>(k, op, bad);
+  return bad;
+}
+template <typename Op>
+int dispatch(int dtype, int k, int wb, const Op& op, int bad) {
+  switch (dtype) {
+    case 0: return by_threads<float>(k, wb, op, bad);
+    case 1: return by_threads<double>(k, wb, op, bad);
+    case 2: return by_threads<__nv_bfloat16>(k, wb, op, bad);
+    default: return bad;
+  }
+}
+
+constexpr size_t SMEM_DEFAULT = 48 * 1024;  // dynamic shared memory a block gets without asking
+
+struct LaunchOp {
+  const StepArgs& a;
+  double alpha2;
+  cudaStream_t stream;
+  template <typename T, int KPL, int WB>
+  int go() const {
+    const size_t smem = a.blocks ? wide_smem(a.k, sizeof(T), a.ch).total : 0;
+    if (smem > SMEM_DEFAULT) {
+      const cudaError_t err = cudaFuncSetAttribute(bell_step<T, KPL, WB>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    const long long grid = a.blocks + (a.warps + WB / 32 - 1) / (WB / 32);
+    bell_step<T, KPL, WB><<<static_cast<unsigned>(grid), WB, smem, stream>>>(a, Step<T>::alpha(alpha2));
+    return cudaGetLastError();
+  }
+};
+
+struct ResidentOp {
+  int k, ch;
+  template <typename T, int KPL, int WB>
+  int go() const {
+    const size_t smem = ch > 0 ? wide_smem(k, sizeof(T), ch).total : 0;
+    if (smem > SMEM_DEFAULT && cudaFuncSetAttribute(bell_step<T, KPL, WB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                    static_cast<int>(smem)) != cudaSuccess) {
+      cudaGetLastError();  // more than a block may ask for: none fits
+      return 0;
+    }
+    int n = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, bell_step<T, KPL, WB>, WB, smem);
+    return err == cudaSuccess ? n : -static_cast<int>(err);
+  }
+};
 
 // out[s, :] = table[idx[s], :], four values a thread (K % 4 == 0, rows
 // 16-byte aligned: the wrapper checks both).
@@ -675,38 +778,52 @@ int grid_for(long long work) {
 
 }  // namespace
 
+// One launch of bell_step: the checks, then the kernel for the dtype, k
+// and block size.  A launch with no rows launches nothing.
+static int step_call(const StepArgs& a, int dtype, int threads, double alpha2, void* stream) {
+  if (a.blocks + a.warps == 0) return 0;
+  const bool wide_ok = a.side[0].nb_wide > 0 || a.side[1].nb_wide > 0;
+  if (a.k <= 0 || a.warps < 0 || a.blocks < 0 || a.warps0 < 0 || a.warps0 > a.warps ||
+      (a.warps0 > 0 && a.side[0].nb_narrow <= 0) || (a.warps > a.warps0 && a.side[1].nb_narrow <= 0) ||
+      (a.blocks > 0 && (a.order == nullptr || !wide_ok || a.ch < 1 || a.ch > threads)))
+    return cudaErrorInvalidValue;
+  return dispatch(dtype, a.k, threads, LaunchOp{a, alpha2, static_cast<cudaStream_t>(stream)},
+                  cudaErrorInvalidValue);
+}
+
+static int side_call(const void* own, const void* other, void* out, const int* idx, const void* vals,
+                     const void* narrow, int nb_narrow, long long warps, const void* wide, int nb_wide,
+                     long long blocks, const int* order, int k, int pad, double alpha2, int dtype,
+                     int threads, int chunk, void* stream, bool delta) {
+  StepArgs a{};
+  a.side[0] = SideArgs{own, other, out, idx, vals, static_cast<const Bucket*>(narrow),
+                       static_cast<const Bucket*>(wide), nb_narrow, nb_wide, pad};
+  a.order = order;
+  a.blocks = blocks;
+  a.warps0 = a.warps = warps;
+  a.k = k;
+  a.ch = chunk;
+  a.delta = delta;
+  if (blocks + warps == 0) return cudaErrorInvalidValue;
+  return step_call(a, dtype, threads, alpha2, stream);
+}
+
 // One side of a BELL step (ops/bell.py::bell_side_update).  own (size + 1, k)
 // and other (other size + 1, k) are the snapshot, out receives own's rows
 // updated (the caller fills rows past the side's n_nz); idx/vals are the flat
 // side tables; narrow (nb_narrow, 6) and wide (nb_wide, 6) int64 rows of
 // Bucket for the warp and the block form, with their warp and block counts;
-// escr a scratch table of vals' shape and type (used by the block form);
-// pad is the opposite zero row's index.  dtype: 0 float, 1 double, 2
-// bfloat16.  Returns the first non-zero cudaError_t, else 0.
-static int side_call(const void* own, const void* other, void* out, const int* idx, const void* vals,
-                     const void* narrow, int nb_narrow, long long warps, const void* wide, int nb_wide,
-                     long long blocks, void* escr, int k, int pad, double alpha2, int dtype, void* stream,
-                     bool delta) {
-  if (k <= 0 || warps < 0 || blocks < 0 || warps + blocks == 0 || (warps > 0 && nb_narrow <= 0) ||
-      (blocks > 0 && nb_wide <= 0))
-    return cudaErrorInvalidValue;
-  const Side s{own, other, out, idx, vals, narrow, wide, nb_narrow, nb_wide, warps, blocks,
-               escr, k, pad, alpha2, static_cast<cudaStream_t>(stream), delta};
-  switch (dtype) {
-    case 0: return dispatch_k<float>(s);
-    case 1: return dispatch_k<double>(s);
-    case 2: return dispatch_k<__nv_bfloat16>(s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
+// order the block form's rows in launch order (block << 1); pad the
+// opposite zero row's index; dtype 0 float, 1 double, 2 bfloat16; threads
+// (128 or 512) and chunk (slots, 1..threads) the launch's geometry
+// (ops/bell.py::step_plan).  Returns the first non-zero cudaError_t, else 0.
 extern "C" int rs_bell_side_update(const void* own, const void* other, void* out, const int* idx,
                                    const void* vals, const void* narrow, int nb_narrow,
                                    long long warps, const void* wide, int nb_wide, long long blocks,
-                                   void* escr, int k, int pad, double alpha2, int dtype,
-                                   void* stream) {
-  return side_call(own, other, out, idx, vals, narrow, nb_narrow, warps, wide, nb_wide, blocks, escr, k, pad,
-                   alpha2, dtype, stream, false);
+                                   const int* order, int k, int pad, double alpha2, int dtype,
+                                   int threads, int chunk, void* stream) {
+  return side_call(own, other, out, idx, vals, narrow, nb_narrow, warps, wide, nb_wide, blocks, order, k,
+                   pad, alpha2, dtype, threads, chunk, stream, false);
 }
 
 // The delta form (ops/bell.py::bell_side_delta): the arguments of
@@ -715,44 +832,61 @@ extern "C" int rs_bell_side_update(const void* own, const void* other, void* out
 extern "C" int rs_bell_side_delta(const void* own, const void* other, void* out, const int* idx,
                                   const void* vals, const void* narrow, int nb_narrow,
                                   long long warps, const void* wide, int nb_wide, long long blocks,
-                                  void* escr, int k, int pad, double alpha2, int dtype, void* stream) {
-  return side_call(own, other, out, idx, vals, narrow, nb_narrow, warps, wide, nb_wide, blocks, escr, k, pad,
-                   alpha2, dtype, stream, true);
+                                  const int* order, int k, int pad, double alpha2, int dtype,
+                                  int threads, int chunk, void* stream) {
+  return side_call(own, other, out, idx, vals, narrow, nb_narrow, warps, wide, nb_wide, blocks, order, k,
+                   pad, alpha2, dtype, threads, chunk, stream, true);
 }
 
-// `iters` BELL steps (ops/bell.py::bell_train): step it reads the last
-// step's tables (L, R at first) and writes lbuf[it % 2] and rbuf[it % 2],
-// the user side then the item side, each as rs_bell_side_update with the
-// side's descriptors and scratch.  A side with neither warps nor blocks is
-// skipped.  Returns the first non-zero cudaError_t, else 0.
+// `iters` BELL steps (ops/bell.py::bell_train), one launch a step: step it
+// reads the last step's tables (L, R at first) and writes lbuf[it % 2]
+// (the user side, side 0) and rbuf[it % 2] (the item side, side 1), each
+// side with its descriptors as in rs_bell_side_update, order
+// holding both sides' block-form rows (block << 1 | side).  A side with
+// neither warps nor blocks has no rows in the launch.  Returns the first
+// non-zero cudaError_t, else 0.
 extern "C" int rs_bell_train(const void* L, const void* R, void* l0, void* l1, void* r0, void* r1,
                              const int* ucols, const void* uvals, const void* u_narrow, int u_nbn,
                              long long u_warps, const void* u_wide, int u_nbw, long long u_blocks,
-                             void* u_escr, const int* irows, const void* ivals,
+                             const int* irows, const void* ivals,
                              const void* i_narrow, int i_nbn, long long i_warps, const void* i_wide,
-                             int i_nbw, long long i_blocks, void* i_escr, int iters, int k,
-                             int users, int items, double alpha2, int dtype, void* stream) {
+                             int i_nbw, long long i_blocks, const int* order, int iters, int k,
+                             int users, int items, double alpha2, int dtype, int threads, int chunk,
+                             void* stream) {
   void* lbuf[2] = {l0, l1};
   void* rbuf[2] = {r0, r1};
+  StepArgs a{};
+  a.order = order;
+  a.blocks = u_blocks + i_blocks;
+  a.warps0 = u_warps;
+  a.warps = u_warps + i_warps;
+  a.k = k;
+  a.ch = chunk;
+  a.delta = false;
   const void* lc = L;
   const void* rc = R;
   for (int it = 0; it < iters; ++it) {
     void* ln = lbuf[it % 2];
     void* rn = rbuf[it % 2];
-    if (u_warps + u_blocks > 0) {
-      const int err = rs_bell_side_update(lc, rc, ln, ucols, uvals, u_narrow, u_nbn, u_warps, u_wide,
-                                          u_nbw, u_blocks, u_escr, k, items, alpha2, dtype, stream);
-      if (err != 0) return err;
-    }
-    if (i_warps + i_blocks > 0) {
-      const int err = rs_bell_side_update(rc, lc, rn, irows, ivals, i_narrow, i_nbn, i_warps, i_wide,
-                                          i_nbw, i_blocks, i_escr, k, users, alpha2, dtype, stream);
-      if (err != 0) return err;
-    }
+    a.side[0] = SideArgs{lc, rc, ln, ucols, uvals, static_cast<const Bucket*>(u_narrow),
+                         static_cast<const Bucket*>(u_wide), u_nbn, u_nbw, items};
+    a.side[1] = SideArgs{rc, lc, rn, irows, ivals, static_cast<const Bucket*>(i_narrow),
+                         static_cast<const Bucket*>(i_wide), i_nbn, i_nbw, users};
+    const int err = step_call(a, dtype, threads, alpha2, stream);
+    if (err != 0) return err;
     lc = ln;
     rc = rn;
   }
   return 0;
+}
+
+// Blocks of bell_step an SM can hold at once for a dtype code, k, block
+// size (128 or 512) and chunk (slots; 0: no block-form rows, no shared
+// memory): cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current
+// device.  0 where a block cannot fit, a negative cudaError_t on a fault.
+extern "C" int rs_bell_resident(int dtype, int k, int threads, int chunk) {
+  if (chunk < 0 || chunk > threads) return -static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, k, threads, ResidentOp{k, chunk}, -static_cast<int>(cudaErrorInvalidValue));
 }
 
 // P2's p1/p2/p3: out (S, K) = table[idx] (f32, K % 4 == 0, 16-byte aligned).

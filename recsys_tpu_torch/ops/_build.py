@@ -125,14 +125,16 @@ SIGNATURES = {
     # alpha2, form, stream
     "rs_tiled_step": [_P, _P, _I, *[_P] * 5, *[_I] * 6, _F, _I, _P],
     # own, other, out, idx, vals, narrow, nb_narrow, warps, wide, nb_wide,
-    # blocks, escr, k, pad, alpha2, dtype, stream
-    "rs_bell_side_update": [*[_P] * 6, _I, _LL, _P, _I, _LL, _P, _I, _I, _D, _I, _P],
+    # blocks, order, k, pad, alpha2, dtype, threads, chunk, stream
+    "rs_bell_side_update": [*[_P] * 6, _I, _LL, _P, _I, _LL, _P, _I, _I, _D, _I, _I, _I, _P],
     # the same arguments; out receives each row's change (the delta form)
-    "rs_bell_side_delta": [*[_P] * 6, _I, _LL, _P, _I, _LL, _P, _I, _I, _D, _I, _P],
+    "rs_bell_side_delta": [*[_P] * 6, _I, _LL, _P, _I, _LL, _P, _I, _I, _D, _I, _I, _I, _P],
     # L, R, l0, l1, r0, r1; per side (user, item): cols, vals, narrow,
-    # nb_narrow, warps, wide, nb_wide, blocks, escr; iters, k, users,
-    # items, alpha2, dtype, stream
-    "rs_bell_train": [*[_P] * 6, *[_P, _P, _P, _I, _LL, _P, _I, _LL, _P] * 2, *[_I] * 4, _D, _I, _P],
+    # nb_narrow, warps, wide, nb_wide, blocks; order, iters, k, users,
+    # items, alpha2, dtype, threads, chunk, stream
+    "rs_bell_train": [*[_P] * 6, *[_P, _P, _P, _I, _LL, _P, _I, _LL] * 2, _P, *[_I] * 4, _D, *[_I] * 3, _P],
+    # dtype, k, threads, chunk
+    "rs_bell_resident": [_I, _I, _I, _I],
     # table, idx, out, S, K, stream
     "rs_gather_rows": [_P, _P, _P, _LL, _I, _P],
     # table, idx, vals, out, S, K, blk, stream

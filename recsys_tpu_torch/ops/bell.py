@@ -71,7 +71,7 @@ import torch
 from recsys_tpu_torch.ops import _build
 from recsys_tpu_torch.ops.dense_fused import _kernel_device, _ptrs
 from recsys_tpu_torch.ops.dense_stream import _stream
-from recsys_tpu_torch.utils.timing import h2d
+from recsys_tpu_torch.utils.timing import count, h2d
 
 # Widest k the kernel takes: a warp holds a factor row, at most 32 values
 # a lane (csrc/bell.cu, KPL).
@@ -448,11 +448,18 @@ def bell_train_plain(L, R, tables: BellTables, alpha2: float, meta: BellMeta, it
 
 
 # Rows of a bucket at least this many slots wide take the block form
-# (csrc/bell.cu, side_update_wide), narrower ones the warp form.  A width
-# above every bucket's (``WARP_FORM``) gives the warp form alone, the
-# kernel as it was before the block form.
+# (csrc/bell.cu, bell_step), narrower ones the warp form.  A width above
+# every bucket's (``WARP_FORM``) gives the warp form alone, the kernel as
+# it was before the block form.
 WIDE_MIN = 128
 WARP_FORM = 1 << 62
+
+# The step's geometry (``step_plan``): the block sizes the kernel is built
+# for, the most bytes of gathered rows a chunk buffer holds, and the fewest
+# slots a chunk where a buffer holds more.
+STEP_THREADS = (128, 512)
+ROW_BYTES = 96 * 1024
+CHUNK_MIN = 16
 
 
 class SideDesc(NamedTuple):
@@ -485,10 +492,121 @@ def side_warps(side: BellSide, wide: int = WIDE_MIN) -> SideDesc:
                     np.array(wide_rows, np.int64).reshape(-1, 6), block0)
 
 
-def _side_desc(side: BellSide, dev, wide: int):
-    """``side_warps`` with the descriptors on ``dev``."""
-    d = side_warps(side, wide)
-    return d._replace(narrow=torch.from_numpy(d.narrow).to(dev), wide=torch.from_numpy(d.wide).to(dev))
+class StepPlan(NamedTuple):
+    """One launch's geometry (``step_plan``)."""
+
+    order: np.ndarray  # int32 (blocks,): each block-form row's block in its side << 1 | the side, launch order
+    threads: int  # threads a block
+    chunk: int  # slots a chunk of the block form (0: no row takes it)
+    grid: int  # blocks of the launch
+    resident: int  # blocks an SM holds at once
+    waves: int  # ceil(grid / (SMs x resident))
+
+
+def step_order(descs) -> np.ndarray:
+    """The block-form rows of ``descs`` (``side_warps``' host descriptors,
+    side s at position s) in launch order: widest first, on equal widths
+    side 0's first, each side's rows in their own order."""
+    width, side, block = [], [], []
+    for s, d in enumerate(descs):
+        for _, block0, _, n, w, _ in d.wide.tolist():
+            width += [w] * n
+            side += [s] * n
+            block += range(block0, block0 + n)
+    width, side, block = (np.array(x, np.int64) for x in (width, side, block))
+    key = np.lexsort((block, side, -width))
+    return ((block << 1) | side)[key].astype(np.int32)
+
+
+def waves(grid: int, sms: int, resident: int) -> int:
+    """Waves of a launch of ``grid`` blocks on ``sms`` SMs that hold
+    ``resident`` blocks each at once."""
+    return -(-grid // (sms * resident))
+
+
+def step_plan(descs, k: int, itemsize: int, sms: int, resident) -> StepPlan:
+    """The geometry of one launch over ``descs`` (``side_warps``' host
+    descriptors, one a side): the block-form rows widest first
+    (``step_order``), then the warp form's warps, side 0's first, a warp
+    each of a block's threads / 32.  For each block size of
+    ``STEP_THREADS`` the chunk is the largest, from ``CHUNK_MIN`` slots (or
+    all a buffer of ``ROW_BYTES`` holds, where that is fewer) up to that
+    buffer's rows and the block's threads, whose launch takes no more waves
+    than the smallest chunk's; of the sizes, the one of fewest waves, then
+    the larger.  ``resident(threads, chunk)`` is the blocks an SM holds
+    (the card's occupancy query, ``rs_bell_resident``; chunk 0 where no row
+    takes the block form: no shared memory).  k, the value size
+    ``itemsize`` in bytes and ``sms`` are the card's and the step's.  On
+    the H100 at instML100k the rule's one wave is 17-20% faster than 512
+    threads' six in f64, 6-12% slower in f32 and bf16 (PERF.md, §7)."""
+    order = step_order(descs)
+    warps = sum(d.warps for d in descs)
+    best = None
+    for threads in STEP_THREADS:
+        grid = len(order) + -(-warps // (threads // 32))
+
+        def waves_at(ch, threads=threads, grid=grid):
+            r = resident(threads, ch)
+            return waves(grid, sms, r) if r > 0 else None
+
+        if len(order):
+            top = max(1, min(threads, ROW_BYTES // (k * itemsize)))
+            chunk = min(top, CHUNK_MIN)
+            least = waves_at(chunk)
+            hi = top
+            while least is not None and chunk < hi:  # the largest chunk of as few waves
+                mid = (chunk + hi + 1) // 2
+                w = waves_at(mid)
+                if w is not None and w <= least:
+                    chunk = mid
+                else:
+                    hi = mid - 1
+        else:
+            chunk = 0
+            least = waves_at(0)
+        if least is not None and (best is None or least <= best.waves):
+            best = StepPlan(order, threads, chunk, grid, resident(threads, chunk), least)
+    if best is None:
+        raise RuntimeError(f"no block size of {STEP_THREADS} fits an SM at k={k}")
+    return best
+
+
+_RESIDENT: dict = {}
+
+
+def _resident(dev, dtype, k: int, threads: int, chunk: int) -> int:
+    """Blocks of the kernel an SM of ``dev`` holds at once (``rs_bell_resident``),
+    cached by card, dtype, k, threads and chunk."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (index, dtype, k, threads, chunk)
+    if key not in _RESIDENT:
+        with torch.cuda.device(index):
+            n = _build.load().rs_bell_resident(_DTYPE_CODE[dtype], k, threads, chunk)
+        if n < 0:
+            raise RuntimeError(f"rs_bell_resident failed: CUDA error {-n}")
+        _RESIDENT[key] = n
+    return _RESIDENT[key]
+
+
+class StepLaunch(NamedTuple):
+    """A launch made ready on a card (``step_launch``)."""
+
+    descs: tuple  # a SideDesc a side, its tables on the card
+    order: object  # the plan's order, int32 on the card
+    plan: StepPlan
+
+
+def step_launch(sides, dev, k: int, dtype, wide: int = WIDE_MIN) -> StepLaunch:
+    """One launch over ``sides`` (one or two ``BellSide``, the user side
+    first) on the CUDA device ``dev``: the descriptors (``side_warps`` at
+    ``wide``) and ``step_plan``'s geometry from the card's SMs and
+    occupancy."""
+    host = [side_warps(s, wide) for s in sides]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = step_plan(host, k, dtype.itemsize, sms, lambda th, ch: _resident(dev, dtype, k, th, ch))
+    descs = tuple(d._replace(narrow=torch.from_numpy(d.narrow).to(dev), wide=torch.from_numpy(d.wide).to(dev))
+                  for d in host)
+    return StepLaunch(descs, torch.from_numpy(plan.order).to(dev), plan)
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
@@ -518,7 +636,7 @@ def _check(F_own, F_other, cols, vals, side: BellSide):
 
 
 def bell_side_update(F_own, F_other, cols, vals, side: BellSide, alpha2: float, *, out=None,
-                     wide: int = WIDE_MIN):
+                     wide: int = WIDE_MIN, prep=None):
     """One side of a BELL step: every row of ``side`` with at least one
     entry updated from the snapshot (``F_own``, ``F_other``), slot by slot
     in file order (see the module docstring).  ``F_own`` is (size + 1, k),
@@ -526,9 +644,11 @@ def bell_side_update(F_own, F_other, cols, vals, side: BellSide, alpha2: float, 
     side's flat tables.  Returns the new table: ``out`` when given (its rows
     from ``side.n_nz`` on must already hold ``F_own``'s), else a copy of
     ``F_own`` updated.  CPU tensors go to the plain twin; CUDA tensors to
-    the kernel, which counts each launch in ``.launches``: rows of buckets
-    ``wide`` slots wide or wider in its block form, the others in its warp
-    form (``WARP_FORM``: all in the warp form); the same bits either way."""
+    the kernel with this side alone, which counts each launch in
+    ``.launches``: rows of buckets ``wide`` slots wide or wider in its block
+    form, the others in its warp form (``WARP_FORM``: all in the warp form);
+    the same bits either way.  ``prep`` is ``side_prep``'s result for these
+    tables at ``wide``, made here if not given."""
     _check(F_own, F_other, cols, vals, side)
     if out is not None and (out.shape != F_own.shape or out.dtype != F_own.dtype or out.device != F_own.device
                             or not out.is_contiguous()):
@@ -538,29 +658,29 @@ def bell_side_update(F_own, F_other, cols, vals, side: BellSide, alpha2: float, 
     if F_own.device.type == "cpu":
         new = bell_side_update_plain(F_own, F_other, cols, vals, side, alpha2)
         return new if out is None else out.copy_(new)
-    dev = _kernel_device(F_own)
-    return _launch(F_own, F_other, cols, vals, alpha2, F_own.clone() if out is None else out,
-                   _side_desc(side, dev, wide))
+    if prep is None:
+        prep = side_prep(cols, vals, side, F_other.shape[0] - 1, F_own.shape[1], wide)
+    return _launch(F_own, F_other, cols, vals, alpha2, F_own.clone() if out is None else out, prep)
 
 
 bell_side_update.launches = 0
 
 
-def _launch(F_own, F_other, cols, vals, alpha2, out, desc, delta: bool = False):
+def _launch(F_own, F_other, cols, vals, alpha2, out, launch: StepLaunch, delta: bool = False):
     """One ``rs_bell_side_update`` call (``rs_bell_side_delta`` with
-    ``delta``) into ``out`` over the side's descriptors ``desc``
-    (``_side_desc``), on tensors already checked; counted in
-    ``bell_side_update.launches`` (``bell_side_delta.launches``).  The block
-    form's e goes to a scratch table like ``vals``."""
+    ``delta``) into ``out``, the one side of ``launch`` (``step_launch``),
+    on tensors already checked; counted in ``bell_side_update.launches``
+    (``bell_side_delta.launches``)."""
+    (desc,), plan = launch.descs, launch.plan
     if desc.warps or desc.blocks:
         dev = out.device
-        escr = torch.empty_like(vals) if desc.blocks else vals
         entry = "rs_bell_side_delta" if delta else "rs_bell_side_update"
         with torch.cuda.device(dev):
             rc = getattr(_build.load(), entry)(
                 *_ptrs(F_own, F_other, out, cols, vals, desc.narrow), desc.narrow.shape[0], desc.warps,
-                *_ptrs(desc.wide), desc.wide.shape[0], desc.blocks, *_ptrs(escr), F_own.shape[1],
-                F_other.shape[0] - 1, _alpha(alpha2, F_own.dtype), _DTYPE_CODE[F_own.dtype], _stream(dev),
+                *_ptrs(desc.wide), desc.wide.shape[0], desc.blocks, *_ptrs(launch.order), F_own.shape[1],
+                F_other.shape[0] - 1, _alpha(alpha2, F_own.dtype), _DTYPE_CODE[F_own.dtype], plan.threads,
+                plan.chunk, _stream(dev),
             )
         if rc != 0:
             raise RuntimeError(f"{entry} failed: CUDA error {rc}")
@@ -568,14 +688,15 @@ def _launch(F_own, F_other, cols, vals, alpha2, out, desc, delta: bool = False):
     return out
 
 
-def side_prep(cols, vals, side: BellSide, pad: int, wide: int = WIDE_MIN):
-    """What ``bell_side_delta`` makes for a side's tables on every call,
-    made once for a run of many: the twin's buckets for CPU tables (``pad``
-    the opposite zero row's index), the kernel's descriptors on the
-    tables' CUDA device (``wide`` as ``bell_side_update``'s)."""
+def side_prep(cols, vals, side: BellSide, pad: int, k: int, wide: int = WIDE_MIN):
+    """What ``bell_side_update`` and ``bell_side_delta`` make for a side's
+    tables on every call, made once for a run of many: the twin's buckets
+    for CPU tables (``pad`` the opposite zero row's index), the kernel's
+    launch of this side alone (``step_launch`` at k, the tables' dtype and
+    ``wide``) on the tables' CUDA device."""
     if cols.device.type == "cpu":
         return _twin_buckets(cols, vals, side, pad)
-    return _side_desc(side, _kernel_device(cols), wide)
+    return step_launch((side,), _kernel_device(cols), k, vals.dtype, wide)
 
 
 def bell_side_delta(F_own, F_other, cols, vals, side: BellSide, alpha2: float, *, wide: int = WIDE_MIN,
@@ -590,7 +711,7 @@ def bell_side_delta(F_own, F_other, cols, vals, side: BellSide, alpha2: float, *
     delta form, which counts each launch in ``.launches``."""
     _check(F_own, F_other, cols, vals, side)
     if prep is None:
-        prep = side_prep(cols, vals, side, F_other.shape[0] - 1, wide)
+        prep = side_prep(cols, vals, side, F_other.shape[0] - 1, F_own.shape[1], wide)
     if F_own.device.type == "cpu":
         return _side_plain(F_own, F_other, prep, alpha2, delta=True)
     out = F_own.new_empty((side.n_nz, F_own.shape[1]))
@@ -604,10 +725,11 @@ def bell_gd_step(L, R, tables: BellTables, alpha2: float, meta: BellMeta):
     """One full-batch GD step in BELL form (``bell.py:628``): L (users + 1,
     k) and R (items + 1, k) in degree-permuted order with the zero row
     last; returns new (L, R), both sides from the snapshot (L, R), the
-    zero rows and zero-degree rows untouched.  Two ``bell_side_update``
-    launches on a CUDA device."""
-    return (bell_side_update(L, R, tables.ucols, tables.uvals, meta.user, alpha2),
-            bell_side_update(R, L, tables.irows, tables.ivals, meta.item, alpha2))
+    zero rows and zero-degree rows untouched.  On a CUDA device, one
+    launch of ``bell_train``'s fused step."""
+    if L.device.type == "cpu":
+        return bell_gd_step_plain(L, R, tables, alpha2, meta)
+    return bell_train(L, R, tables, alpha2, meta, 1)
 
 
 def bell_train(L, R, tables: BellTables, alpha2: float, meta: BellMeta, iters: int, *, donate: bool = False,
@@ -617,32 +739,36 @@ def bell_train(L, R, tables: BellTables, alpha2: float, meta: BellMeta, iters: i
     change need no copy per step: with ``donate`` the input tensors are one
     of them and are overwritten, else both are copies and the inputs are
     left as they are.  ``wide`` picks each bucket's form as in
-    ``bell_side_update``.  The step loop runs in C (``rs_bell_train``), two
-    side updates a step counted in ``bell_side_update.launches``.  CPU
-    tensors run ``bell_train_plain``."""
+    ``bell_side_update``.  The step loop runs in C (``rs_bell_train``), one
+    launch a step for both sides (``step_launch``), counted in
+    ``bell_side_update.launches``; the launch's waves (``StepPlan.waves``)
+    are counted once a call in the job's ``bell_waves``.  CPU tensors run
+    ``bell_train_plain``."""
     _check(L, R, tables.ucols, tables.uvals, meta.user)
     _check(R, L, tables.irows, tables.ivals, meta.item)
     if L.device.type == "cpu":
         return bell_train_plain(L, R, tables, alpha2, meta, iters)
     dev = _kernel_device(L)
-    udesc, idesc = _side_desc(meta.user, dev, wide), _side_desc(meta.item, dev, wide)
+    launch = step_launch((meta.user, meta.item), dev, L.shape[1], L.dtype, wide)
     bufs_l = [L.clone(), L] if donate else [L.clone() for _ in range(min(iters, 2))]
     bufs_r = [R.clone(), R] if donate else [R.clone() for _ in range(min(iters, 2))]
     if iters == 0:
         return L, R
     sides = []
-    for cols, vals, d in ((tables.ucols, tables.uvals, udesc), (tables.irows, tables.ivals, idesc)):
-        escr = torch.empty_like(vals) if d.blocks else vals
-        sides += [*_ptrs(cols, vals, d.narrow), d.narrow.shape[0], d.warps, *_ptrs(d.wide), d.wide.shape[0],
-                  d.blocks, *_ptrs(escr)]
+    for cols, vals, d in ((tables.ucols, tables.uvals, launch.descs[0]), (tables.irows, tables.ivals, launch.descs[1])):
+        sides += [*_ptrs(cols, vals, d.narrow), d.narrow.shape[0], d.warps, *_ptrs(d.wide), d.wide.shape[0], d.blocks]
+    plan = launch.plan
     with torch.cuda.device(dev):
         rc = _build.load().rs_bell_train(
-            *_ptrs(L, R, bufs_l[0], bufs_l[-1], bufs_r[0], bufs_r[-1]), *sides, iters, L.shape[1], meta.user.size, meta.item.size,
-            _alpha(alpha2, L.dtype), _DTYPE_CODE[L.dtype], _stream(dev),
+            *_ptrs(L, R, bufs_l[0], bufs_l[-1], bufs_r[0], bufs_r[-1]), *sides, *_ptrs(launch.order), iters,
+            L.shape[1], meta.user.size, meta.item.size, _alpha(alpha2, L.dtype), _DTYPE_CODE[L.dtype],
+            plan.threads, plan.chunk, _stream(dev),
         )
     if rc != 0:
         raise RuntimeError(f"rs_bell_train failed: CUDA error {rc}")
-    bell_side_update.launches += iters * sum(1 for d in (udesc, idesc) if d.warps or d.blocks)
+    if any(d.warps or d.blocks for d in launch.descs):
+        bell_side_update.launches += iters
+        count("bell_waves", plan.waves)
     return bufs_l[(iters - 1) % 2], bufs_r[(iters - 1) % 2]
 
 

@@ -277,8 +277,8 @@ def tiled_train(mesh: Mesh, L, R, A, At, alpha2: float, iters: int, precision: s
 def bell_preps(mesh: Mesh, tables, meta):
     """Each of this rank's shards' ``bell.side_prep`` of both sides, made
     once for a run (None for the others' shards)."""
-    return [[None if t is None else (bell.side_prep(t.ucols, t.uvals, meta.user, meta.i_blk),
-                                     bell.side_prep(t.irows, t.ivals, meta.item, meta.u_blk))
+    return [[None if t is None else (bell.side_prep(t.ucols, t.uvals, meta.user, meta.i_blk, meta.features),
+                                     bell.side_prep(t.irows, t.ivals, meta.item, meta.u_blk, meta.features))
              for t in row] for row in tables]
 
 

@@ -337,7 +337,7 @@ def test_bell_kernel_equals_twin_bit_for_bit(k, dtype):
         twin = bell.bell_train_plain(L, R, t, a2, data.meta, spec.iters)
         twin_odd = bell.bell_train_plain(L, R, t, a2, data.meta, spec.iters - 1)
         torch.cuda.synchronize()
-        assert bell.bell_side_update.launches == before + 8 * spec.iters - 2
+        assert bell.bell_side_update.launches == before + 4 * spec.iters - 1  # one launch a step
         for g, a, d, w in zip(got, again, donated, twin):
             assert torch.equal(g, w)  # the twin's order, bit for bit
             assert torch.equal(g, a)  # no atomics: two runs give the same bits
@@ -375,7 +375,7 @@ def test_bell_bf16_kernel_equals_twin_in_both_forms(k):
         again = bell.bell_train(L, R, t, a2, data.meta, spec.iters)
         twin = bell.bell_train_plain(L, R, t, a2, data.meta, spec.iters)
         torch.cuda.synchronize()
-        assert bell.bell_side_update.launches == before + 6 * spec.iters
+        assert bell.bell_side_update.launches == before + 3 * spec.iters  # one launch a step
         assert checks.same_bits(got, twin) and checks.same_bits(warp, twin) and checks.same_bits(got, again)
         if spec.users == 300:  # the hub spec: its widest row takes a block
             assert bell.side_warps(data.meta.user).blocks > 0
@@ -393,7 +393,7 @@ def test_run_bf16_takes_bell_and_holds_agreement():
     assert trainer.choose_path(spec, cfg, dev) == "bell"
     before = bell.bell_side_update.launches
     out, _ = trainer.run(spec, cfg, dev)
-    assert bell.bell_side_update.launches == before + 2 * spec.iters
+    assert bell.bell_side_update.launches == before + spec.iters  # one launch a step
     want = (FIXTURES / "gen-inst100000-1000-20-1-3.out").read_text().splitlines()
     got = out.splitlines()
     assert len(got) == len(want)
@@ -410,7 +410,7 @@ def test_run_instml100k_f64_takes_bell_and_matches_golden():
     assert trainer.choose_path(spec, cfg, "cuda") == "bell"
     before = bell.bell_side_update.launches
     out, _ = trainer.run(spec, cfg, "cuda")
-    assert bell.bell_side_update.launches == before + 2 * spec.iters
+    assert bell.bell_side_update.launches == before + spec.iters  # one launch a step
     assert out == (FIXTURES / "instML100k.out").read_text()
 
 
