@@ -66,7 +66,6 @@ def readings(cell, seeds: list[int], controls: int, device: str = "cuda", root: 
                 t = time.perf_counter()
                 ref_L, ref_R = reference.solve(inst, device=device, dtype=torch.float64)
                 B = reference.scores(ref_L, ref_R, inst)
-                ref = (ref_L.cpu().numpy(), ref_R.cpu().numpy())
                 ref_s = time.perf_counter() - t
                 for name, v in variants.items():
                     if "reference_dtype" in v:
@@ -88,7 +87,7 @@ def readings(cell, seeds: list[int], controls: int, device: str = "cuda", root: 
                         caps, ok, out, wall = list(sink.kept.values()), job["ok"], job["out"], job["wall"]
                     yield {"workload": cell.name, "seed": seed, "variant": name, "ok": ok, "wall_s": wall,
                            "reference_s": ref_s,
-                           "factor_gap": judge.factor_gap([judge.host_factors(c, inst) for c in caps], ref),
+                           "factor_gap": judge.factor_gap(caps, (ref_L, ref_R), inst),
                            "top1_gap": judge.top1_gap([out] if ok else [], B, inst)}
             finally:
                 os.remove(path)

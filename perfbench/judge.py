@@ -4,7 +4,9 @@ file in ``limits/`` sets.
 
 * ``factor_gap``: the trained factors.  Over every captured job and both
   tables, the largest ``max |program - reference|`` over the table, as a
-  share of the reference table's largest magnitude.
+  share of the reference table's largest magnitude, in float64 on the
+  device where the taps left the program's tables and the reference made
+  its own: no whole table is copied to the host.
 * ``top1_gap``: the printed list (the top-1 and the writer).  Over every
   distinct stdout of the window's jobs, the widest gap by which the
   reference's score of the item a user was given lies below the
@@ -20,31 +22,51 @@ import math
 import os
 
 import numpy as np
+import torch
 
 from perfbench import reference
 
 
-def host_factors(capture, inst) -> tuple[np.ndarray, np.ndarray]:
-    """A tap's capture as float64 (users, k) and (items, k) host arrays."""
+# The float64 bytes of one block of rows in the factor check.
+BLOCK_BYTES = 1 << 28
+
+
+def tables(capture, inst) -> tuple:
+    """A tap's capture as its (users, k) and (items, k) tables: views of
+    the program's tensors, on their device, in their dtype."""
     layout, L, R = capture
     k = inst.features
     if layout == "kmajor":
-        L, R = L[:k, : inst.users].T, R[:k, : inst.items].T
-    else:
-        L, R = L[: inst.users, :k], R[: inst.items, :k]
-    return L.double().cpu().numpy(), R.double().cpu().numpy()
+        return L[:k, : inst.users].T, R[:k, : inst.items].T
+    return L[: inst.users, :k], R[: inst.items, :k]
 
 
-def factor_gap(programs: list, ref: tuple[np.ndarray, np.ndarray]) -> float:
-    if not programs:
+def table_gap(P, Q) -> float:
+    """max |P - Q| / max |Q| in float64, a block of rows at a time on
+    ``Q``'s device; inf for a table of another shape or a reading that is
+    not finite.  Subtraction, ``abs`` and ``max`` in float64 are exact, so
+    the value does not depend on the blocks or the device."""
+    if tuple(P.shape) != tuple(Q.shape):
+        return math.inf
+    rows = max(1, BLOCK_BYTES // (8 * max(1, Q.shape[1])))
+    diff, mag = [], []
+    for r in range(0, Q.shape[0], rows):
+        q = Q[r : r + rows].to(torch.float64)
+        diff.append(torch.amax(torch.abs(P[r : r + rows].to(device=q.device, dtype=torch.float64) - q)))
+        mag.append(torch.amax(torch.abs(q)))
+    d = float(torch.stack(diff).amax()) / float(torch.stack(mag).amax())
+    return d if math.isfinite(d) else math.inf
+
+
+def factor_gap(captures: list, ref: tuple, inst) -> float:
+    """The largest ``table_gap`` over the captured jobs' two tables against
+    the reference's (L, R); inf with no capture."""
+    if not captures:
         return math.inf
     worst = 0.0
-    for pair in programs:
-        for P, Q in zip(pair, ref):
-            if P.shape != Q.shape:
-                return math.inf
-            d = float(np.max(np.abs(P - Q))) / float(np.max(np.abs(Q)))
-            worst = max(worst, d if math.isfinite(d) else math.inf)
+    for capture in captures:
+        for P, Q in zip(tables(capture, inst), ref):
+            worst = max(worst, table_gap(P, Q))
     return worst
 
 

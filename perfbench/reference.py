@@ -1,7 +1,8 @@
 """The plain reference: the reference binaries' function in dense torch.
 
-Full-batch gradient descent from the glibc initial factors (``glibc.py``),
-every gradient reading the pre-iteration snapshots (``matFact.c:38-53``)::
+Full-batch gradient descent from the glibc initial factors (``glibc.py``,
+drawn on the device the reference runs on), every gradient reading the
+pre-iteration snapshots (``matFact.c:38-53``)::
 
     E = M * (A - L R^T)
     L' = L + 2a E R
@@ -55,9 +56,8 @@ def dense_inputs(inst, device, dtype) -> tuple[torch.Tensor, torch.Tensor]:
 
 def solve(inst, device="cpu", dtype=torch.float64, tf32: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """The trained (L, R) on ``device`` in ``dtype``."""
-    L0, R0 = glibc.initial_factors(inst.users, inst.items, inst.features)
-    L = torch.from_numpy(L0).to(device=device, dtype=dtype)
-    R = torch.from_numpy(R0).to(device=device, dtype=dtype)
+    L, R = glibc.initial_factors(inst.users, inst.items, inst.features, device=device)
+    L, R = L.to(dtype), R.to(dtype)
     A, M = dense_inputs(inst, device, dtype)
     a2 = 2.0 * inst.alpha
     t = tf32_round if tf32 and torch.device(device).type == "cpu" else (lambda x: x)

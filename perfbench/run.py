@@ -17,7 +17,9 @@ again and carries no state over.  One client submits jobs back to back.
   the trained factors of a seeded reservoir sample of the window's jobs
   and of its last job (``taps/``) and every
   distinct printed list are judged against the plain reference
-  (``reference.py``, ``judge.py``) and the cell's limits.
+  (``reference.py``, ``judge.py``) and the cell's limits.  The factors
+  stay on the card where the taps left them and are judged there, a
+  block of rows at a time, against the reference's, made on the card.
 
 The last stdout line is the result's JSON object; the last stderr lines
 are the numbers compared, each with its limit.
@@ -36,6 +38,7 @@ import io  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
+import resource  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
 import traceback  # noqa: E402
@@ -199,8 +202,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
             log(f"failed job: {j['err']}")
         if sink.misses:
             log(f"taps: {sink.misses} job(s) handed no factors to the harness")
-        programs = [judge.host_factors(c, inst) for c in sink.captures()]
-        log(f"check: factors of {len(programs)} job(s), {len(outputs)} distinct list(s) of {len(jobs)} job(s)")
+        captures = sink.captures()
+        log(f"check: factors of {len(captures)} job(s), {len(outputs)} distinct list(s) of {len(jobs)} job(s)")
         for u in undo:
             u()
         undo = []
@@ -212,12 +215,13 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         t_ref = time.perf_counter()
         L, R = reference.solve(inst, device=device, dtype=torch.float64)
         B = reference.scores(L, R, inst)
-        ref = (L.cpu().numpy(), R.cpu().numpy())
-        del L, R
         sync()
-        log(f"reference_s {time.perf_counter() - t_ref!r} (not in setup_s)")
-        values = {"factor_gap": judge.factor_gap(programs, ref), "top1_gap": judge.top1_gap(outputs, B, inst),
+        t_judge = time.perf_counter()
+        values = {"factor_gap": judge.factor_gap(captures, (L, R), inst), "top1_gap": judge.top1_gap(outputs, B, inst),
                   "failed_jobs": float(len(failed))}
+        del L, R, B, captures
+        log(f"reference_s {t_judge - t_ref!r}, judge_s {time.perf_counter() - t_judge!r} (not in setup_s); "
+            f"host RSS peak {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024} B")
         ok, checked = judge.checks(values, limits)
     finally:
         for u in undo:

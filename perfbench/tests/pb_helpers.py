@@ -1,7 +1,9 @@
 """A throwaway benchmark root for the CPU tests: the real ``perfbench``
 files plus a small configuration (``tiny``, ML-1M's recipe at 60 x 90) and
 two mixes that force the dense route (``cpu32``) and BELL (``cpu64``), so
-that a cell runs on the CPU through the program's plain twins."""
+that a cell runs on the CPU through the program's plain twins.  Each tiny
+cell reports the metrics of the cell on its route (``ml100k.f32``,
+``ml100k.f64``)."""
 
 from __future__ import annotations
 
@@ -41,11 +43,11 @@ def tiny_root(tmp: str, iters: int = 200, features: int = 8) -> str:
     bench = registry.benchmark(REPO)
     bench["configs"].append({"name": "tiny", "source": "https://example.org/tiny", "file": "perfbench/configs/tiny.json",
                              "reduced": ["users", "items", "ratings", "features", "iters"], "why": "a CPU test"})
-    for mix in ("cpu32", "cpu64"):
+    for mix, like in (("cpu32", "ml100k.f32"), ("cpu64", "ml100k.f64")):
         bench["workloads"].append({"name": f"tiny.{mix}", "config": "tiny", "traffic": mix, "chips": 1,
                                    "why": "a CPU test"})
         for m in bench["per_layer"] + bench["end_to_end"]:
-            if "workloads" in m:
+            if like in m.get("workloads", ()):
                 m["workloads"].append(f"tiny.{mix}")
     _dump(os.path.join(root, "BENCHMARK.json"), bench)
     return root

@@ -1,6 +1,6 @@
 """The frozen copies: the roofline arithmetic against hand counts, the
-glibc draw against the program's generator and the reference's first
-draws."""
+glibc draw against the program's generator, glibc's first draws and the
+recurrence word by word (``glibc.random_words_loop``)."""
 
 import numpy as np
 import pytest
@@ -40,12 +40,33 @@ def test_ml100k_floor_matches_the_program_copy():
 def test_glibc_words_are_glibcs():
     # glibc 2.x: srandom(1); random() -> 1804289383, 846930886, 1681692777, ...
     assert glibc.random_words(3).tolist() == [1804289383, 846930886, 1681692777]
+    assert glibc.random_words_loop(3).tolist() == [1804289383, 846930886, 1681692777]
 
 
-@pytest.mark.parametrize("users,items,k", [(3, 4, 2), (943, 1682, 30)])
+# A block of 1500 words: past the table's host rows (1024), so the table
+# doubles once; the cases are the window's edges and the blocks' edges.
+STREAM_BLOCK = 1500
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("n", [0, 1, 3, 33, 34, 35, STREAM_BLOCK - 1, STREAM_BLOCK, STREAM_BLOCK + 1,
+                               3 * STREAM_BLOCK + 7])
+def test_the_stream_equals_the_loop(monkeypatch, n, seed):
+    monkeypatch.setattr(glibc, "HOST_BLOCK", STREAM_BLOCK)
+    got = glibc.random_words(n, seed)
+    want = glibc.random_words_loop(n, seed)
+    assert got.dtype == want.dtype == np.int64 and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("users,items,k", [(3, 4, 2), (943, 1682, 30), (6040, 3952, 30)])
 def test_initial_factors_equal_the_programs(users, items, k):
     from recsys_tpu_torch.models.mf import init_factors
 
     L, R = glibc.initial_factors(users, items, k)
+    draws = glibc.random_words_loop((users + items) * k) / glibc.RAND_MAX / k
+    assert np.array_equal(L, draws[: users * k].reshape(users, k))
+    assert np.array_equal(R, draws[users * k:].reshape(k, items).T)
     want = init_factors(users, items, k)
     assert np.array_equal(L, want.L) and np.array_equal(R, want.R)
+    Lt, Rt = glibc.initial_factors(users, items, k, device="cpu")
+    assert np.array_equal(Lt.numpy(), L) and np.array_equal(Rt.numpy(), R)
