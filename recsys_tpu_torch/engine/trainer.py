@@ -344,10 +344,12 @@ def _factorize_bell_device(spec: ProblemSpec, cfg: RunConfig, device, state: MFS
     order (trainer.py:367-406): ``prep`` builds the tables and, for the
     host init, the glibc draws and the degree-permuted factors with their
     zero rows; ``upload`` copies them to the device, or draws the factors
-    there (``_device_init``) and permutes them on the device; ``train``
-    runs ``bell.bell_train``; the un-permute is a device ``index_select``
-    (exact).  bf16 builds the host tables and factors in f32 and rounds
-    them in ``upload``, or rounds the device draws before the permute."""
+    there (``_device_init``; the ``init`` span, which waits for the card
+    while phases are collected) and permutes them on the device (the
+    ``permute`` span); ``train`` runs ``bell.bell_train``; the un-permute
+    is a device ``index_select`` (exact).  bf16 builds the host tables and
+    factors in f32 and rounds them in ``upload``, or rounds the device
+    draws before the permute."""
     tdt = _TORCH_DTYPE[cfg.dtype]
     dt = bell.HOST_DTYPE[tdt]
     on_device = _device_init(spec, cfg, state)
@@ -360,11 +362,14 @@ def _factorize_bell_device(spec: ProblemSpec, cfg: RunConfig, device, state: MFS
             del state
     with phase("upload") as psync:
         if on_device:
-            L, R = device_rng.device_init_factors(spec.users, spec.items, spec.features, device=device)
-            L0 = _permute_pad(L.to(tdt), data.user_perm)
-            del L
-            R0 = _permute_pad(R.to(tdt), data.item_perm)
-            del R
+            with span("init"):
+                L, R = device_rng.device_init_factors(spec.users, spec.items, spec.features, device=device)
+                psync((L, R))
+            with span("permute"):
+                L0 = _permute_pad(L.to(tdt), data.user_perm)
+                del L
+                R0 = _permute_pad(R.to(tdt), data.item_perm)
+                del R
         else:
             L0, R0 = (h2d(torch.from_numpy(x).to(tdt), device) for x in (Lp0, Rp0))
             del Lp0, Rp0
