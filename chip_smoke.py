@@ -83,11 +83,12 @@ each printed as it runs:
    (``bell``, one launch a step) byte for byte against its golden, with
    phases, the slope and one twin step's time; ``--path dense`` f64 once;
    inst200-10000-50-100-300 f64 through ``run()``.
-10b. the device glibc stream: equal to the host generator's words across
-    block boundaries and two calls, then ``device_init_factors`` at
-    gen-inst1e6's shape bit for bit against the host draws on a sample of
-    rows, and 2^27 draws at four block sizes; phase 11's f32 run then
-    draws its factors on the card.
+10b. the device init's kernel (``glibc_init``): its words equal to the host
+    generator's either side of a segment and a block's span, then
+    ``device_init_factors`` at gen-inst1e6's shape bit for bit against the
+    host draws on a sample of rows and against the torch twin on the card
+    over every draw, and both timed beside the floor; phase 11's f32 run
+    then draws its factors on the card, in one launch.
 11. main path, gen-inst1e6-100-700-1-3 on the auto route (``bell``) in
    f64 (byte for byte against its golden) and in f32.
 11b. main path, bf16 on the auto route (``bell``, one launch a step) at
@@ -300,6 +301,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "lane_cumsum_block": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:57"),
     "stream_v2_train": ("recsys_tpu_torch/csrc/dense_stream.cu", "scripts/probe_stream_v2.py:89"),
     "stream_v2_train_dense": ("recsys_tpu_torch/csrc/stream_v2.cu", "scripts/probe_stream_v2.py:89"),
+    "glibc_init": ("recsys_tpu_torch/csrc/glibc_init.cu", "none (the JAX package draws with XLA ops)"),
 }
 # The T-scaling of the P1 kernels: 4x the steps must take 4x the time,
 # within this range, or the loop-invariant body was hoisted: T = 512 against
@@ -314,9 +316,10 @@ def log(msg: str) -> None:
 
 
 def _wrappers():
-    from recsys_tpu_torch.ops import bell, dense_fused, dense_stream, dense_tiled, gather, lane, stream_v2
+    from recsys_tpu_torch.ops import bell, dense_fused, dense_stream, dense_tiled, device_rng, gather, lane, stream_v2
 
     return {
+        "glibc_init": device_rng.glibc_stream,
         "resident_train_top1": dense_fused.resident_train_top1,
         "resident_train": dense_fused.resident_train,
         "resident_train_dense": dense_fused.resident_train_dense,
@@ -1261,6 +1264,8 @@ def inst1e6_bell_phase(torch, dev, launches, spec):
                                 launches, "auto", dtype)
         if counts["bell_side_update"] != spec.iters:
             raise AssertionError(f"{INST1E6} {dtype} must launch bell_side_update {spec.iters} times")
+        if counts["glibc_init"] != int(dtype == "float32"):
+            raise AssertionError(f"{INST1E6} {dtype} launched glibc_init {counts['glibc_init']} times")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1949,86 +1954,77 @@ def _bf16_cli_checks(torch, dev, launches):
 
 
 def device_rng_phase(torch, dev, spec):
-    """The card's glibc words against the host generator's across block
-    boundaries and two calls, at a small block and at the default one; then
+    """The device init's kernel (``device_rng.glibc_stream``,
+    ``csrc/glibc_init.cu``): its words against the host generator's for
+    counts either side of a segment and of a block's span; then
     ``device_init_factors`` at ``spec``'s shape (gen-inst1e6: L 1M x 700,
-    then R 100 x 700) bit for bit against ``f32(host random()) * f32(scale)``
-    on a sample of L's rows (the first, the last, and every row that holds a
-    block's first or last draw) and on all of R."""
+    then R 100 x 700) bit for bit against ``f32(host random()) *
+    f32(scale)`` on a sample of L's rows (the first, the last, and every row
+    that holds a block span's first or last draw) and on all of R, and
+    against the torch twin (``DeviceGlibcStream``) on the card over every
+    draw; then the kernel's time by CUDA events beside its floor (4 B a draw
+    written once at the HBM rate) and the twin's.  Returns the kernels
+    line's readings."""
     import numpy as np
 
+    from recsys_tpu_torch.bench import roofline
     from recsys_tpu_torch.io.glibc_random import RAND_MAX, GlibcRandom, rand01_sequence
     from recsys_tpu_torch.ops import device_rng
+    from recsys_tpu_torch.testing import same_bits
+    from recsys_tpu_torch.utils.timing import cuda_event_ms
 
     failed = []
-    for block, sizes in ((1000, (3517, 1311)), (device_rng.DEFAULT_BLOCK, (3 * device_rng.DEFAULT_BLOCK + 12345,
-                                                                          device_rng.DEFAULT_BLOCK // 2 + 7))):
-        st = device_rng.DeviceGlibcStream(0, block, dev)
-        words = torch.cat([st.raw32(n) for n in sizes]).cpu().numpy() >> 1
-        n = sum(sizes)
+    span = device_rng.SEGMENT << device_rng.LOG_THREADS
+    for n in (5, device_rng.SEGMENT + 1, 3 * span + 12345):
+        words = device_rng.glibc_stream(n, device=dev).cpu().numpy() >> 1
         host = GlibcRandom(0).raw(n) if n < 10_000 else np.rint(rand01_sequence(n) * RAND_MAX).astype(np.int64)
         same = np.array_equal(words, host)
-        log(f"[kernel] device glibc words, block {block}, calls of {sizes} ({n // block} block boundaries and a "
-            f"remainder of {n % block}): = host bit for bit {same}")
+        log(f"[kernel] glibc_init words, {n} draws ({n // span} block spans of {span} and {n % span}): "
+            f"= host bit for bit {same}")
         if not same:
-            failed.append(f"words block {block}")
+            failed.append(f"words {n}")
     k, users, items = spec.features, spec.users, spec.items
-    t0 = time.perf_counter()
+    draws = (users + items) * k
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     L, R = device_rng.device_init_factors(users, items, k, device=dev)
     torch.cuda.synchronize()
     t_dev = time.perf_counter() - t0
     t0 = time.perf_counter()
-    r01 = rand01_sequence((users + items) * k)  # the host init's draws, random() / RAND_MAX in f64
+    r01 = rand01_sequence(draws)  # the host init's draws, random() / RAND_MAX in f64
     t_host = time.perf_counter() - t0
     scale = np.float32(1.0 / (float(RAND_MAX) * k))
-    B = device_rng.DEFAULT_BLOCK
-    edges = np.arange(B, users * k, B)
+    edges = np.arange(span, users * k, span)
     rows = np.unique(np.concatenate([[0, users - 1], edges // k, (edges - 1) // k]))
 
-    def expect(draws):  # random() recovered exactly (below 2^31), then the card's float step
-        return np.rint(draws * RAND_MAX).astype(np.float32) * scale
+    def expect(x):  # random() recovered exactly (below 2^31), then the card's float step
+        return np.rint(x * RAND_MAX).astype(np.float32) * scale
 
     want_L = expect(r01[: users * k].reshape(users, k)[rows])
     want_R = expect(r01[users * k :].reshape(k, items).T)
     same = (np.array_equal(L[torch.from_numpy(rows).to(dev)].cpu().numpy(), want_L)
             and np.array_equal(R.cpu().numpy(), want_R))
-    log(f"[kernel] device_init_factors {users}x{items} k={k}: {(users + items) * k} draws on the card in "
-        f"{t_dev!r} s ({-(-users * k // B) + -(-items * k // B)} blocks of {B}), host draws {t_host!r} s; "
-        f"{len(rows)} rows of L (first, last, block edges) and all of R = f32(host)*scale bit for bit {same}")
-    if not same:
+    del r01
+    twin = device_rng.DeviceGlibcStream(0, device_rng.DEFAULT_BLOCK, dev)
+    plain = twin.rand01_over(draws, float(k))
+    same_twin = same_bits(plain, torch.cat([L.reshape(-1), R.T.reshape(-1)]))
+    log(f"[kernel] device_init_factors {users}x{items} k={k}: {draws} draws on the card in {t_dev!r} s (first "
+        f"call), host draws {t_host!r} s; {len(rows)} rows of L (first, last, span edges) and all of R = "
+        f"f32(host)*scale bit for bit {same}; every draw = the twin's on the card bit for bit {same_twin}")
+    if not (same and same_twin):
         failed.append("device_init_factors")
-    del L, R, r01
-    torch.cuda.empty_cache()
+    del L, R, plain
     if failed:
         raise AssertionError(f"device RNG phase failed: {failed}")
-    device_rng_blocks(torch, dev)
-
-
-def device_rng_blocks(torch, dev, n=1 << 27):
-    """The block size of the device glibc stream: for each candidate, the
-    coefficient table's build, ``n`` draws, and the device kernels one
-    block launches (``torch.profiler``).  Logged only."""
-    from recsys_tpu_torch.ops import device_rng
-
-    cuda = torch.autograd.DeviceType.CUDA
-    for block in (1 << 18, 1 << 20, 1 << 22, 1 << 24):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = device_rng.DeviceGlibcStream(0, block, dev)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        st.raw32(n)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            st.raw32(block)
-            torch.cuda.synchronize()
-        per_block = sum(e.count for e in prof.key_averages() if e.device_type == cuda)
-        log(f"[kernel] device glibc stream at block {block}: coefficient table {t1 - t0!r} s, {n} draws "
-            f"{t2 - t1!r} s, {per_block} device kernels a block")
-        del st
+    ms = cuda_event_ms(lambda: device_rng.device_init_factors(users, items, k, device=dev), 20)
+    plain_ms = cuda_event_ms(lambda: twin.rand01_over(draws, float(k)), 2)
+    bound_ms = 4.0 * draws / roofline.HBM_BYTES_S * 1e3
+    log(f"[kernel] glibc_init at {users}x{items} k={k}: {ms!r} ms a call (CUDA events, 20 calls), bound "
+        f"{bound_ms!r} ms (4 B a draw at the HBM rate), {100 * bound_ms / ms!r}% of it; the twin on the card "
+        f"{plain_ms!r} ms")
+    del twin
     torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "nbytes": 4.0 * draws, "err": 0.0}
 
 
 def _timing_inputs(spec, dev, torch):
@@ -2193,6 +2189,9 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     out.append(_record("bell_side_delta", launches["instML100k mesh", "float64"]["bell_side_delta"]
                        + ranks["bell_side_delta"], bd["err"],
                        bd["ms"], bd["plain_ms"], bd["flops"], bd["nbytes"], "float64"))
+    gi = times["glibc_init"]
+    out.append(_record("glibc_init", launches[f"{INST1E6} float32", "auto"]["glibc_init"], gi["err"], gi["ms"],
+                       gi["plain_ms"], 0.0, gi["nbytes"]))
     out += probe_records(torch, dev, launches, errs, p1_rows, p3)
     for rec in out:
         log(f"[kernels] {rec['name']}: {rec['ms']!r} ms vs bound {rec['bound_ms']!r} ms "
@@ -2370,7 +2369,7 @@ def main() -> int:
         lap("tiled profiles")
         bell_main_phase(torch, dev, launches)
         lap("bell main")
-        device_rng_phase(torch, dev, big)
+        glibc = device_rng_phase(torch, dev, big)
         lap("device init")
         inst1e6_bell_phase(torch, dev, launches, big)
         lap("gen-inst1e6 bell")
@@ -2397,7 +2396,7 @@ def main() -> int:
         times["B5 step"] = b5_times[INST1E6]["auto"]["per_step"]
         times["B4"] = b4_times
         times["bf16 bell"], times["P2 forms"] = bf16_big, p2_per["forms"]
-        times["mesh"] = mesh_times
+        times["mesh"], times["glibc_init"] = mesh_times, glibc
         kernels = kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows, p3)
         lap("kernels line")
     except Exception as e:  # noqa: BLE001 - report any failed phase, exit non-zero

@@ -46,7 +46,7 @@ from recsys_tpu_torch.config import ProblemSpec, RunConfig
 from recsys_tpu_torch.models.mf import MFState, init_factors
 from recsys_tpu_torch.ops import bell, coo, dense, dense_fused, dense_stream, dense_tiled, device_rng, topk
 from recsys_tpu_torch.ops.bell import bell_slot_ratio
-from recsys_tpu_torch.utils.timing import h2d, phase, span
+from recsys_tpu_torch.utils.timing import count, h2d, phase, span
 
 # Decision constants, unchanged from the JAX engine (trainer.py:62-94).
 DENSE_BUDGET_BYTES = 2 << 30
@@ -344,8 +344,9 @@ def _factorize_bell_device(spec: ProblemSpec, cfg: RunConfig, device, state: MFS
     order (trainer.py:367-406): ``prep`` builds the tables and, for the
     host init, the glibc draws and the degree-permuted factors with their
     zero rows; ``upload`` copies them to the device, or draws the factors
-    there (``_device_init``; the ``init`` span, which waits for the card
-    while phases are collected) and permutes them on the device (the
+    there (``_device_init``; the ``init`` span, which counts the stream
+    kernel's launches as ``init_launches`` and waits for the card while
+    phases are collected) and permutes them on the device (the
     ``permute`` span); ``train`` runs ``bell.bell_train``; the un-permute
     is a device ``index_select`` (exact).  bf16 builds the host tables and
     factors in f32 and rounds them in ``upload``, or rounds the device
@@ -363,7 +364,9 @@ def _factorize_bell_device(spec: ProblemSpec, cfg: RunConfig, device, state: MFS
     with phase("upload") as psync:
         if on_device:
             with span("init"):
+                launches = device_rng.glibc_stream.launches
                 L, R = device_rng.device_init_factors(spec.users, spec.items, spec.features, device=device)
+                count("init_launches", device_rng.glibc_stream.launches - launches)
                 psync((L, R))
             with span("permute"):
                 L0 = _permute_pad(L.to(tdt), data.user_perm)

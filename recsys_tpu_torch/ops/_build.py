@@ -148,6 +148,9 @@ SIGNATURES = {
     "rs_lane_cumsum_loop": [*[_P] * 2, *[_I] * 4, _P, _P],
     # x, out, S, W, t, stream
     "rs_lane_cumsum_loop_block": [*[_P] * 2, *[_I] * 3, _P],
+    # jumps, count, segment, log_threads, window (host), out, n, scale,
+    # words, stream
+    "rs_glibc_init": [_P, _I, _I, _I, _P, _P, _LL, _F, _I, _P],
     # A, a_kind, Lt_in .. part_r (8 pointers), K, U, I, strip, G, C, iters,
     # alpha2, chunk, S, stream
     "rs_stream_v2_train": [_P, _I, *[_P] * 8, *[_I] * 7, _F, _I, _I, _P],

@@ -572,6 +572,48 @@ def test_device_glibc_stream_equals_host():
     assert torch.equal(L.cpu(), Lc) and torch.equal(R.cpu(), Rc)
 
 
+# (n,): a stream shorter than one segment, either side of a segment and of
+# a block's span (256 segments of 1024 draws), and ragged over many blocks.
+GLIBC_COUNTS = [1, 5, 1023, 1024, 1025, 262143, 262145, 3 * 262144 + 12345]
+# (users, items, k): k = 1, odd k, the L/R split inside a segment
+# (users * k not a multiple of 1024), R longer than L, one segment in all.
+GLIBC_SHAPES = [(1, 1, 1), (37, 23, 6), (1000, 7, 13), (3, 501, 7), (300, 100, 700), (2000, 3, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", GLIBC_COUNTS)
+def test_glibc_kernel_words_equal_the_host_generator(n):
+    import numpy as np
+
+    from recsys_tpu_torch.io.glibc_random import GlibcRandom
+    from recsys_tpu_torch.ops import device_rng
+
+    dev = _cuda()
+    before = device_rng.glibc_stream.launches
+    words = device_rng.glibc_stream(n, device=dev)
+    torch.cuda.synchronize()
+    assert device_rng.glibc_stream.launches == before + 1
+    assert words.dtype == torch.int64 and words.shape == (n,)
+    twin = device_rng.glibc_stream(n, block=1000)
+    assert torch.equal(words.cpu(), twin)
+    np.testing.assert_array_equal((words.cpu() >> 1).numpy(), GlibcRandom(0).raw(n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("users,items,k", GLIBC_SHAPES)
+def test_glibc_kernel_factors_equal_the_twins_bits(users, items, k):
+    from recsys_tpu_torch.ops import device_rng
+
+    dev = _cuda()
+    before = device_rng.glibc_stream.launches
+    L, R = device_rng.device_init_factors(users, items, k, device=dev)
+    torch.cuda.synchronize()
+    assert device_rng.glibc_stream.launches == before + 1
+    Lc, Rc = device_rng.device_init_factors(users, items, k, block=1000)
+    assert L.shape == Lc.shape and R.shape == Rc.shape and R.stride() == Rc.stride()
+    assert checks.same_bits(L.cpu(), Lc) and checks.same_bits(R.cpu(), Rc)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_coo_route_two_runs_same_bits_and_golden(dtype):

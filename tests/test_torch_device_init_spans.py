@@ -85,6 +85,13 @@ def test_the_device_init_records_init_and_permute_inside_upload(on_device):
     assert set(job.phases) == {"prep", "upload", "train", "top1"}
 
 
+def test_the_init_span_counts_the_stream_kernels_launches(on_device):
+    # On the CPU the twin draws, and the count says no kernel ran.
+    (_, _, job), _ = on_device
+    init = next(s for s in job.spans if s.name == "init")
+    assert init.counts == {"init_launches": 0} and job.counts["init_launches"] == 0
+
+
 def test_the_spans_leave_the_factors_bits(on_device):
     (out_t, (Lt, Rt), _), (out_u, (Lu, Ru), _) = on_device
     assert out_t == out_u

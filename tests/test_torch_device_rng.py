@@ -1,11 +1,12 @@
-"""The port's glibc stream drawn with torch ops (recsys_tpu_torch/ops/device_rng.py)
-against the JAX package's ``recsys_tpu.ops.device_rng`` and the host
-generator, on the CPU.
+"""The port's glibc stream (recsys_tpu_torch/ops/device_rng.py) on the CPU:
+its torch twin against the JAX package's ``recsys_tpu.ops.device_rng`` and
+the host generator, and the host half of the kernel's plan.
 
 The integer words must equal the host generator's bit for bit, for any
 count and across calls; the f32 draws equal JAX's bit for bit (the same
 ``f32(x >> 1) * f32(scale)``) and lie within rtol 3e-7 (~2 f32 ulp) of the
-host's f64 divide-then-cast.
+host's f64 divide-then-cast.  The windows the kernel jumps to must equal
+the host generator's words at every segment's start.
 """
 
 import numpy as np
@@ -80,3 +81,56 @@ def test_permute_pad_is_take_with_fill():
     want = torch.cat([F[torch.from_numpy(perm)], torch.zeros(1, 3)])
     assert torch.equal(trainer._permute_pad(F, perm), want)
     assert torch.equal(trainer._permute_pad(F.T.contiguous().T, perm), want)  # a transposed view, as R is
+
+
+def _host_window(position: int) -> np.ndarray:
+    """The host generator's words x[position - 34 .. position - 1]."""
+    g = GlibcRandom(0)
+    g.raw(position)
+    return g._window.astype(np.uint64)
+
+
+@pytest.mark.parametrize("segment,log_threads,n", [
+    (1, 2, 100),      # segments of one draw: every window of the first 100 positions
+    (3, 1, 200),      # the shortest lag
+    (33, 2, 1500),    # segment starts either side of 34, blocks of 4 segments
+    (34, 3, 2000),
+    (35, 0, 800),     # a block a segment: every window by block jumps alone
+    (64, 3, 9000),    # starts on 2^k, 17 blocks
+    (1000, 2, 30000),
+    (device_rng.SEGMENT, 2, 20 * device_rng.SEGMENT + 5),  # the kernel's segment, a ragged last one
+])
+def test_plan_windows_equal_the_host_words_at_segment_starts(segment, log_threads, n):
+    got = device_rng.plan_windows(0, n, segment, log_threads)
+    assert got.shape == (-(-n // segment), 34)
+    host = GlibcRandom(0)
+    for g in range(got.shape[0]):
+        np.testing.assert_array_equal(got[g], host._window, err_msg=f"segment {g}")
+        host.raw(segment)
+
+
+@pytest.mark.parametrize("e", [0, 1, 5, 9])
+def test_the_kernels_jump_matrices_move_the_window_by_their_draws(e):
+    # Entry e of the kernel's table moves a window SEGMENT * 2^e draws on,
+    # from the seed's window and from one past a 2^k + 34 boundary.
+    J = device_rng.jump_matrices(device_rng.SEGMENT, device_rng.JUMPS)[e]
+    assert J.max() < 2 ** 32
+    steps = device_rng.SEGMENT << e
+    for start in (0, 64 + 34 + 1):
+        got = (J @ _host_window(start)) & np.uint64(0xFFFFFFFF)
+        np.testing.assert_array_equal(got, _host_window(start + steps))
+
+
+def test_a_cpu_stream_takes_the_twin_and_launches_nothing():
+    launches = device_rng.glibc_stream.launches
+    words = device_rng.glibc_stream(2517)
+    floats = device_rng.glibc_stream(2517, divisor=5.0, block=1000)
+    assert words.dtype == torch.int64 and floats.dtype == torch.float32
+    np.testing.assert_array_equal((words >> 1).numpy(), GlibcRandom(0).raw(2517))
+    assert torch.equal(floats, device_rng.DeviceGlibcStream(0, block=1000).rand01_over(2517, 5.0))
+    assert device_rng.glibc_stream.launches == launches
+
+
+def test_the_stream_refuses_a_device_without_a_kernel():
+    with pytest.raises(ValueError, match="no kernel"):
+        device_rng.glibc_stream(10, device="meta")
