@@ -19,8 +19,9 @@ each printed as it runs:
    small instance and at the instML100k and gen-instML1M shapes (the
    main paths' shapes of B2 and of B3, B4): the same readings, the
    controls at gen-instML1M's shape, and the identities B2 = B1's factors,
-   B4 = B1's top-1 and B6 = B3 then B4, bit for bit; B3 within the factor
-   limit of B2; the tie case for B4 and B6.
+   B4 = B1's top-1 and B6 = B3 then B4, bit for bit; B3 against itself
+   (two runs) in raw bits and within the factor limit of B2; the tie case
+   for B4 and B6.
 5. B5 (its fused step, as ``tiled_train`` runs it) vs its twin, every
    precision x A storage, on the small instance and at the gen-instML1M
    and gen-inst1e6-100-700-1-3 shapes (20 steps): the same readings, two
@@ -45,25 +46,13 @@ each printed as it runs:
    twin, bit for bit in f64, f32 and bf16, two runs bit for bit, and one
    step of the block form against the warp form alone, bit for bit and
    timed in turns.
-5c. the redesigned forms against the ones they replaced: B1's and B2's
-   sparse walk (the persistent kernel and the loop form) against their
-   dense form bit for bit (``probes/resident_sparse.py``: the small spec in
-   every A storage, k = 40 and 64, and the instML100k and gen-instML1M
-   shapes in every precision, 20 steps), the three forms' instML100k slopes
-   in every precision and the resident/stream line's slopes in turns; the
-   engine's B1 form must read a lower instML100k `highest` slope than the
-   dense form.  B3's sparse walk
-   against its dense form bit for bit (``probes/stream_sparse.py``: the
-   small spec in every A storage, k = 40, and gen-instML1M in every
-   precision, 20 steps) and their slopes in turns; ``bell_side_update``'s
-   block form against its warp form bit for bit (``probes/bell_wide.py``:
-   instML100k and a hub-row spec in f64 and f32) and one step at several
-   thresholds in turns; B4's tiled form against its dense form in raw
-   bits of each user's index and best score (``probes/top1_tiled.py``: the
-   small spec at k = 10, 40 and 256, instML100k and gen-instML1M, every
-   precision x A storage, and the tie case) and both timed in turns at
-   gen-instML1M in `highest` (CUDA graph replays).  Each engine form must
-   be no slower than the form it replaced at the main path's shape.
+5c. the resident/stream line (``probes/plan_line.py``): B2's steps and
+   B3's at instML100k and gen-instML1M in `highest`, slopes in turns; then
+   ``bell_side_update``'s block form against its warp form bit for bit
+   (``probes/bell_wide.py``: instML100k and a hub-row spec in f64 and f32)
+   and one step at several thresholds in turns, and ``bell_train``'s fused
+   step against two launches a step; the engine's forms must be no slower
+   at instML100k.
 6. main path, instML100k: ``trainer.run`` in highest, bf16x3 and default on
    the auto plan (resident) and with the stream kind forced, held against
    the golden ``.out`` with launch counts, phase times, the slope and the
@@ -103,30 +92,25 @@ each printed as it runs:
    those factors is read on the card and on the CPU.
 12. the P2 probe (``probes/mosaic_gather.py``) at the TPU script's shapes:
    ``gather_rows`` and ``gather_err_grad`` against their twins and
-   ``gather_err_grad``'s grouped form against its direct form in raw
-   bits, then the six variants and the two forms in turns (graph
-   replays); the grouped form must be no slower.
-13. the P1 probe (``probes/gather.py``), both forms of each kernel:
-   ``lane_gather_loop`` (the bank-conflict-free schedule) and
-   ``lane_gather_loop_direct`` (the form it replaced) equal to their twin
-   bit for bit at every probe shape, with full-width and broadcast
-   indices; ``lane_cumsum_loop`` (a row over a thread-block cluster) equal
-   to ``lane_cumsum_loop_block`` (one block a row) and to the kernels'
-   order (``lane_cumsum_loop_order_plain``) in raw bits at every probe
-   shape and t = 2, 5, 512, and both within ``testing.LANE_CUMSUM_RTOL``
-   of the twin with its control rejected; then the probe's timings, the
-   two forms in turns in one profile a shape, the cluster size chosen
-   with ``cudaOccupancyMaxActiveClusters``, and the gates: every form's T-scaling in 3.5-4.5x (T = 512 against T = 128 net
-   of the T = 0 launch at every shape; raw T = 2048 against T = 512 at the
-   widest shape), and each new form no slower than the one it replaced at
-   (8, 32768).
-14. the P3 probe (``probes/stream_v2.py``): ``stream_v2_train`` (B3's sparse
-   walk on the packed layout) against its twin (control rejected), and in
-   raw bits against itself (two runs), its dense form and B3 in both forms,
-   at the small spec (every A storage, k = 40) and at gen-instML1M's and
-   inst200-10000's shapes, then the four slopes in turns: B3 dense and
-   sparse ("v1"), P3 dense and sparse ("v2").  P3's sparse form must be no
-   slower than its dense form at gen-instML1M.
+   ``gather_err_grad`` against itself (two runs) in raw bits, then the
+   five variants, and ``gather_err_grad`` alone from graph replays.
+13. the P1 probe (``probes/gather.py``): ``lane_gather_loop`` (the
+   bank-conflict-free schedule) equal to its twin bit for bit at every
+   probe shape, with full-width and broadcast indices;
+   ``lane_cumsum_loop`` (a row over a thread-block cluster) equal to the
+   kernel's order (``lane_cumsum_loop_order_plain``) in raw bits at every
+   probe shape and t = 2, 5, 512, and within ``testing.LANE_CUMSUM_RTOL``
+   of the twin with its control rejected; then the probe's timings, each
+   kernel's step counts in turns in one profile a shape, the cluster size
+   chosen with ``cudaOccupancyMaxActiveClusters``, and the gate: every
+   kernel's T-scaling in 3.5-4.5x (T = 512 against T = 128 net of the
+   T = 0 launch at every shape; raw T = 2048 against T = 512 at the widest
+   shape).
+14. the P3 probe (``probes/stream_v2.py``): ``stream_v2_train`` (B3's walk
+   on the packed layout) against its twin (control rejected), and in raw
+   bits against itself (two runs) and B3, at the small spec (every A
+   storage, k = 40) and at gen-instML1M's and inst200-10000's shapes, then
+   both slopes in turns: B3 ("v1") and P3 ("v2").
 15. main path, ``--path coo``: instML100k through ``run()`` in f32 (prefix
    sums) and f64 (segment sums) against the golden, two ``factorize`` runs
    bit for bit in each, phases and slope, one step's device time by kernel.
@@ -281,26 +265,19 @@ BENCH_CLI = ("instML100k", "gen-instML1M")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "resident_train_top1": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:663"),
     "resident_train": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:238"),
-    "resident_train_dense": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:238"),
     "stream_train": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:420"),
-    "stream_train_dense": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:420"),
     "stream_top1": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:473"),
-    "stream_top1_dense": ("recsys_tpu_torch/csrc/dense_fused.cu", "recsys_tpu/ops/pallas_dense.py:473"),
     "stream_train_top1": ("recsys_tpu_torch/csrc/dense_stream.cu", "recsys_tpu/ops/pallas_dense.py:433"),
     "tiled_deltas": ("recsys_tpu_torch/csrc/dense_tiled.cu", "recsys_tpu/ops/pallas_dense.py:566"),
     "tiled_step": ("recsys_tpu_torch/csrc/dense_tiled.cu", "recsys_tpu/ops/pallas_dense.py:566"),
     "bell_side_update": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
     "gather_rows": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:118"),
     "gather_err_grad": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
-    "gather_err_grad_direct": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
     "bell_side_update_bf16": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
     "bell_side_delta": ("recsys_tpu_torch/csrc/bell.cu", "scripts/probe_mosaic_gather.py:139"),
     "lane_gather": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:40"),
-    "lane_gather_direct": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:40"),
     "lane_cumsum": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:57"),
-    "lane_cumsum_block": ("recsys_tpu_torch/csrc/lane.cu", "scripts/probe_gather.py:57"),
     "stream_v2_train": ("recsys_tpu_torch/csrc/dense_stream.cu", "scripts/probe_stream_v2.py:89"),
-    "stream_v2_train_dense": ("recsys_tpu_torch/csrc/stream_v2.cu", "scripts/probe_stream_v2.py:89"),
     "glibc_init": ("recsys_tpu_torch/csrc/glibc_init.cu", "none (the JAX package draws with XLA ops)"),
 }
 # The T-scaling of the P1 kernels: 4x the steps must take 4x the time,
@@ -322,12 +299,8 @@ def _wrappers():
         "glibc_init": device_rng.glibc_stream,
         "resident_train_top1": dense_fused.resident_train_top1,
         "resident_train": dense_fused.resident_train,
-        "resident_train_dense": dense_fused.resident_train_dense,
-        "resident_train_top1_dense": dense_fused.resident_train_top1_dense,
         "stream_train": dense_stream.stream_train,
-        "stream_train_dense": dense_stream.stream_train_dense,
         "stream_top1": dense_stream.stream_top1,
-        "stream_top1_dense": dense_stream.stream_top1_dense,
         "stream_train_top1": dense_stream.stream_train_top1,
         "tiled_deltas": dense_tiled.tiled_deltas,
         "tiled_step": dense_tiled.tiled_step,
@@ -335,13 +308,9 @@ def _wrappers():
         "bell_side_delta": bell.bell_side_delta,
         "gather_rows": gather.gather_rows,
         "gather_err_grad": gather.gather_err_grad,
-        "gather_err_grad_direct": gather.gather_err_grad_direct,
         "lane_gather": lane.lane_gather_loop,
-        "lane_gather_direct": lane.lane_gather_loop_direct,
         "lane_cumsum": lane.lane_cumsum_loop,
-        "lane_cumsum_block": lane.lane_cumsum_loop_block,
         "stream_v2_train": stream_v2.stream_v2_train,
-        "stream_v2_train_dense": stream_v2.stream_v2_train_dense,
     }
 
 
@@ -505,10 +474,10 @@ def _report_controls(where, controls):
 
 
 def stream_kernels_phase(torch, dev):
-    """B2, B3 (both forms), B4 and B6 against their twins and against each
-    other.  Returns {kernel: max abs error in highest at the shape its main
-    path gives it}: instML100k's for B2 (``--checkpoint``), gen-instML1M's
-    for B3, B4, B6 and the dense forms of B3 and B4 (on the same factors)."""
+    """B2, B3, B4 and B6 against their twins and against each other.
+    Returns {kernel: max abs error in highest at the shape its main path
+    gives it}: instML100k's for B2 (``--checkpoint``), gen-instML1M's for
+    B3, B4 and B6."""
     from recsys_tpu_torch import testing as checks
     from recsys_tpu_torch.io.parser import load_problem
     from recsys_tpu_torch.ops import dense_fused as df
@@ -534,9 +503,8 @@ def stream_kernels_phase(torch, dev):
                 L1, R1, t1 = df.resident_train_top1(Lt, Rt, A, precision=precision, items_true=spec.items, **kw)
                 b2 = df.resident_train(Lt, Rt, A, precision=precision, **kw)
                 b3 = ds.stream_train(Lt, Rt, A, precision=precision, **kw)
-                b3d = ds.stream_train_dense(Lt, Rt, A, precision=precision, **kw)
+                b3_again = ds.stream_train(Lt, Rt, A, precision=precision, **kw)
                 b4 = ds.stream_top1(*b3, A, precision=precision, items_true=spec.items)
-                b4d = ds.stream_top1_dense(*b3, A, precision=precision, items_true=spec.items)
                 b6 = ds.stream_train_top1(Lt, Rt, A, precision=precision, items_true=spec.items, **kw)
                 twin2 = df.resident_train_plain(Lt, Rt, A, precision=precision, **kw)
                 twin = ds.stream_train_plain(Lt, Rt, A, precision=precision, **kw)
@@ -553,16 +521,14 @@ def stream_kernels_phase(torch, dev):
                                precision, precision)
                 err2 = max(float((k - p).abs().max()) for k, p in zip(b2, twin2))
                 err3 = max(float((k - p).abs().max()) for k, p in zip(b3, twin))
-                err3d = max(float((k - p).abs().max()) for k, p in zip(b3d, twin))
                 finite = all(bool(torch.isfinite(x).all()) for x in (*b2, *b3))
                 checks_ok = {
                     "B2=B1 factors": same(b2, (L1, R1)),
                     "B2 vs twin": r2 <= checks.FACTOR_RTOL[precision] and u2 <= checks.UPDATE_RTOL[precision],
                     "B3 vs twin": r3 <= checks.FACTOR_RTOL[precision] and u3 <= checks.UPDATE_RTOL[precision],
                     "B3 vs B2": r32 <= checks.FACTOR_RTOL[precision],
-                    "B3=dense form": same(b3, b3d),
+                    "B3 two runs": same(b3, b3_again),
                     "B4=twin": torch.equal(b4, twin_top),
-                    "B4 dense=twin": torch.equal(b4d, twin_top),
                     "B4=B1 top-1": torch.equal(b4, b1_top),
                     "B6=B3+B4": same(b6, (*b3, b4)),
                     "finite": finite,
@@ -572,9 +538,8 @@ def stream_kernels_phase(torch, dev):
                     f"B2 max_abs_err={err2!r} factor_rel={r2!r} update_rel={u2!r} | "
                     f"B3 max_abs_err={err3!r} factor_rel={r3!r} update_rel={u3!r} vs_B2={r32!r} "
                     f"(limits {checks.FACTOR_RTOL[precision]} / {checks.UPDATE_RTOL[precision]}) "
-                    f"dense form max_abs_err={err3d!r} = sparse bit for bit {checks_ok['B3=dense form']} | "
+                    f"two runs bit for bit {checks_ok['B3 two runs']} | "
                     f"B2=B1 {checks_ok['B2=B1 factors']} B4=twin {checks_ok['B4=twin']} "
-                    f"B4 dense form=twin {checks_ok['B4 dense=twin']} "
                     f"B4=B1 {checks_ok['B4=B1 top-1']} B6=B3+B4 {checks_ok['B6=B3+B4']} "
                     f"{'ok' if not bad else 'FAIL ' + ','.join(bad)}")
                 if bad:
@@ -583,11 +548,8 @@ def stream_kernels_phase(torch, dev):
                     worst["resident_train"] = max(worst.get("resident_train", 0.0), err2)
                 if spec is ml1m and precision == "highest":
                     worst["stream_train"] = max(worst.get("stream_train", 0.0), err3)
-                    worst["stream_train_dense"] = max(worst.get("stream_train_dense", 0.0), err3d)
                     worst["stream_top1"] = max(worst.get("stream_top1", 0.0),
                                                float((b4 - twin_top).abs().max()))
-                    worst["stream_top1_dense"] = max(worst.get("stream_top1_dense", 0.0),
-                                                     float((b4d - twin_top).abs().max()))
                     worst["stream_train_top1"] = max(worst.get("stream_train_top1", 0.0), err3)
 
     def factor_control(kp, tp):
@@ -1082,62 +1044,30 @@ def bell_kernel_phase(torch, dev, big):
 
 
 def redesign_phase(torch, dev, launches):
-    """The redesigned forms against the forms they replaced, at the main
-    paths' shapes: B1's and B2's sparse walk against their dense form
-    (``probes/resident_sparse.py``), B3's sparse walk against its dense form
-    (``probes/stream_sparse.py``), ``bell_side_update``'s block form
-    against its warp form (``probes/bell_wide.py``) and B4's tiled form
-    against its dense form (``probes/top1_tiled.py``), bit for bit, then
-    timed in turns.  Each engine form must be no slower (B1's: faster at
-    instML100k in `highest`).  The B1/B2 and B3 probes and B4's bit checks
-    each run in one launch-count window (B4's timings replay CUDA graphs,
-    whose launches no wrapper counts).  Returns (the B1/B2 probe's {spec: readings}, the
-    B4 probe's {form: ms a call})."""
-    from recsys_tpu_torch.ops import bell, dense_fused
-    from recsys_tpu_torch.probes import bell_wide, resident_sparse, stream_sparse, top1_tiled
+    """The resident/stream line (``probes/plan_line.py``): B2's and B3's
+    slopes at instML100k and gen-instML1M in turns, in one launch-count
+    window.  Then ``bell_side_update``'s block form against its warp form
+    and ``bell_train``'s fused step against two launches a step
+    (``probes/bell_wide.py``), bit for bit, then timed in turns; the
+    engine's forms must be no slower at instML100k."""
+    from recsys_tpu_torch.ops import bell
+    from recsys_tpu_torch.probes import bell_wide, plan_line
 
     counts = {}
     with counted(counts):
-        readings, r_slopes = resident_sparse.run(dev)
-    launches["B1/B2 sparse probe", "all shapes"] = counts
-    log(f"[probe] B1/B2 sparse probe launches: {_nonzero(counts)}")
-    b1 = {mode: {form: r["us_per_step"] for form, r in r_slopes[f"instML100k {mode}"].items()} for mode in MODES}
-    engine = dense_fused.ENGINE_FORM
-    b1_ok = b1["highest"][engine] < b1["highest"]["dense"]
-    for mode in MODES:
-        log(f"[redesign] instML100k B1 slope {mode}: dense {b1[mode]['dense']!r} us/iter, loop "
-            f"{b1[mode]['loop']!r}, persistent {b1[mode]['persistent']!r} (engine: {engine})")
-    for name in ("instML100k", "gen-instML1M"):
-        plans = r_slopes[f"plans {name}"]
-        log(f"[redesign] {name} resident/stream line (sparse forms, highest): resident "
+        slopes = plan_line.run(dev)
+    launches["plan line probe", "both shapes"] = counts
+    log(f"[probe] plan line probe launches: {_nonzero(counts)}")
+    for name, plans in slopes.items():
+        log(f"[redesign] {name} resident/stream line (highest): resident "
             f"{plans['resident']['us_per_step']!r} us/iter, stream {plans['stream']['us_per_step']!r}")
-    counts = {}
-    with counted(counts):
-        _, slopes = stream_sparse.run(dev)
-    launches["B3 sparse probe", "all shapes"] = counts
-    log(f"[probe] B3 sparse probe launches: {_nonzero(counts)}")
     sweep = bell_wide.run(dev)
-    counts = {}
-    with counted(counts):  # the bit checks: the timings replay CUDA graphs, which no wrapper counts
-        top1_tiled.bits(dev)
-    launches["B4 tiled probe", "all shapes"] = counts
-    log(f"[probe] B4 tiled probe launches (bit checks): {_nonzero(counts)}")
-    b4 = top1_tiled.timings(resident_sparse.ml1m_spec(), dev)
-    b3_ok = slopes["sparse"]["us_per_step"] <= slopes["dense"]["us_per_step"]
     bell_ok = sweep[bell.WIDE_MIN] <= sweep[bell.WARP_FORM] and sweep["fused"] <= sweep["two launches"]
-    b4_ok = b4["tiled"] <= b4["dense"]
-    log(f"[redesign] instML100k B1 slope highest: the engine's {engine} form {b1['highest'][engine]!r} us/iter "
-        f"against dense {b1['highest']['dense']!r} -> faster {b1_ok}")
-    log(f"[redesign] gen-instML1M B3 slope: sparse {slopes['sparse']['us_per_step']!r} us/iter against dense "
-        f"{slopes['dense']['us_per_step']!r} -> the engine's sparse form no slower {b3_ok}")
     log(f"[redesign] instML100k f64 bell step: block form from {bell.WIDE_MIN} slots {sweep[bell.WIDE_MIN]!r} ms "
         f"against the warp form alone {sweep[bell.WARP_FORM]!r} ms; the fused step {sweep['fused']!r} ms a step "
         f"against two launches {sweep['two launches']!r} -> the engine's forms no slower {bell_ok}")
-    log(f"[redesign] gen-instML1M B4 (highest): tiled {b4['tiled']!r} ms a call against dense {b4['dense']!r} "
-        f"-> the engine's tiled form no slower {b4_ok}")
-    if not (b1_ok and b3_ok and bell_ok and b4_ok):
-        raise AssertionError("an engine form is slower than the form it replaced")
-    return readings, b4
+    if not bell_ok:
+        raise AssertionError("a BELL engine form is slower than the form it replaced")
 
 
 def tiled_redesign_phase(torch, dev, launches, big):
@@ -1357,41 +1287,34 @@ def _bf16_witness(torch, dev, name, spec, golden, agree, on_card):
 
 def p2_probe_phase(torch, dev, launches):
     """P2's probe (``probes/mosaic_gather.py``) at the TPU script's shapes:
-    the kernels against their twins and ``gather_err_grad``'s two forms
-    against each other in raw bits, then all six variants, in one
-    launch-count window; then the two forms timed in turns from CUDA graph
-    replays (outside the window: a replay calls no wrapper).  The grouped
-    form must be no slower than the direct one.  Returns ({kernel: max abs
-    error against its twin}, {variant: ms per gather, "forms": {form: ms
-    a call}})."""
+    the kernels against their twins and ``gather_err_grad`` against itself
+    (two runs) in raw bits, then all five variants, in one launch-count
+    window; then ``gather_err_grad`` alone from CUDA graph replays (outside
+    the window: a replay calls no wrapper).  Returns ({kernel: max abs
+    error against its twin}, {variant: ms per gather, "p4 call": ms a
+    call})."""
     from recsys_tpu_torch.probes import mosaic_gather
 
     counts = {}
     with counted(counts):
-        errs, per = mosaic_gather.run(dev, forms=False)
+        errs, per = mosaic_gather.run(dev, graphs=False)
     launches["P2 probe", "all variants"] = counts
     log(f"[probe] P2 launches: {_nonzero(counts)}")
-    if min(counts[k] for k in ("gather_rows", "gather_err_grad", "gather_err_grad_direct")) <= 0:
+    if min(counts[k] for k in ("gather_rows", "gather_err_grad")) <= 0:
         raise AssertionError(f"the P2 probe did not launch every kernel: {counts}")
-    per["forms"] = forms = mosaic_gather.forms_ms(*mosaic_gather.inputs(dev))
-    ok = forms["grouped"] <= forms["direct"]
-    log(f"[redesign] P2 gather_err_grad grouped form no slower than the direct form: {ok} "
-        f"({forms['grouped']!r} against {forms['direct']!r} ms a call, in turns)")
-    if not ok:
-        raise AssertionError("gather_err_grad's grouped form is slower than the direct form it replaced")
+    per["p4 call"] = mosaic_gather.err_grad_ms(*mosaic_gather.inputs(dev))
     return errs, per
 
 
 def p1_probe_phase(torch, dev, launches):
-    """P1's probe (``probes/gather.py``) in one launch-count window: every
-    form of both kernels at the check shape, then at every probe shape the
-    gather's forms equal to the twin bit for bit (full-width and broadcast
-    indices, T = 512) and the scan's forms equal to each other and to the
-    kernels' order in raw bits (t = 2, 5, 512) and within their limit of
-    the twin with the control rejected (a failure raises there); then the
-    timings, both forms of a kernel in turns in one profile a shape.  Gates: every form's T-scaling, and each new form no
-    slower than the one it replaced at (8, 32768).  Returns ({form: max abs
-    error}, the probe's timing rows)."""
+    """P1's probe (``probes/gather.py``) in one launch-count window: both
+    kernels at the check shape, then at every probe shape the gather equal
+    to its twin bit for bit (full-width and broadcast indices, T = 512) and
+    the scan equal to the kernel's order in raw bits (t = 2, 5, 512) and
+    within its limit of the twin with the control rejected (a failure
+    raises there); then the timings, a kernel's step counts in turns in one
+    profile a shape.  Gate: every kernel's T-scaling.  Returns ({kernel:
+    max abs error}, the probe's timing rows)."""
     from recsys_tpu_torch.probes import gather as probe
 
     counts = {}
@@ -1399,27 +1322,19 @@ def p1_probe_phase(torch, dev, launches):
         errs, rows = probe.run(dev)
     launches["P1 probe", "all shapes"] = counts
     log(f"[probe] P1 launches: {_nonzero(counts)}")
-    forms = [form for kind in probe.FORMS.values() for form, _, _ in kind]
-    if any(counts[form] <= 0 for form in forms):
-        raise AssertionError(f"the P1 probe did not launch every form: {counts}")
+    if any(counts[name] <= 0 for name, _, _ in probe.KERNELS.values()):
+        raise AssertionError(f"the P1 probe did not launch every kernel: {counts}")
     lo, hi = T_SCALING
     failed = []
     for row in rows:
         ok = lo <= row["scaling_net"] <= hi and (not row["widest"] or lo <= row["scaling_long"] <= hi)
         long = (f", T={probe.T_LONG} / T={probe.T} x{row['scaling_long']!r} (widest shape)" if row["widest"]
                 else "")
-        log(f"[probe] P1 {row['form']} ({row['S']}, {row['W']}) T-scaling: net of T=0 T={probe.T} / "
+        log(f"[probe] P1 {row['name']} ({row['S']}, {row['W']}) T-scaling: net of T=0 T={probe.T} / "
             f"T={probe.T_SHORT} x{row['scaling_net']!r}{long}; raw T={probe.T} / T={probe.T_SHORT} "
             f"x{row['scaling']!r} (range {lo}-{hi}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            failed.append(f"{row['form']} ({row['S']}, {row['W']}) T-scaling")
-    for (new, _, _), (old, _, _) in probe.FORMS.values():
-        a, b = (next(r for r in rows if r["form"] == f and (r["S"], r["W"]) == (8, 32768)) for f in (new, old))
-        ok = a["ms"] <= b["ms"]
-        log(f"[redesign] P1 (8, 32768) T={probe.T}: {new} {a['ms']!r} ms against {old} {b['ms']!r} ms in turns "
-            f"-> the new form no slower {ok}")
-        if not ok:
-            failed.append(f"{new} slower than {old}")
+            failed.append(f"{row['name']} ({row['S']}, {row['W']}) T-scaling")
     if failed:
         raise AssertionError(f"P1 phase failed: {failed}")
     return errs, rows
@@ -1427,10 +1342,9 @@ def p1_probe_phase(torch, dev, launches):
 
 def p3_probe_phase(torch, dev, launches):
     """P3's probe (``probes/stream_v2.py``, 300 steps) in one launch-count
-    window: the sparse form against its twin, itself, its dense form and B3
-    at the small spec and both probe shapes, then the four slopes in turns.
-    The sparse form must be no slower than the dense one at gen-instML1M.
-    Returns (readings, timings)."""
+    window: P3 against its twin, itself and B3 at the small spec and both
+    probe shapes, then both slopes in turns.  Returns (readings,
+    timings)."""
     from recsys_tpu_torch.probes import stream_v2 as probe
 
     counts = {}
@@ -1438,15 +1352,10 @@ def p3_probe_phase(torch, dev, launches):
         readings, timings = probe.run(dev, P3_ITERS)
     launches["P3 probe", "all shapes"] = counts
     log(f"[probe] P3 launches: {_nonzero(counts)}")
-    if counts["stream_v2_train"] <= 0 or counts["stream_v2_train_dense"] <= 0:
-        raise AssertionError(f"the P3 probe did not launch both forms of stream_v2_train: {counts}")
+    if counts["stream_v2_train"] <= 0:
+        raise AssertionError(f"the P3 probe did not launch stream_v2_train: {counts}")
     t = timings["gen-instML1M"]
-    ok = t["v2 sparse"]["per_step_ms"] <= t["v2 dense"]["per_step_ms"]
-    log(f"[redesign] gen-instML1M P3 slope: sparse {t['v2 sparse']['per_step_ms']!r} ms/step against dense "
-        f"{t['v2 dense']['per_step_ms']!r} (B3 sparse {t['v1 sparse']['per_step_ms']!r}, dense "
-        f"{t['v1 dense']['per_step_ms']!r}) -> P3's sparse form no slower {ok}")
-    if not ok:
-        raise AssertionError("P3's sparse form is slower than its dense form")
+    log(f"[probe] gen-instML1M P3 slope: {t['v2']['per_step_ms']!r} ms/step (B3 {t['v1']['per_step_ms']!r})")
     return readings, timings
 
 
@@ -2133,10 +2042,6 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     b2_plain = cuda_event_ms(lambda: df.resident_train_plain(Lt, Rt, A, **kw))
     add("resident_train", launches["instML100k checkpoint", "auto"]["resident_train"], errs["resident_train"],
         b2_ms, b2_plain, tr, a_b + 2 * f_b)
-    # The dense form left the main path: its launches are the B1/B2 probe's.
-    add("resident_train_dense", launches["B1/B2 sparse probe", "all shapes"]["resident_train_dense"],
-        errs["resident_train_dense"], cuda_event_ms(lambda: df.resident_train_dense(Lt, Rt, A, **kw)),
-        b2_plain, tr, a_b + 2 * f_b)
 
     plan, a_b, f_b, tr, tp = shapes(ml1m)
     Lt, Rt, A = _inputs(ml1m, plan.a_dtype, dev, torch)
@@ -2145,19 +2050,11 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     counts = launches["gen-instML1M", "auto"]
     add("stream_train", counts["stream_train"], errs["stream_train"],
         times["B3"][0] * 1e3, times["B3"][1] * 1e3, tr, a_b + 2 * f_b)
-    # The dense form left the main path: its launches are the B3 probe's.
-    add("stream_train_dense", launches["B3 sparse probe", "all shapes"]["stream_train_dense"],
-        errs["stream_train_dense"], cuda_event_ms(lambda: ds.stream_train_dense(Lt, Rt, A, **kw)),
-        times["B3"][1] * 1e3, tr, a_b + 2 * f_b)
-    # B4's forms: ms a call from the B4 probe (graph replays in turns).
+    b4 = _top1_ms(torch, dev, Lf, Rf, A, ml1m.items)
     b4_plain = cuda_event_ms(lambda: ds.stream_top1_plain(Lf, Rf, A, precision="highest", items_true=ml1m.items), 5)
-    add("stream_top1", counts["stream_top1"], errs["stream_top1"], times["B4"]["tiled"], b4_plain, tp,
-        a_b + f_b + 4 * plan.U)
-    # The dense form left the main path: its launches are the B4 probe's bit checks'.
-    add("stream_top1_dense", launches["B4 tiled probe", "all shapes"]["stream_top1_dense"],
-        errs["stream_top1_dense"], times["B4"]["dense"], b4_plain, tp, a_b + f_b + 4 * plan.U)
+    add("stream_top1", counts["stream_top1"], errs["stream_top1"], b4["B4"], b4_plain, tp, a_b + f_b + 4 * plan.U)
     log(f"[kernels] stream_top1 reference composition torch.mm (true f32) + where + argmax: "
-        f"{times['B4']['torch.mm + where + argmax']!r} ms (no single call computes the function: library none)")
+        f"{b4['torch.mm + where + argmax']!r} ms (no single call computes the function: library none)")
     b6_ms = cuda_event_ms(lambda: ds.stream_train_top1(Lt, Rt, A, items_true=ml1m.items, **kw))
     b6_plain = cuda_event_ms(lambda: ds.stream_train_top1_plain(Lt, Rt, A, items_true=ml1m.items, **kw))
     add("stream_train_top1", counts["stream_train_top1"], errs["stream_train_top1"], b6_ms, b6_plain,
@@ -2200,6 +2097,30 @@ def kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows
     return out
 
 
+def _top1_ms(torch, dev, Lt, Rt, At, items_true, calls=20, rounds=5):
+    """{"B4": ms a call of ``stream_top1`` in `highest`, "torch.mm + where +
+    argmax": the reference composition's}, each replayed ``calls`` times
+    from a CUDA graph (``timing.graphed``: a 40-80 us kernel is shorter than
+    its wrapper's host work), the two in turns.  A replay calls no wrapper,
+    so it adds to no launch count."""
+    from recsys_tpu_torch.ops import dense_fused as df
+    from recsys_tpu_torch.ops import dense_stream as ds
+    from recsys_tpu_torch.utils.timing import alternating_ms, graphed
+
+    a = df.load_at(At)
+    item = torch.arange(Rt.shape[1], device=dev)[:, None]
+
+    def composition():
+        with df.exact_f32(dev):
+            b = torch.mm(Rt.T, Lt)
+        return torch.argmax(torch.where((a != 0) | (item >= items_true), -torch.inf, b), dim=0)
+
+    fns = {"B4": lambda: ds.stream_top1(Lt, Rt, At, precision="highest", items_true=items_true),
+           "torch.mm + where + argmax": composition}
+    ms = alternating_ms({name: graphed(fn, calls) for name, fn in fns.items()}, rounds)
+    return {name: t / calls for name, t in ms.items()}
+
+
 def _bell_work(L, R, t, meta, nnz):
     """(bytes, FLOP) of one BELL step: each factor table read once (as own
     and as other side), the slot tables (int32 index and a value), the
@@ -2215,13 +2136,13 @@ def bell_records(torch, dev, ml100k, launches, errs, times, steps=100):
     its one launch, at instML100k in f64; 4*k f64 FLOP per rating and side),
     of its bf16 instance (one step at gen-inst1e6, ``times["bf16 bell"]``
     from ``_bell_big_readings``, 2 B a value, its f32 arithmetic at the
-    f32 peak), ``gather_rows`` and both forms of ``gather_err_grad`` (one
-    launch at P2's shapes).  Times are by CUDA events: a BELL step as the
+    f32 peak), ``gather_rows`` and ``gather_err_grad`` (one launch at P2's
+    shapes).  Times are by CUDA events: a BELL step as the
     slope of ``bell_train`` between 3 * ``steps`` and ``steps`` steps in
     turns (the descriptors and copies of a call cancel), ``gather_rows``
     and the twins and library call as the mean of back-to-back calls,
-    ``gather_err_grad``'s forms from CUDA graph replays in turns
-    (``times["P2 forms"]``, the P2 probe's)."""
+    ``gather_err_grad`` from CUDA graph replays (``times["P2 call"]``, the
+    P2 probe's)."""
     from recsys_tpu_torch.models.mf import init_factors
     from recsys_tpu_torch.ops import bell, gather
     from recsys_tpu_torch.probes import mosaic_gather as mg
@@ -2256,24 +2177,22 @@ def bell_records(torch, dev, ml100k, launches, errs, times, steps=100):
     table, idx, vals = mg.inputs(dev)
     (S,), (N, K) = idx.shape, table.shape
     idx_long = idx.long()
-    p2, p2_forms = launches["P2 probe", "all variants"], times["P2 forms"]
+    p2 = launches["P2 probe", "all variants"]
     out.append(_record("gather_rows", p2["gather_rows"], errs["gather_rows"],
                        cuda_event_ms(lambda: gather.gather_rows(table, idx), 50),
                        cuda_event_ms(lambda: gather.gather_rows_plain(table, idx), 50), 0.0,
                        4 * (N * K + S + S * K),
                        library_ms=cuda_event_ms(lambda: table.index_select(0, idx_long), 50)))
     err_grad_plain = cuda_event_ms(lambda: gather.gather_err_grad_plain(table, idx, vals, mg.BLK), 20)
-    for name, form in (("gather_err_grad", "grouped"), ("gather_err_grad_direct", "direct")):
-        out.append(_record(name, p2[name], errs[name], p2_forms[form], err_grad_plain, 4.0 * S * K + 2.0 * S,
-                           4 * (N * K + 2 * S + S * K)))
+    out.append(_record("gather_err_grad", p2["gather_err_grad"], errs["gather_err_grad"], times["P2 call"],
+                       err_grad_plain, 4.0 * S * K + 2.0 * S, 4 * (N * K + 2 * S + S * K)))
     return out
 
 
 def probe_records(torch, dev, launches, errs, p1_rows, p3):
-    """The kernels line's entries of P1's kernels, both forms of each (one
-    launch of T = 512 steps at (8, 32768), from the probe's own timings:
-    the forms by the profiler in turns, twin and library loop by CUDA
-    events) and P3's (300 steps at gen-instML1M's
+    """The kernels line's entries of P1's kernels (one launch of T = 512
+    steps at (8, 32768), from the probe's own timings: the kernel by the
+    profiler, twin and library loop by CUDA events) and P3's (300 steps at gen-instML1M's
     probe shape, the probe's time by CUDA events; its twin timed here
     alike).  P1 counts 2 FLOP per gathered element and step, 3 per scanned
     one (the scan's add, 0 * out and its add); bytes are the inputs read
@@ -2286,9 +2205,8 @@ def probe_records(torch, dev, launches, errs, p1_rows, p3):
 
     p1 = launches["P1 probe", "all shapes"]
     out = []
-    for name, kind, flop, nbytes, smem in (("lane_gather", "gather", 2, 12, 4), ("lane_gather_direct", "gather", 2, 12, 4),
-                                           ("lane_cumsum", "cumsum", 3, 8, 4), ("lane_cumsum_block", "cumsum", 3, 8, 8)):
-        row = next(r for r in p1_rows if r["form"] == name and (r["S"], r["W"]) == (8, 32768))
+    for name, flop, nbytes, smem in (("lane_gather", 2, 12, 4), ("lane_cumsum", 3, 8, 4)):
+        row = next(r for r in p1_rows if r["name"] == name and (r["S"], r["W"]) == (8, 32768))
         n = row["S"] * row["W"]
         out.append(_record(name, p1[name], errs[name], row["ms"], row["plain_ms"], flop * n * pg.T, nbytes * n,
                            library_ms=row["library_ms"]))
@@ -2299,12 +2217,9 @@ def probe_records(torch, dev, launches, errs, p1_rows, p3):
     Lt, _, Rp, A, _ = ps.inputs(spec, ps.STRIP, dev)
     kw = dict(iters=P3_ITERS, alpha2=2.0 * spec.alpha, strip=ps.STRIP)
     plain_ms = cuda_event_ms(lambda: stream_v2.stream_v2_train_plain(Lt, Rp, A, **kw))
-    p3_counts = launches["P3 probe", "all shapes"]
-    for name, form, err in (("stream_v2_train", "v2 sparse", "max_abs_err"),
-                            ("stream_v2_train_dense", "v2 dense", "dense_max_abs_err")):
-        out.append(_record(name, p3_counts[name], readings["gen-instML1M"][err],
-                           timings["gen-instML1M"][form]["ms"], plain_ms, 6.0 * spec.nnz * spec.features * P3_ITERS,
-                           A.numel() + 2 * 4 * (Lt.numel() + Rp.numel())))
+    out.append(_record("stream_v2_train", launches["P3 probe", "all shapes"]["stream_v2_train"],
+                       readings["gen-instML1M"]["max_abs_err"], timings["gen-instML1M"]["v2"]["ms"], plain_ms,
+                       6.0 * spec.nnz * spec.features * P3_ITERS, A.numel() + 2 * 4 * (Lt.numel() + Rp.numel())))
     del Lt, Rp, A
     return out
 
@@ -2353,9 +2268,8 @@ def main() -> int:
         errs["bell_side_update"], bf16_big = bell_kernel_phase(torch, dev, big)
         errs["bell_side_update_bf16"] = bf16_big["err"]
         lap("BELL kernel")
-        b1_readings, b4_times = redesign_phase(torch, dev, launches)
-        lap("B1/B4 redesign")
-        errs["resident_train_dense"] = b1_readings["instML100k"]["highest"][3]
+        redesign_phase(torch, dev, launches)
+        lap("plan line, BELL forms")
         ml100k, train1, plain1 = ml100k_phase(torch, dev, launches)
         lap("instML100k")
         ml1m, train2, plain2 = ml1m_phase(torch, dev, launches)
@@ -2394,8 +2308,7 @@ def main() -> int:
         times = {"B1": (train1["auto", "highest"], plain1["highest"]),
                  "B3": (train2["auto", "highest"], plain2["highest"])}
         times["B5 step"] = b5_times[INST1E6]["auto"]["per_step"]
-        times["B4"] = b4_times
-        times["bf16 bell"], times["P2 forms"] = bf16_big, p2_per["forms"]
+        times["bf16 bell"], times["P2 call"] = bf16_big, p2_per["p4 call"]
         times["mesh"], times["glibc_init"] = mesh_times, glibc
         kernels = kernel_records(torch, dev, ml100k, ml1m, big, launches, errs, times, p1_rows, p3)
         lap("kernels line")

@@ -78,22 +78,24 @@
 // both the warp and the block form; the update form's arithmetic is unchanged.
 //
 // rs_gather_rows / rs_gather_err_grad are P2's functions at the probe's shapes:
-// one thread per float4 of a gathered row, and a warp per slot whose err is
-// the butterfly sum of its lanes' products (another order than the XLA
+// one thread per float4 of a gathered row, and a warp per slot (two slots a
+// warp through K = 512) whose err is the butterfly sum of its lanes'
+// products (another order than the XLA
 // reduction inside the TPU kernel: held to a stated f32 tolerance).
 //
 // What bounds gather_err_grad: bytes, and 90.2 of its 94.1 MB at the probe's
 // shape are the output; the table (2.56 MB) and the partner rows sit in L2.
-// Its first form (gather_err_grad_direct, kept as the probe's baseline) is a
-// chain a warp: idx load, row loads, butterfly, vals load, stores, with the
-// gathered row read twice.  The grouped form (gather_err_grad_grouped) gives
-// a warp G consecutive slots: one load of the group's idx and vals, every
-// row load of the group in flight before the first product, the rows kept in
-// registers (KPL values a lane) for the output, and streaming stores
-// (__stcs) so the output does not evict the table from L2.  Lane l keeps
-// f = l + 32m and the partial's fused multiply-adds in m order from 0.f, then
-// the same butterfly: the first form's bits (nvcc contracts its
-// part += (0.5f*fo)*g into an FFMA; the grouped form writes __fmaf_rn).
+// The kernel (gather_err_grad_grouped) gives a warp G consecutive slots: one
+// load of the group's idx and vals, every row load of the group in flight
+// before the first product, the rows kept in registers (KPL values a lane)
+// for the output, and streaming stores (__stcs) so the output does not evict
+// the table from L2.  Lane l keeps f = l + 32m and the partial's fused
+// multiply-adds in m order from 0.f, then the butterfly: the bits of the form
+// it replaced, a warp a slot (a chain of idx load, row loads, butterfly, vals
+// load, stores, with the gathered row read twice), whose
+// part += (0.5f*fo)*g nvcc contracted into an FFMA.  The two were shown
+// equal in raw bits on the card when the grouped form replaced the other
+// (PERF.md section 6).
 //
 // Wide rows take a block (bell_step's block form).  In the warp form the
 // longest rows set the step: one warp walks a hub row's slots (737 at
@@ -694,24 +696,7 @@ __global__ void gather_rows4(const float4* __restrict__ table, const int* __rest
 }
 
 // p4_kernel: g = table[idx[s]], fo = 0.5 * table[s mod blk],
-// err = 0.001 * (vals[s] - <fo, g>), out[s] = err * g.  A warp per slot.
-__global__ void __launch_bounds__(BLOCK)
-    gather_err_grad_direct(const float* __restrict__ table, const int* __restrict__ idx,
-                    const float* __restrict__ vals, float* __restrict__ out, long long S, int K, int blk) {
-  const int lane = threadIdx.x & 31;
-  const long long s = static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
-  if (s >= S) return;  // warp-uniform
-  const float* g = table + static_cast<size_t>(__ldg(idx + s)) * K;
-  const float* fo = table + static_cast<size_t>(s % blk) * K;
-  float part = 0.f;
-  for (int f = lane; f < K; f += 32) part += (0.5f * __ldg(fo + f)) * __ldg(g + f);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(FULL, part, o);
-  const float err = 0.001f * (__ldg(vals + s) - part);
-  for (int f = lane; f < K; f += 32) out[s * K + f] = err * __ldg(g + f);
-}
-
-// The grouped form of gather_err_grad_direct, the same bits: a warp per G
+// err = 0.001 * (vals[s] - <fo, g>), out[s] = err * g.  A warp per G
 // consecutive slots, K <= 32 * KPL.
 template <int KPL, int G>
 __global__ void __launch_bounds__(BLOCK)
@@ -911,14 +896,4 @@ extern "C" int rs_gather_err_grad(const float* table, const int* idx, const floa
   if (K <= 512) return launch_grouped<16>(table, idx, vals, out, S, K, blk, st);
   if (K <= 1024) return launch_grouped<32>(table, idx, vals, out, S, K, blk, st);
   return cudaErrorInvalidValue;
-}
-
-// The same function in the first form (a warp a slot, any K): the probe's
-// baseline.
-extern "C" int rs_gather_err_grad_direct(const float* table, const int* idx, const float* vals, float* out,
-                                         long long S, int K, int blk, void* stream) {
-  if (S <= 0 || K <= 0 || blk <= 0) return cudaErrorInvalidValue;
-  gather_err_grad_direct<<<static_cast<unsigned>((S + WARPS - 1) / WARPS), BLOCK, 0,
-                           static_cast<cudaStream_t>(stream)>>>(table, idx, vals, out, S, K, blk);
-  return cudaGetLastError();
 }

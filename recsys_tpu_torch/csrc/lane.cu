@@ -11,8 +11,7 @@
 //     for any finite start, and these kernels start from out = 0.
 // The probe asks what an in-kernel lane gather and a lane scan cost, as the
 // substrate of a resident sparse kernel.  On Hopper both live in shared
-// memory, so that is what these kernels measure.  Each has two forms: the
-// one the wrapper launches, and the one it replaced (the probe's baseline).
+// memory, so that is what these kernels measure.
 //
 // lane_gather_loop (gather_banked).  The whole table row sits in shared
 // memory (W = 32768 is 128 KB of the 227 KB a block may take).  Each row
@@ -31,33 +30,33 @@
 // scratch buffer in device memory where the two do not fit; it is built on
 // the card in every launch.  A thread keeps its outputs' indices in
 // registers for all T steps.
-// gather_loop (lane_gather_loop_direct) is the form it replaced: thread i
-// takes the outputs begin + i + m * blockDim, so a warp's 32 random
-// indices cost ~3.5 wavefronts a load.  Bound of both: the gathers read
-// S * W * T * 4 bytes of shared memory; HBM moves only tab, idx and out
-// once.
+// It replaced a form whose thread i took the outputs begin + i + m *
+// blockDim, so that a warp's 32 random indices cost ~3.5 wavefronts a
+// load.  Bound: the gathers read S * W * T * 4 bytes of shared memory; HBM
+// moves only tab, idx and out once.
 //
 // lane_cumsum_loop (cumsum_cluster).  A row is split over the C blocks of
 // a thread-block cluster (grid (C, S), C <= 8 by lane.cumsum_cluster_plan),
-// so S * C of the card's SMs work where one block a row used S.  The
-// decomposition is the block form's (NT = min(W, 1024) threads in all, EPT
-// consecutive elements a thread, a zero tail) with the NT / 32 warps dealt
-// out to the cluster's blocks.  A step reads the thread's elements once
+// so S * C of the card's SMs work where the block form it replaced, one
+// block a row, used S.  The decomposition is the block form's (NT =
+// min(W, 1024) threads in all, EPT consecutive elements a thread, a zero
+// tail) with the NT / 32 warps dealt out to the cluster's blocks.  A step reads the thread's elements once
 // (into registers) and sums them in order; the warp's totals are scanned
 // by five shuffles; each warp pushes its total into every block of the
 // cluster by st.async, which completes bytes on that block's mbarrier; then
 // every warp reads the row's NT / 32 warp totals from its own block's
-// shared memory and scans them as the block form's warp 0 does (the block
+// shared memory and scans them as the block form's warp 0 did (the block
 // carry), and walks its elements from its offset.  Every sum is the block
-// form's, in its order, so the two agree in raw bits.  The totals of step
+// form's, in its order (lane.lane_cumsum_loop_order_plain): the two were
+// shown equal in raw bits on the card when this form replaced the other
+// (PERF.md section 6).  The totals of step
 // s + 1 are pushed while step s waits for its own, on a ring of four slots
 // and barriers, so two steps are in flight and no cluster barrier is
 // needed a step.  The step's floor is the exchange's latency, not bytes
 // (an exchange by a cluster.sync() a step read about 2.6x slower on an
 // H100; PERF.md section 6).
-// cumsum_loop (lane_cumsum_loop_block) is the form it replaced: one block a
-// row, the row read twice a step.  Bound: shared memory (S * W * T * 4
-// bytes read once, twice in the block form).
+// Bound: shared memory (S * W * T * 4 bytes read once; the block form read
+// the row twice a step).
 //
 // Both bodies are loop-invariant: the gather and the scan give the same
 // values every step.  The row is read through a volatile pointer, so each
@@ -84,111 +83,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
-// Grid (cpr, S): block (c, s) owns row s's outputs [c*span, min(W, c*span + span)),
-// thread i the outputs begin + i + m*blockDim for m < PER.  With `vec` (W a
-// multiple of 4, tab 16-byte aligned) the row comes in as 16-byte cp.async
-// copies all in flight at once: the load is the kernel's fixed cost.
-template <int PER>
-__global__ void __launch_bounds__(1024)
-    gather_loop(const float* __restrict__ tab, const int* __restrict__ idx, float* __restrict__ out,
-                int W, int span, int t, int vec) {
-  extern __shared__ __align__(16) float row[];
-  const size_t base = static_cast<size_t>(blockIdx.y) * W;
-  if (vec) {
-    for (int i = threadIdx.x; i < W / 4; i += blockDim.x) cp_async16(row + 4 * i, tab + base + 4 * i);
-    asm volatile("cp.async.wait_all;\n" ::);
-  } else {
-    for (int i = threadIdx.x; i < W; i += blockDim.x) row[i] = __ldg(tab + base + i);
-  }
-  __syncthreads();
-
-  const int begin = blockIdx.x * span;
-  const int end = min(W, begin + span);
-  int ix[PER];
-  float acc[PER];
-  bool live[PER];
-#pragma unroll
-  for (int m = 0; m < PER; ++m) {
-    const int w = begin + threadIdx.x + m * blockDim.x;
-    live[m] = w < end;
-    ix[m] = live[m] ? __ldg(idx + base + w) : 0;
-    acc[m] = 0.f;
-  }
-  const volatile float* vrow = row;
-#pragma unroll 4
-  for (int step = 0; step < t; ++step) {
-#pragma unroll
-    for (int m = 0; m < PER; ++m) {
-      if (live[m]) acc[m] = __fadd_rn(__fmul_rn(acc[m], 0.5f), vrow[ix[m]]);
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < PER; ++m) {
-    if (live[m]) out[base + begin + threadIdx.x + m * blockDim.x] = acc[m];
-  }
-}
-
-// Grid (S); blockDim NT threads, NT * EPT >= W.  Element e of the row is
-// slot e % EPT of thread e / EPT, at sx[slot * LD + thread] with the slot
-// stride LD = NT + 32 / EPT: a warp's 32 consecutive elements then fall in
-// 32 banks, so the row comes in and the result goes out coalesced and free
-// of bank conflicts, and a step's reads (one slot of 32 threads) too.
-// Elements past W are 0 and come after every real one, so they change no
-// prefix.
-template <int EPT>
-__global__ void __launch_bounds__(1024, 1)
-    cumsum_loop(const float* __restrict__ x, float* __restrict__ out, int W, int t) {
-  extern __shared__ float sx[];
-  __shared__ float wsum[2][32];
-  const int NT = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int LD = NT + 32 / EPT;
-  const size_t base = static_cast<size_t>(blockIdx.x) * W;
-  for (int e = tid; e < NT * EPT; e += NT) sx[(e % EPT) * LD + e / EPT] = e < W ? __ldg(x + base + e) : 0.f;
-  __syncthreads();
-
-  float acc[EPT];
-#pragma unroll
-  for (int j = 0; j < EPT; ++j) acc[j] = 0.f;
-  const volatile float* v = sx;
-  for (int step = 0; step < t; ++step) {
-    float total = 0.f;  // the thread's elements, in order
-#pragma unroll
-    for (int j = 0; j < EPT; ++j) total = __fadd_rn(total, v[j * LD + tid]);
-    float incl = total;  // inclusive scan of the warp's totals
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float y = __shfl_up_sync(FULL, incl, o);
-      if (lane >= o) incl = __fadd_rn(incl, y);
-    }
-    float excl = __shfl_up_sync(FULL, incl, 1);
-    if (lane == 0) excl = 0.f;
-    float* ws = wsum[step & 1];  // alternate buffers: no barrier at the top of a step
-    if (lane == 31) ws[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {  // the block carry: an inclusive scan of the warp totals
-      float w = lane < (NT >> 5) ? ws[lane] : 0.f;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float y = __shfl_up_sync(FULL, w, o);
-        if (lane >= o) w = __fadd_rn(w, y);
-      }
-      ws[lane] = w;
-    }
-    __syncthreads();
-    float run = warp > 0 ? __fadd_rn(ws[warp - 1], excl) : excl;
-#pragma unroll
-    for (int j = 0; j < EPT; ++j) {
-      run = __fadd_rn(run, v[j * LD + tid]);
-      acc[j] = __fadd_rn(__fmul_rn(acc[j], 0.f), run);
-    }
-  }
-  __syncthreads();  // every step's reads of sx are done
-#pragma unroll
-  for (int j = 0; j < EPT; ++j) sx[j * LD + tid] = acc[j];
-  __syncthreads();
-  for (int e = tid; e < W; e += NT) out[base + e] = sx[(e % EPT) * LD + e / EPT];
-}
-
 // The gather's t steps over the first `live` of a thread's PER slots: a
 // loop of exactly L = live slots, chosen by recursion on L, so no slot is
 // tested in the loop.
@@ -212,7 +106,9 @@ __device__ __forceinline__ void gather_steps(int live, float (&acc)[PER], const 
 constexpr int META = 4 * 32;
 constexpr unsigned EMPTY = 0xffffffffu;
 
-// Grid (grid, S), blockDim NT = 32 * NW, span and outputs as gather_loop's.
+// Grid (grid, S): block (c, s) owns row s's outputs [c*span, min(W,
+// c*span + span)); blockDim NT = 32 * NW.  With `vec` (W a multiple of 4,
+// tab 16-byte aligned) the row comes in as 16-byte cp.async copies.
 // Rounds R_CAP = NW * PER; round r is slot r / NW of warp r % NW, so the
 // rounds in use are spread over every warp, and a warp runs a loop of
 // exactly its slots in use.
@@ -437,17 +333,6 @@ __global__ void __launch_bounds__(EPT == 1 ? 1024 : 256, 1)
 }
 
 template <int PER>
-int launch_gather(const float* tab, const int* idx, float* out, int S, int W, int span, int threads,
-                  int cpr, int t, cudaStream_t stream) {
-  const int smem = W * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(gather_loop<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(tab) % 16 == 0;
-  gather_loop<PER><<<dim3(cpr, S), threads, smem, stream>>>(tab, idx, out, W, span, t, vec);
-  return cudaGetLastError();
-}
-
-template <int PER>
 int launch_banked(const float* tab, const int* idx, float* out, int* scratch, int S, int W, int span, int threads,
                   int grid, int t, cudaStream_t stream) {
   const int smem = (W + (scratch ? 0 : META + threads * PER)) * 4;
@@ -459,17 +344,7 @@ int launch_banked(const float* tab, const int* idx, float* out, int* scratch, in
   return cudaGetLastError();
 }
 
-template <int EPT>
-int launch_cumsum(const float* x, float* out, int S, int W, int NT, int t, cudaStream_t stream) {
-  const int smem = (NT + 32 / EPT) * EPT * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(cumsum_loop<EPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  cumsum_loop<EPT><<<S, NT, smem, stream>>>(x, out, W, t);
-  return cudaGetLastError();
-}
-
-
-// Launches the cluster form, or with `clusters` set only reports how many
+// Launches cumsum_cluster, or with `clusters` set only reports how many
 // of its clusters the card holds at once.
 template <int EPT>
 int launch_cluster(const float* x, float* out, int S, int W, int C, int t, int* clusters, cudaStream_t stream) {
@@ -505,49 +380,13 @@ static bool spans_ok(int S, int W, int t, int grid, int span, int threads) {
          threads <= 512 && threads % 32 == 0;
 }
 
-// P1a's replaced form (gather_loop).  tab, out f32 (S, W) and idx int32
-// (S, W) with every index in [0, W); W * 4 bytes fit in a block's shared
-// memory; the spans of lane.gather_plan, thread i taking its block's
-// outputs i, i + threads, ...  Returns the first non-zero cudaError_t,
-// else 0.
-extern "C" int rs_lane_gather_loop_direct(const float* tab, const int* idx, float* out, int S, int W, int t,
-                                          int grid, int span, int threads, void* stream) {
-  if (!spans_ok(S, W, t, grid, span, threads)) return cudaErrorInvalidValue;
-  int per = 1;
-  while (per * threads < span) per *= 2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (per) {
-    case 1: return launch_gather<1>(tab, idx, out, S, W, span, threads, grid, t, st);
-    case 2: return launch_gather<2>(tab, idx, out, S, W, span, threads, grid, t, st);
-    case 4: return launch_gather<4>(tab, idx, out, S, W, span, threads, grid, t, st);
-    case 8: return launch_gather<8>(tab, idx, out, S, W, span, threads, grid, t, st);
-    case 16: return launch_gather<16>(tab, idx, out, S, W, span, threads, grid, t, st);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// P1b's replaced form (cumsum_loop): x, out f32 (S, W), W a multiple of 32
-// up to 32768.
-extern "C" int rs_lane_cumsum_loop_block(const float* x, float* out, int S, int W, int t, void* stream) {
-  if (S < 1 || W < 32 || W % 32 || W > 32768 || t < 0) return cudaErrorInvalidValue;
-  const int NT = std::min(W, 1024);
-  int ept = 1;
-  while (ept * NT < W) ept *= 2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (ept) {
-    case 1: return launch_cumsum<1>(x, out, S, W, NT, t, st);
-    case 2: return launch_cumsum<2>(x, out, S, W, NT, t, st);
-    case 4: return launch_cumsum<4>(x, out, S, W, NT, t, st);
-    case 8: return launch_cumsum<8>(x, out, S, W, NT, t, st);
-    case 16: return launch_cumsum<16>(x, out, S, W, NT, t, st);
-    case 32: return launch_cumsum<32>(x, out, S, W, NT, t, st);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// P1a (gather_banked): the direct form's arguments, with `slots` cells of
-// the schedule a thread and `scratch`, null where the schedule fits beside
-// the row in shared memory, else S * grid * (128 + threads * slots) ints.
+// P1a (gather_banked): tab, out f32 (S, W) and idx int32 (S, W) with every
+// index in [0, W); W * 4 bytes fit in a block's shared memory; the spans of
+// lane.gather_plan (`grid` blocks a row of `span` outputs, `threads`
+// threads), `slots` cells of the schedule a thread and `scratch`, null where
+// the schedule fits beside the row in shared memory, else
+// S * grid * (128 + threads * slots) ints.  Returns the first non-zero
+// cudaError_t, else 0.
 extern "C" int rs_lane_gather_loop(const float* tab, const int* idx, float* out, int* scratch, int S, int W, int t,
                                    int grid, int span, int threads, int slots, void* stream) {
   if (!spans_ok(S, W, t, grid, span, threads) || threads * (slots / 2) < span) return cudaErrorInvalidValue;

@@ -16,8 +16,9 @@ Routes, chosen by ``choose_path`` in the JAX engine's decision order:
   per step, then ``recommend`` on the factors left on the device in
   ``run``).
 * ``bell``   -- the degree-bucketed sparse route in f32, bf16 or exact
-  f64: ``bell.bell_side_update`` (P2's engine form) twice per step, then
-  ``recommend`` on the factors left on the device in ``run``.  In f64 it
+  f64: ``bell.bell_train``, one launch of ``bell_step`` (P2's engine form,
+  both sides) a step, then ``recommend`` on the factors left on the device
+  in ``run``.  In f64 it
   follows the reference's order and gives its factors bit for bit, from
   the host glibc init; in bf16 it computes the JAX package's bf16 step;
   in f32 and bf16 above ``DEVICE_INIT_MIN_DRAWS`` the initial factors are

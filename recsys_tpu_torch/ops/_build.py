@@ -88,27 +88,16 @@ _P, _I, _F, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_lo
 # Each C entry point's arguments (csrc/*.cu); pointers and the stream are
 # c_void_p, or ctypes would pass them as 32-bit ints.
 SIGNATURES = {
-    # At, a_kind, Lt_in .. top1 (11 pointers), K, U, I, G, iters, alpha2,
-    # precision, items_true, chunk_l, s_l, chunk_r, s_r, stream
-    "rs_resident_train_top1": [_P, _I, *[_P] * 11, *[_I] * 5, _F, _I, _I, *[_I] * 4, _P],
-    # At, a_kind, Lt_in .. part_r (8 pointers), K, U, I, G, iters, alpha2,
-    # precision, chunk_l, s_l, chunk_r, s_r, stream
-    "rs_resident_train": [_P, _I, *[_P] * 8, *[_I] * 5, _F, _I, *[_I] * 4, _P],
-    # the walk's 9 tables, tickets, cap, Lt_in .. part_r (8 pointers), K, U,
-    # I, G, iters, alpha2, precision, chunk_l, s_l, chunk_r, s_r, SR, form,
-    # stream
-    "rs_resident_sparse_train": [*[_P] * 10, _I, *[_P] * 8, *[_I] * 5, _F, *[_I] * 7, _P],
-    # the walk's 9 tables, tickets, cap, At, a_kind, Lt_in .. part_r, ops,
-    # top_val, top_idx, top1 (12 pointers), K, U, I, G, iters, alpha2,
-    # precision, items_true, chunk_l, s_l, chunk_r, s_r, SR, form,
-    # top_chunk, top_S, stream
-    "rs_resident_sparse_train_top1": [*[_P] * 10, _I, _P, _I, *[_P] * 12, *[_I] * 5, _F, *[_I] * 10, _P],
+    # the walk's 9 tables, cap, Lt_in .. part_r (8 pointers), K, U, I, G,
+    # iters, alpha2, precision, chunk_l, s_l, chunk_r, s_r, SR, stream
+    "rs_resident_sparse_train": [*[_P] * 9, _I, *[_P] * 8, *[_I] * 5, _F, *[_I] * 6, _P],
+    # the walk's 9 tables, cap, At, a_kind, Lt_in .. part_r, ops, top_val,
+    # top_idx, top1 (12 pointers), K, U, I, G, iters, alpha2, precision,
+    # items_true, chunk_l, s_l, chunk_r, s_r, SR, top_chunk, top_S, stream
+    "rs_resident_sparse_train_top1": [*[_P] * 9, _I, _P, _I, *[_P] * 12, *[_I] * 5, _F, *[_I] * 9, _P],
     # At, a_kind, Lt, Rt, ops, top_val, top_idx, top1, best, K, U, I, G,
-    # precision, items_true, chunk, S, form, stream
-    "rs_stream_top1": [_P, _I, *[_P] * 7, *[_I] * 9, _P],
-    # At, a_kind, Lt_in .. part_r (8 pointers), K, U, I, G, C, iters, alpha2,
-    # precision, chunk, S, stream
-    "rs_stream_train": [_P, _I, *[_P] * 8, *[_I] * 6, _F, *[_I] * 3, _P],
+    # precision, items_true, chunk, S, stream
+    "rs_stream_top1": [_P, _I, *[_P] * 7, *[_I] * 8, _P],
     # the walk's 8 tables, cap, Lt_in .. part_r (8 pointers), K, U, I, G,
     # C, iters, alpha2, precision, chunk, S, SR, stream
     "rs_stream_sparse_train": [*[_P] * 8, _I, *[_P] * 8, *[_I] * 6, _F, *[_I] * 4, _P],
@@ -139,21 +128,13 @@ SIGNATURES = {
     "rs_gather_rows": [_P, _P, _P, _LL, _I, _P],
     # table, idx, vals, out, S, K, blk, stream
     "rs_gather_err_grad": [*[_P] * 4, _LL, _I, _I, _P],
-    "rs_gather_err_grad_direct": [*[_P] * 4, _LL, _I, _I, _P],
     # tab, idx, out, scratch, S, W, t, grid, span, threads, slots, stream
     "rs_lane_gather_loop": [*[_P] * 4, *[_I] * 7, _P],
-    # tab, idx, out, S, W, t, grid, span, threads, stream
-    "rs_lane_gather_loop_direct": [*[_P] * 3, *[_I] * 6, _P],
     # x, out, S, W, C, t, clusters, stream
     "rs_lane_cumsum_loop": [*[_P] * 2, *[_I] * 4, _P, _P],
-    # x, out, S, W, t, stream
-    "rs_lane_cumsum_loop_block": [*[_P] * 2, *[_I] * 3, _P],
     # jumps, count, segment, log_threads, window (host), out, n, scale,
     # words, stream
     "rs_glibc_init": [_P, _I, _I, _I, _P, _P, _LL, _F, _I, _P],
-    # A, a_kind, Lt_in .. part_r (8 pointers), K, U, I, strip, G, C, iters,
-    # alpha2, chunk, S, stream
-    "rs_stream_v2_train": [_P, _I, *[_P] * 8, *[_I] * 7, _F, _I, _I, _P],
 }
 
 

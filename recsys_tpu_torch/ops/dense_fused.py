@@ -7,17 +7,13 @@ stored TRANSPOSED (items x users) and K-major factors Lt (K, U), Rt (K, I);
 ``resident_train`` (:238) is the same loop without the top-1.  Here both
 are hand-written CUDA (``csrc/dense_fused.cu``) behind
 ``resident_train_top1`` (B1) and ``resident_train`` (B2), with plain torch
-twins of the same math.  Their steps run in the sparse form: a walk of the
-rated cells alone over tables that ``walk_tables`` builds once per A^T (the
-engine builds them in its ``upload`` phase), two launches a step
-(``form="loop"``, the engine's ``ENGINE_FORM``) or one persistent launch
-for all the steps (``form="persistent"``), bit for bit the dense form at
-the same split.  The dense form, every cell of each A^T tile walked, stays
-callable as ``resident_train_top1_dense`` and ``resident_train_dense``, the
-baseline of ``probes/resident_sparse.py``; ``walk_train_plain`` is a plain
-torch walk over the tables.  The wrappers pick by the tensors' device: the plain twin
-for CPU tensors, the kernel for CUDA tensors, and an error for anything the
-kernel does not take -- never a fallback.
+twins of the same math.  Their steps walk the rated cells alone over tables
+that ``walk_tables`` builds once per A^T (the engine builds them in its
+``upload`` phase), two launches a step, in the order of sums of the dense
+walk they replaced (``resident_split``'s chunks); ``walk_train_plain`` is a
+plain torch walk over the tables.  The wrappers pick by the tensors'
+device: the plain twin for CPU tensors, the kernel for CUDA tensors, and an
+error for anything the kernel does not take -- never a fallback.
 
 Also here, ported from the same JAX module: the host helpers that build
 the kernel's inputs (``round_up`` :52, ``pad_factors_for_pallas`` :751,
@@ -47,9 +43,10 @@ from recsys_tpu_torch.utils.timing import h2d, span
 # Widest K the kernel takes: a lane holds 32 factor values, and up to 8
 # lanes share one output column (csrc/dense_fused.cu, KC and G).
 MAX_K = 256
-# Reduction columns per shared-memory tile; chunks are multiples of it.
+# Chunks are multiples of it (csrc/dense_fused.cu, BR).
 _BR = 32
-# Threads per block in every pass of the kernel.
+# Threads per block of the dense walk whose chunks the steps keep (a column
+# a thread, or G lanes a column): ``_split`` counts its blocks.
 _BLOCK = 128
 # Codes of the C entry point's a_kind and precision arguments (enum Prec).
 _A_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
@@ -242,13 +239,6 @@ def _check(Lt, Rt, At, precision):
 # SMs of an H100 SXM, for the splits and byte counts made before any
 # device is chosen (the plan, the CPU tests).
 H100_SMS = 132
-# The form of the sparse steps the engine calls: "loop" (two launches a
-# step from the C loop) or "persistent" (every step in one cooperative
-# launch).  probes/resident_sparse.py times both in turns; on an H100 80GB
-# HBM3 at 700 W the loop form read faster at instML100k in every
-# precision (PERF.md §6).
-ENGINE_FORM = "loop"
-_FORM_CODE = {"persistent": 0, "loop": 1}
 # Users of a block of B4's tiled form, and the multiple of items its chunks
 # come in (csrc/dense_fused.cu, TBU and TBI_MAX).
 TOP1_USERS = 64
@@ -257,9 +247,6 @@ TOP1_ITEMS = 64
 # shared memory a block of 256 threads in `highest` (nvcc -Xptxas -v).  Its
 # grid aims at one wave of them (four item chunks at gen-instML1M).
 _TOP1_BLOCKS_PER_SM = 3
-# The top-1's forms (rs_stream_top1's form argument): "tiled" the engine's,
-# "dense" the form it replaced, kept as the probe's baseline.
-TOP1_FORMS = {"dense": 0, "tiled": 1}
 # Operand tables of K * (U + I) floats the tiled top-1 reads from scratch
 # (csrc/dense_fused.cu, top1_operands): the factors' bf16 roundings in
 # `default`, their hi and lo parts in `bf16x3`; `highest` reads the factors.
@@ -267,21 +254,21 @@ _TOP1_OPERANDS = {"highest": 0, "default": 1, "bf16x3": 2}
 # A walk's cell word packs the column within its block above the row
 # within its chunk.
 _CELL_ROW_BITS = 24
-# Columns of a sparse-form unit at G = 1 (csrc/dense_fused.cu, UNIT_COLS):
+# Columns of a unit of the walk at G = 1 (csrc/dense_fused.cu, UNIT_COLS):
 # a unit is UNIT_COLS / G columns of one side over one chunk of the other.
 UNIT_COLS = 128
 
 
 def resident_split(K: int, U: int, I: int, sms: int = H100_SMS) -> tuple[int, int, int, int]:
     """(chunk_l, s_l, chunk_r, s_r) of B1 and B2: each gradient side's
-    reduction split so its pass has about two blocks per SM in the dense
-    form.  Both forms take it; the sparse form keeps its order of sums."""
+    reduction split as the dense walk the steps replaced split it, about
+    two of its blocks per SM.  It fixes the steps' order of sums."""
     G = _lanes_per_column(K)
     return (*_split(U, I, G, 2 * sms), *_split(I, U, G, 2 * sms))
 
 
 def sub_strip(G: int) -> int:
-    """Rows a block of a sparse form stages at a time (``csrc/dense_fused.cu``
+    """Rows a block of a walk stages at a time (``csrc/dense_fused.cu``
     and ``csrc/dense_stream.cu``, SR): 64, or 32 when a column spans G > 1
     lanes, so shared memory stays under 227 KB at K = 256."""
     return 64 if G == 1 else 32
@@ -297,14 +284,10 @@ def top1_split(U: int, I: int, sms: int = H100_SMS) -> tuple[int, int]:
     return chunk, -(-I // chunk)
 
 
-def top1_split_for(K: int, U: int, I: int, dev, form: str = "tiled") -> tuple[int, int]:
-    """(chunk, S) of a top-1 form on ``dev`` (an H100's on the CPU):
-    ``top1_split`` for "tiled", the dl side's chunks (``_split``) for
-    "dense"."""
-    if form not in TOP1_FORMS:
-        raise ValueError(f"unknown top-1 form {form!r}; one of {sorted(TOP1_FORMS)}")
+def top1_split_for(U: int, I: int, dev) -> tuple[int, int]:
+    """``top1_split`` for ``dev``'s SMs (an H100's on the CPU)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else H100_SMS
-    return top1_split(U, I, sms) if form == "tiled" else _split(U, I, _lanes_per_column(K), 2 * sms)
+    return top1_split(U, I, sms)
 
 
 def top1_bytes(K: int, U: int, I: int, precision: str, sms: int = H100_SMS) -> int:
@@ -315,12 +298,10 @@ def top1_bytes(K: int, U: int, I: int, precision: str, sms: int = H100_SMS) -> i
     return 4 * (_TOP1_OPERANDS[precision] * K * (U + I) + 2 * S * U + U)
 
 
-def top1_buffers(K: int, U: int, I: int, S: int, dev, precision: str, form: str = "tiled"):
+def top1_buffers(K: int, U: int, I: int, S: int, dev, precision: str):
     """(ops, top_val, top_idx, top1) of a top-1 over S item chunks: ops
-    holds the tiled form's operands (``_TOP1_OPERANDS``; empty in the
-    dense form)."""
-    n_ops = _TOP1_OPERANDS[precision] * K * (U + I) if form == "tiled" else 0
-    return (torch.empty(n_ops, dtype=torch.float32, device=dev),
+    holds its operands (``_TOP1_OPERANDS``)."""
+    return (torch.empty(_TOP1_OPERANDS[precision] * K * (U + I), dtype=torch.float32, device=dev),
             torch.empty((S, U), dtype=torch.float32, device=dev),
             torch.empty((S, U), dtype=torch.int32, device=dev),
             torch.empty((1, U), dtype=torch.int32, device=dev))
@@ -342,7 +323,7 @@ def _by_degree(groups: torch.Tensor, counts: torch.Tensor, n: int) -> torch.Tens
 
 
 class Walk(NamedTuple):
-    """The sparse form's tables for one A^T and split (``walk_tables``).  Per
+    """The steps' tables for one A^T and split (``walk_tables``).  Per
     side (``l``: the dl side, user columns over item chunks; ``r``: the dr
     side, item columns over user chunks) a unit is (chunk s, column block
     cb), numbered s * (N / BC) + cb, and its cells split into sub-strips of
@@ -383,16 +364,16 @@ def _side_tables(own, other, val, n_own: int, chunk: int, BC: int, sub: int, S: 
 
 
 def walk_tables(At, split: tuple, sub: int) -> Walk:
-    """The rated cells of A^T (I, U) as the sparse form walks them, built
-    with torch ops on At's device.  ``split`` is (G, chunk_l, s_l, chunk_r,
-    s_r), ``resident_split``'s with the lanes a column: it fixes the dense
-    form's order of sums, which the tables keep.  Each side's cells run by
-    (unit, sub-strip, column, row): a column's cells in a chunk in
-    ascending row order, the order of its chain in the dense form."""
+    """The rated cells of A^T (I, U) as the steps walk them, built with
+    torch ops on At's device.  ``split`` is (G, chunk_l, s_l, chunk_r, s_r),
+    ``resident_split``'s with the lanes a column: it fixes the order of
+    sums, which the tables keep.  Each side's cells run by (unit,
+    sub-strip, column, row): a column's cells in a chunk in ascending row
+    order, the order of its chain."""
     G, chunk_l, s_l, chunk_r, s_r = split
     I, U = At.shape
     if max(U, I) >= 1 << _CELL_ROW_BITS:
-        raise ValueError(f"the sparse form takes fewer than 2^{_CELL_ROW_BITS} users and items; got {U}, {I}")
+        raise ValueError(f"the walk takes fewer than 2^{_CELL_ROW_BITS} users and items; got {U}, {I}")
     BC = UNIT_COLS // G
     item, user = torch.nonzero(At, as_tuple=True)
     val = load_at(At[item, user])
@@ -419,7 +400,7 @@ def walk_bytes(K: int, U: int, I: int, nnz: int, sms: int = H100_SMS) -> int:
 
 
 def resident_walk(At, K: int, split: tuple | None = None) -> Walk:
-    """The sparse form's tables for A^T on its device, at ``split`` (default:
+    """The steps' tables for A^T on its device, at ``split`` (default:
     ``resident_split`` for the device's SMs, or an H100's on the CPU).  A
     caller that builds them ahead (the engine, in its ``upload`` phase)
     passes them to ``resident_train_top1`` and ``resident_train`` as
@@ -434,8 +415,8 @@ def walk_train_plain(Lt, Rt, walk: Walk, *, iters: int, alpha2: float, precision
     """Plain torch GD steps over the walk's tables: per side, pred and e of
     every rated cell, its products summed into the (chunk, column) partial
     (index_add) and the partials summed in ascending chunk order.  The
-    function of ``resident_train_plain``, its sums grouped as the sparse
-    form groups them.  Returns (Lt', Rt')."""
+    function of ``resident_train_plain``, its sums grouped as the kernel
+    groups them.  Returns (Lt', Rt')."""
     G, chunk_l, s_l, chunk_r, s_r = walk.split
     K, U = Lt.shape
     I = Rt.shape[1]
@@ -494,12 +475,6 @@ def _walk_for(walk: Walk | None, At, K: int, split: tuple) -> Walk:
     return walk
 
 
-def _form_code(form: str) -> int:
-    if form not in _FORM_CODE:
-        raise ValueError(f"unknown form {form!r}; one of {sorted(_FORM_CODE)}")
-    return _FORM_CODE[form]
-
-
 def _resident_buffers(K, U, I, dev, split):
     """(Lt_out, Rt_out, Lt_tmp, Rt_tmp, part_l, part_r) of B1 and B2."""
     chunk_l, s_l, chunk_r, s_r = split
@@ -508,11 +483,6 @@ def _resident_buffers(K, U, I, dev, split):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     return f32(K, U), f32(K, I), f32(K, U), f32(K, I), f32(s_l, K, U), f32(s_r, K, I)
-
-
-def _tickets(dev):
-    """The persistent form's two unit counters, zeroed."""
-    return torch.zeros(2, dtype=torch.int32, device=dev)
 
 
 def _ptrs(*tensors):
@@ -539,25 +509,21 @@ def _cpu_check(At, K, split, walk=None):
 
 
 def resident_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest", items_true: int,
-                        walk: Walk | None = None, split: tuple | None = None, form: str = ENGINE_FORM):
+                        walk: Walk | None = None, split: tuple | None = None):
     """``iters`` stable-snapshot GD steps plus the masked top-1 (port of
     ``pallas_dense.resident_train_top1`` :662, minus the TPU-only
-    ``strip`` and ``interpret``): the steps in the sparse form, bit for bit
-    ``resident_train_top1_dense`` at the same ``split``, then the dense
-    top-1.
+    ``strip`` and ``interpret``): the steps over the rated cells, then B4.
 
     Lt (K, U), Rt (K, I) f32, At (I, U) int8 (2x rating) / bf16 / f32;
     U and I multiples of 128, K a multiple of 8 up to ``MAX_K``.  Items
     at or past ``items_true`` never win the top-1.  ``walk`` is
     ``resident_walk(At, K, split)`` built ahead, else the call builds it;
-    ``split`` defaults to ``resident_split``; ``form`` is "loop" or
-    "persistent".  The top-1 is B4's tiled form (``top1_split``'s chunks).
-    Returns (Lt', Rt', top1 (1, U) int32).  CPU tensors go to the plain
-    twin; CUDA tensors to the kernel, which counts each launch in
-    ``.launches``.
+    ``split`` defaults to ``resident_split``.  The top-1 runs over
+    ``top1_split``'s chunks.  Returns (Lt', Rt', top1 (1, U) int32).  CPU
+    tensors go to the plain twin; CUDA tensors to the kernel, which counts
+    each launch in ``.launches``.
     """
     K, U, I = _check(Lt, Rt, At, precision)
-    code = _form_code(form)
     if Lt.device.type == "cpu":
         _cpu_check(At, K, split, walk)
         return resident_train_top1_plain(
@@ -568,29 +534,28 @@ def resident_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str
     split = _split_for(split, K, U, I, dev)
     walk = _walk_for(walk, At, K, split)
     bufs = _resident_buffers(K, U, I, dev, split)
-    top_split = top1_split_for(K, U, I, dev)
+    top_split = top1_split_for(U, I, dev)
     tops = top1_buffers(K, U, I, top_split[1], dev, precision)
     with torch.cuda.device(dev):
         rc = lib.rs_resident_sparse_train_top1(
-            *_ptrs(*walk.tables, _tickets(dev)), walk.cap, ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype],
+            *_ptrs(*walk.tables), walk.cap, ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype],
             *_ptrs(Lt, Rt, *bufs, *tops), K, U, I, _lanes_per_column(K), iters, float(alpha2),
-            _PRECISION_CODE[precision], items_true, *split, walk.sub, code, *top_split, _stream(dev),
+            _PRECISION_CODE[precision], items_true, *split, walk.sub, *top_split, _stream(dev),
         )
     if rc != 0:
-        raise RuntimeError(f"rs_resident_sparse_train_top1 ({form}) failed: CUDA error {rc}")
+        raise RuntimeError(f"rs_resident_sparse_train_top1 failed: CUDA error {rc}")
     resident_train_top1.launches += 1
     return bufs[0], bufs[1], tops[3]
 
 
 def resident_train(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest",
-                   walk: Walk | None = None, split: tuple | None = None, form: str = ENGINE_FORM):
+                   walk: Walk | None = None, split: tuple | None = None):
     """``iters`` stable-snapshot GD steps (port of ``pallas_dense.resident_train``
     :238): B1's steps without the top-1, so its factors are B1's bit for
     bit.  Same inputs and keywords as ``resident_train_top1``; returns
     (Lt', Rt').  CPU tensors go to the plain twin; CUDA tensors to the
     kernel, which counts each launch in ``.launches``."""
     K, U, I = _check(Lt, Rt, At, precision)
-    code = _form_code(form)
     if Lt.device.type == "cpu":
         _cpu_check(At, K, split, walk)
         return resident_train_plain(Lt, Rt, At, iters=iters, alpha2=alpha2, precision=precision)
@@ -601,71 +566,14 @@ def resident_train(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "h
     bufs = _resident_buffers(K, U, I, dev, split)
     with torch.cuda.device(dev):
         rc = lib.rs_resident_sparse_train(
-            *_ptrs(*walk.tables, _tickets(dev)), walk.cap, *_ptrs(Lt, Rt, *bufs), K, U, I, _lanes_per_column(K),
-            iters, float(alpha2), _PRECISION_CODE[precision], *split, walk.sub, code, _stream(dev),
+            *_ptrs(*walk.tables), walk.cap, *_ptrs(Lt, Rt, *bufs), K, U, I, _lanes_per_column(K),
+            iters, float(alpha2), _PRECISION_CODE[precision], *split, walk.sub, _stream(dev),
         )
     if rc != 0:
-        raise RuntimeError(f"rs_resident_sparse_train ({form}) failed: CUDA error {rc}")
+        raise RuntimeError(f"rs_resident_sparse_train failed: CUDA error {rc}")
     resident_train.launches += 1
-    return bufs[0], bufs[1]
-
-
-def resident_train_top1_dense(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest",
-                              items_true: int, split: tuple | None = None):
-    """``resident_train_top1`` in its dense form, every cell of each A^T tile
-    walked (``grad_pass`` + ``apply_update``, two launches a step): the
-    baseline the sparse form replaced, kept for ``probes/resident_sparse.py``.
-    CPU tensors go to the plain twin; CUDA tensors to the kernel
-    (``.launches``)."""
-    K, U, I = _check(Lt, Rt, At, precision)
-    if Lt.device.type == "cpu":
-        _cpu_check(At, K, split)
-        return resident_train_top1_plain(
-            Lt, Rt, At, iters=iters, alpha2=alpha2, precision=precision, items_true=items_true
-        )
-    dev = _kernel_device(Lt)
-    lib = _build.load()
-    split = _split_for(split, K, U, I, dev)
-    bufs = _resident_buffers(K, U, I, dev, split)
-    tops = top1_buffers(K, U, I, split[1], dev, precision, "dense")[1:]
-    with torch.cuda.device(dev):
-        rc = lib.rs_resident_train_top1(
-            ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *bufs, *tops),
-            K, U, I, _lanes_per_column(K), iters, float(alpha2), _PRECISION_CODE[precision], items_true,
-            *split, _stream(dev),
-        )
-    if rc != 0:
-        raise RuntimeError(f"rs_resident_train_top1 failed: CUDA error {rc}")
-    resident_train_top1_dense.launches += 1
-    return bufs[0], bufs[1], tops[2]
-
-
-def resident_train_dense(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest",
-                         split: tuple | None = None):
-    """``resident_train`` in its dense form (``rs_resident_train``): the
-    steps of ``resident_train_top1_dense``.  CPU tensors go to the plain
-    twin; CUDA tensors to the kernel (``.launches``)."""
-    K, U, I = _check(Lt, Rt, At, precision)
-    if Lt.device.type == "cpu":
-        _cpu_check(At, K, split)
-        return resident_train_plain(Lt, Rt, At, iters=iters, alpha2=alpha2, precision=precision)
-    dev = _kernel_device(Lt)
-    lib = _build.load()
-    split = _split_for(split, K, U, I, dev)
-    bufs = _resident_buffers(K, U, I, dev, split)
-    with torch.cuda.device(dev):
-        rc = lib.rs_resident_train(
-            ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *bufs),
-            K, U, I, _lanes_per_column(K), iters, float(alpha2), _PRECISION_CODE[precision],
-            *split, _stream(dev),
-        )
-    if rc != 0:
-        raise RuntimeError(f"rs_resident_train failed: CUDA error {rc}")
-    resident_train_dense.launches += 1
     return bufs[0], bufs[1]
 
 
 resident_train_top1.launches = 0
 resident_train.launches = 0
-resident_train_top1_dense.launches = 0
-resident_train_dense.launches = 0

@@ -6,24 +6,17 @@ while the factors stay in VMEM (``_stream_call`` :372).  Its entry points
 and their counterparts here:
 
 * ``stream_train`` (:420, B3): ``iters`` GD steps.  CUDA kernel
-  ``csrc/dense_stream.cu`` in its sparse form (``rs_stream_sparse_train``):
-  a walk of the rated cells alone over tables that ``walk_tables`` builds
-  once per call, bit for bit the dense form's steps.  The dense form
-  (``rs_stream_train``: one read of each A^T tile per step feeds both
-  gradient sides) stays callable as ``stream_train_dense``, the baseline
-  of ``probes/stream_sparse.py``.
+  ``csrc/dense_stream.cu`` (``rs_stream_sparse_train``): a walk of the
+  rated cells alone over tables that ``walk_tables`` builds once per A^T,
+  in the order of sums of the dense pass it replaced (``stream_split``).
 * ``stream_top1`` (:473, B4): the masked top-1 from final factors.  CUDA
-  kernel ``top1_tiled`` + ``top1_reduce`` of ``csrc/dense_fused.cu`` (the
-  tiled form: a block of 64 users walks its item chunk in tiles, each
-  thread a register micro-tile of scores) behind their own entry
-  (``rs_stream_top1``), so from the same factors it is B1's top-1 bit for
-  bit.  The dense form it replaced (``top1_pass``, a thread a user) stays
-  callable as ``stream_top1_dense``, the baseline of
-  ``probes/top1_tiled.py``; ``stream_top1_scores`` returns each user's
-  best score beside the index, in either form, so the two can be held
-  equal in raw bits.
-* ``stream_train_top1`` (:433, B6): B3's steps (the sparse form), then
-  B4's tiled form, in one host call (``rs_stream_train_top1``).
+  kernel ``top1_tiled`` + ``top1_reduce`` of ``csrc/dense_fused.cu`` (a
+  block of 64 users walks its item chunk in tiles, each thread a register
+  micro-tile of scores) behind their own entry (``rs_stream_top1``), so
+  from the same factors it is B1's top-1 bit for bit.
+  ``stream_top1_scores`` returns each user's best score beside the index.
+* ``stream_train_top1`` (:433, B6): B3's steps, then B4, in one host call
+  (``rs_stream_train_top1``).
 
 Each has a plain torch twin of the same math.  The wrappers take the plain
 twin for CPU tensors and the kernel for CUDA tensors, and raise for
@@ -45,7 +38,6 @@ from recsys_tpu_torch.ops.dense_fused import (
     _A_KIND,
     _PRECISION_CODE,
     H100_SMS,
-    TOP1_FORMS,
     _by_degree,
     _check,
     _kernel_device,
@@ -117,7 +109,7 @@ _CELL_ITEM_BITS = 24
 
 
 class Walk(NamedTuple):
-    """The sparse form's tables for one A^T and split (``walk_tables``).
+    """The walk's tables for one A^T and split (``walk_tables``).
     A tile is block (cb, si) of the stream grid, numbered si * (U / BC) +
     cb; its cells split into sub-strips of ``sub`` items."""
 
@@ -139,7 +131,7 @@ class Walk(NamedTuple):
 
 
 def walk_tables(At, split: tuple, sub: int) -> Walk:
-    """The rated cells of A^T (I, U) as the sparse form walks them, built
+    """The rated cells of A^T (I, U) as the kernel walks them, built
     with torch ops on At's device.  ``split`` is ``stream_split``'s (G, C,
     chunk, S): it fixes B3's order of sums, which the tables keep.  User
     order: by (tile, sub-strip, user, item); item order: by (tile, item,
@@ -147,7 +139,7 @@ def walk_tables(At, split: tuple, sub: int) -> Walk:
     G, C, chunk, S = split
     I, U = At.shape
     if I >= 1 << _CELL_ITEM_BITS:
-        raise ValueError(f"the sparse form takes fewer than 2^{_CELL_ITEM_BITS} items; got {I}")
+        raise ValueError(f"the walk takes fewer than 2^{_CELL_ITEM_BITS} items; got {I}")
     BC, dev = 128 // G, At.device
     nb, nsub = U // BC, -(-chunk // sub)
     ntile = S * nb
@@ -185,8 +177,8 @@ def walk_train_plain(Lt, Rt, walk: Walk, *, iters: int, alpha2: float, precision
     cell in user order, the dLt partials per item chunk from the user
     order and the dRt partials per cluster from the item order, each
     summed over its partials in ascending order.  The same function as
-    ``stream_train_plain``, its sums grouped as the sparse form groups
-    them (within a partial, in index_add's order)."""
+    ``stream_train_plain``, its sums grouped as the kernel groups them
+    (within a partial, in index_add's order)."""
     G, C, chunk, S = walk.split
     K, U = Lt.shape
     I = Rt.shape[1]
@@ -263,7 +255,7 @@ def _stream(dev):
 
 
 def stream_walk(At, K: int, grid: tuple[int, int] = _GRID) -> Walk:
-    """The sparse form's tables for A^T on its CUDA device, at the split
+    """The walk's tables for A^T on its CUDA device, at the split
     ``stream_train`` takes for K factors and ``grid``.  A caller that builds
     them ahead (the engine, in its ``upload`` phase) passes them to
     ``stream_train`` as ``walk``."""
@@ -286,9 +278,8 @@ def stream_train(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "hig
                  grid: tuple[int, int] = _GRID, walk: Walk | None = None):
     """``iters`` stable-snapshot GD steps (port of
     ``pallas_dense.stream_train`` :420), the rated cells alone walked on the
-    card, bit for bit ``stream_train_dense``.  Returns (Lt', Rt').  CPU
-    tensors go to the plain twin; CUDA tensors to the kernel, which counts
-    each launch in ``.launches``.  ``grid`` (blocks per SM, largest
+    card.  Returns (Lt', Rt').  CPU tensors go to the plain twin; CUDA
+    tensors to the kernel, which counts each launch in ``.launches``.  ``grid`` (blocks per SM, largest
     cluster) sizes the kernel's grid and so its order of sums; the engine
     keeps the default, and ``probes/stream_grid.py`` sweeps it.  ``walk``
     is ``stream_walk(At, K, grid)`` built ahead, else the call builds it."""
@@ -310,83 +301,46 @@ def stream_train(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "hig
     return outs[0], outs[1]
 
 
-def stream_train_dense(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest"):
-    """``stream_train`` in its dense form, every (user, item) cell of each
-    A^T tile walked (``rs_stream_train``): the baseline the sparse form
-    replaced, kept for ``probes/stream_sparse.py`` and P3's probe.  CPU
-    tensors go to the plain twin; CUDA tensors to the kernel
-    (``.launches``)."""
-    K, U, I = _check(Lt, Rt, At, precision)
-    if Lt.device.type == "cpu":
-        return stream_train_plain(Lt, Rt, At, iters=iters, alpha2=alpha2, precision=precision)
-    dev = _kernel_device(Lt)
-    lib = _build.load()
-    (G, C, chunk, S), outs, parts = _train_buffers(K, U, I, dev)
-    with torch.cuda.device(dev):
-        rc = lib.rs_stream_train(
-            ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, *outs, *parts),
-            K, U, I, G, C, iters, float(alpha2), _PRECISION_CODE[precision], chunk, S, _stream(dev),
-        )
-    if rc != 0:
-        raise RuntimeError(f"rs_stream_train failed: CUDA error {rc}")
-    stream_train_dense.launches += 1
-    return outs[0], outs[1]
-
-
-def _top1(Lt, Rt, At, precision, items_true, form, scores):
-    """B4 in ``form`` on the card: (top1, best or None)."""
+def _top1(Lt, Rt, At, precision, items_true, scores):
+    """B4 on the card: (top1, best or None)."""
     K, U, I = Lt.shape[0], Lt.shape[1], Rt.shape[1]
     dev = _kernel_device(Lt)
     lib = _build.load()
-    chunk, S = top1_split_for(K, U, I, dev, form)
-    ops, *tops = top1_buffers(K, U, I, S, dev, precision, form)
+    chunk, S = top1_split_for(U, I, dev)
+    ops, *tops = top1_buffers(K, U, I, S, dev, precision)
     best = torch.empty((1, U), dtype=torch.float32, device=dev) if scores else None
     with torch.cuda.device(dev):
         rc = lib.rs_stream_top1(
             ctypes.c_void_p(At.data_ptr()), _A_KIND[At.dtype], *_ptrs(Lt, Rt, ops, *tops),
             ctypes.c_void_p(best.data_ptr() if scores else 0), K, U, I, _lanes_per_column(K),
-            _PRECISION_CODE[precision], items_true, chunk, S, TOP1_FORMS[form], _stream(dev),
+            _PRECISION_CODE[precision], items_true, chunk, S, _stream(dev),
         )
     if rc != 0:
-        raise RuntimeError(f"rs_stream_top1 ({form}) failed: CUDA error {rc}")
-    (stream_top1 if form == "tiled" else stream_top1_dense).launches += 1
+        raise RuntimeError(f"rs_stream_top1 failed: CUDA error {rc}")
+    stream_top1.launches += 1
     return tops[2], best
 
 
 def stream_top1(Lt, Rt, At, *, precision: str = "highest", items_true: int):
     """The masked top-1 from final factors (port of
     ``pallas_dense.stream_top1`` :473): (1, U) int32, rated cells and items
-    at or past ``items_true`` never win, lowest index on ties.  The tiled
-    form over ``dense_fused.top1_split``'s item chunks.  CPU tensors go to
-    the plain twin; CUDA tensors to the kernel (``.launches``)."""
+    at or past ``items_true`` never win, lowest index on ties, over
+    ``dense_fused.top1_split``'s item chunks.  CPU tensors go to the plain
+    twin; CUDA tensors to the kernel (``.launches``)."""
     _check(Lt, Rt, At, precision)
     if Lt.device.type == "cpu":
         return stream_top1_plain(Lt, Rt, At, precision=precision, items_true=items_true)
-    return _top1(Lt, Rt, At, precision, items_true, "tiled", False)[0]
+    return _top1(Lt, Rt, At, precision, items_true, False)[0]
 
 
-def stream_top1_dense(Lt, Rt, At, *, precision: str = "highest", items_true: int):
-    """``stream_top1`` in its dense form (``top1_pass``, a thread a user
-    over the dl side's item chunks): the baseline the tiled form replaced,
-    kept for ``probes/top1_tiled.py``.  CPU tensors go to the plain twin;
-    CUDA tensors to the kernel (``.launches``)."""
+def stream_top1_scores(Lt, Rt, At, *, precision: str = "highest", items_true: int):
+    """``stream_top1`` with each user's best score: ((1, U) int32, (1, U)
+    f32; -inf where no item can win), so its raw bits can be checked.  A
+    launch counts on ``stream_top1``.  CPU tensors go to the plain twin."""
     _check(Lt, Rt, At, precision)
     if Lt.device.type == "cpu":
-        return stream_top1_plain(Lt, Rt, At, precision=precision, items_true=items_true)
-    return _top1(Lt, Rt, At, precision, items_true, "dense", False)[0]
-
-
-def stream_top1_scores(Lt, Rt, At, *, precision: str = "highest", items_true: int, form: str = "tiled"):
-    """B4 in ``form`` ("tiled" or "dense") with each user's best score:
-    ((1, U) int32, (1, U) f32; -inf where no item can win), so two forms
-    can be held equal in raw bits.  A launch counts on the form's wrapper
-    (``stream_top1`` or ``stream_top1_dense``).  CPU tensors go to the
-    plain twin."""
-    K, U, I = _check(Lt, Rt, At, precision)
-    if Lt.device.type == "cpu":
-        top1_split_for(K, U, I, Lt.device, form)  # the form checked, though the twin runs
         return plain_top1_scores(Lt, Rt, At, precision, items_true)
-    return _top1(Lt, Rt, At, precision, items_true, form, True)
+    return _top1(Lt, Rt, At, precision, items_true, True)
 
 
 def stream_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str = "highest", items_true: int):
@@ -401,7 +355,7 @@ def stream_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str =
     dev = _kernel_device(Lt)
     lib = _build.load()
     (G, C, chunk, S), outs, parts = _train_buffers(K, U, I, dev)
-    top_chunk, top_S = top1_split_for(K, U, I, dev)
+    top_chunk, top_S = top1_split_for(U, I, dev)
     tops = top1_buffers(K, U, I, top_S, dev, precision)
     walk = stream_walk(At, K)
     with torch.cuda.device(dev):
@@ -417,8 +371,6 @@ def stream_train_top1(Lt, Rt, At, *, iters: int, alpha2: float, precision: str =
 
 
 stream_train.launches = 0
-stream_train_dense.launches = 0
 stream_top1.launches = 0
-stream_top1_dense.launches = 0
 stream_train_top1.launches = 0
 

@@ -9,12 +9,10 @@
   stand-in partner, ``fo = 0.5 * table[s mod blk]``,
   ``err = 0.001 * (vals[s] - <fo, g>)``, ``out[s] = err * g``.
 
-``gather_err_grad`` runs the grouped form (a warp per two consecutive
-slots, one above K = 512, rows kept in registers, streaming stores);
-``gather_err_grad_direct`` the first form (a warp per slot), kept as the
-probe's baseline: the two give the same bits.
+``gather_err_grad`` takes two consecutive slots a warp (one above
+K = 512), its rows kept in registers, with streaming stores.
 
-The engine form of ``p4_kernel`` is ``ops/bell.py::bell_side_update``;
+The engine form of ``p4_kernel`` is the BELL step (``ops/bell.py::bell_train``);
 these serve the probe ``probes/mosaic_gather.py``.  Each has a plain
 torch twin.  The wrappers pick by the tensors' device: the twin for CPU
 tensors, the kernel for CUDA tensors (each launch counted in
@@ -82,8 +80,8 @@ def gather_err_grad_plain(table, idx, vals, blk: int):
     return err[:, None] * g
 
 
-# The widest row the grouped form (csrc/bell.cu, gather_err_grad_grouped)
-# takes: 32 values a lane.
+# The widest row the kernel (csrc/bell.cu, gather_err_grad_grouped) takes:
+# 32 values a lane.
 MAX_K = 1024
 
 
@@ -96,16 +94,14 @@ def _err_grad_args(table, idx, vals, blk: int):
 def gather_err_grad(table, idx, vals, blk: int):
     """(S, K) ``err[s] * table[idx[s]]`` with ``err[s] = 0.001 * (vals[s] -
     <0.5 * table[s mod blk], table[idx[s]]>)``, float32, K <= ``MAX_K``
-    on a card.  The kernel (the grouped form) sums the dot in another
-    order than the twin:
-    the two agree to f32 rounding, not bit for bit; it equals
-    ``gather_err_grad_direct`` bit for bit."""
+    on a card.  The kernel sums the dot in another order than the twin:
+    the two agree to f32 rounding, not bit for bit."""
     _err_grad_args(table, idx, vals, blk)
     if table.device.type == "cpu":
         return gather_err_grad_plain(table, idx, vals, blk)
     dev = _kernel_device(table)
     if table.shape[1] > MAX_K:
-        raise ValueError(f"the grouped form takes K <= {MAX_K}, got K={table.shape[1]}")
+        raise ValueError(f"the kernel takes K <= {MAX_K}, got K={table.shape[1]}")
     out = torch.empty((idx.shape[0], table.shape[1]), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _build.load().rs_gather_err_grad(*_ptrs(table, idx, vals, out), idx.shape[0], table.shape[1], blk,
@@ -117,23 +113,3 @@ def gather_err_grad(table, idx, vals, blk: int):
 
 
 gather_err_grad.launches = 0
-
-
-def gather_err_grad_direct(table, idx, vals, blk: int):
-    """``gather_err_grad`` in its first form, a warp per slot (any K): the
-    probe's baseline, the same bits."""
-    _err_grad_args(table, idx, vals, blk)
-    if table.device.type == "cpu":
-        return gather_err_grad_plain(table, idx, vals, blk)
-    dev = _kernel_device(table)
-    out = torch.empty((idx.shape[0], table.shape[1]), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _build.load().rs_gather_err_grad_direct(*_ptrs(table, idx, vals, out), idx.shape[0], table.shape[1],
-                                                     blk, _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"rs_gather_err_grad_direct failed: CUDA error {rc}")
-    gather_err_grad_direct.launches += 1
-    return out
-
-
-gather_err_grad_direct.launches = 0

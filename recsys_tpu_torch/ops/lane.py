@@ -10,23 +10,19 @@ hand-written in CUDA (``csrc/lane.cu``):
   depends on what the buffer held; the function's result is ``cumsum(x)``
   for any finite start, and the port starts from 0.
 
-Each kernel has two forms.  ``lane_gather_loop`` gathers on a schedule
-the block builds on the card in every launch, free of bank conflicts
-(``gather_schedule_plain`` is its algorithm); ``lane_gather_loop_direct``,
-the form it replaced, takes its outputs in order.  ``lane_cumsum_loop``
-spreads a row over a thread-block cluster (``cumsum_cluster_plan``);
-``lane_cumsum_loop_block``, the form it replaced, scans a row on one block.
-The replaced forms stay as the probe's baselines, each counted in its own
-``.launches``; no form falls back to another.
+``lane_gather_loop`` gathers on a schedule the block builds on the card
+in every launch, free of bank conflicts (``gather_schedule_plain`` is its
+algorithm).  ``lane_cumsum_loop`` spreads a row over a thread-block
+cluster (``cumsum_cluster_plan``).
 
 Each has a plain torch twin, the ``t``-step loop in torch ops.  The
 wrappers pick by the tensors' device: the twin for CPU tensors, the kernel
 for CUDA tensors (each launch counted in ``.launches``), and an error for
 anything the kernel does not take.  Indices are not range-checked on the
-card: they are the caller's, as in the probe.  The gather's kernels equal
-their twin bit for bit; the scan's sum in another order than
+card: they are the caller's, as in the probe.  The gather's kernel equals
+its twin bit for bit; the scan's sums in another order than
 ``torch.cumsum`` (``testing.LANE_CUMSUM_RTOL``), the order of
-``lane_cumsum_loop_order_plain``, which both forms equal in raw bits.
+``lane_cumsum_loop_order_plain``, which it equals in raw bits.
 """
 
 from __future__ import annotations
@@ -77,12 +73,12 @@ def lane_gather_loop_plain(tab, idx, t: int):
 
 
 def gather_plan(S: int, W: int, sms: int) -> tuple[int, int, int, int]:
-    """(grid, span, threads, slots) of both gather forms: ``grid`` blocks a
-    row, each of ``span`` outputs (about one block per SM in all, at least
-    32 outputs a block, at most 8192), ``threads`` threads, a power of two
-    ``per`` of outputs each in the direct form; in the schedule's, each
-    thread holds ``slots`` of its cells: 2 * per and at least 4, so the
-    rounds allowed are twice a bucket's mean."""
+    """(grid, span, threads, slots) of ``lane_gather_loop``: ``grid`` blocks
+    a row, each of ``span`` outputs (about one block per SM in all, at least
+    32 outputs a block, at most 8192), ``threads`` threads, each holding
+    ``slots`` cells of the schedule: twice the power of two ``per`` of
+    outputs a thread would take in order, and at least 4, so the rounds
+    allowed are twice a bucket's mean."""
     cpr = max(-(-W // 8192), max(1, min(sms // S, -(-W // 32))))
     span = -(-W // cpr)
     per = 1
@@ -129,7 +125,7 @@ def gather_schedule_plain(idx_span, threads: int, slots: int):
 def lane_gather_loop(tab, idx, t: int):
     """f32 (S, W): ``t`` steps of ``out = 0.5 * out + tab[s, idx[s, w]]``
     from ``out = 0``; tab f32 (S, W), idx int32 (S, W) in [0, W).  On a
-    card the bank-conflict-free form (``gather_plan``)."""
+    card the bank-conflict-free schedule (``gather_plan``)."""
     _check_gather(tab, idx, t)
     if tab.device.type == "cpu":
         return lane_gather_loop_plain(tab, idx, t)
@@ -154,27 +150,6 @@ def lane_gather_loop(tab, idx, t: int):
 lane_gather_loop.launches = 0
 
 
-def lane_gather_loop_direct(tab, idx, t: int):
-    """``lane_gather_loop`` in the form it replaced (thread i takes the
-    span's outputs i, i + blockDim, ...): the probe's baseline."""
-    _check_gather(tab, idx, t)
-    if tab.device.type == "cpu":
-        return lane_gather_loop_plain(tab, idx, t)
-    dev = tab.device
-    S, W = tab.shape
-    out = torch.empty_like(tab)
-    with torch.cuda.device(dev):
-        rc = _build.load().rs_lane_gather_loop_direct(*_ptrs(tab, idx, out), S, W, t,
-                                                      *gather_plan(S, W, _sms(dev))[:3], _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"rs_lane_gather_loop_direct failed: CUDA error {rc}")
-    lane_gather_loop_direct.launches += 1
-    return out
-
-
-lane_gather_loop_direct.launches = 0
-
-
 def lane_cumsum_loop_plain(x, t: int):
     """Twin of ``lane_cumsum_loop``: ``cumsum_kernel``'s loop in torch ops,
     from ``out = 0``."""
@@ -185,7 +160,7 @@ def lane_cumsum_loop_plain(x, t: int):
 
 
 def _cumsum_split(W: int) -> tuple[int, int]:
-    """(NT, EPT) of both scan forms: NT = min(W, 1024) threads in all, EPT
+    """(NT, EPT) of the scan: NT = min(W, 1024) threads in all, EPT
     consecutive elements a thread, a power of two with NT * EPT >= W."""
     NT, EPT = min(W, 1024), 1
     while EPT * NT < W:
@@ -194,7 +169,7 @@ def _cumsum_split(W: int) -> tuple[int, int]:
 
 
 def cumsum_cluster_plan(S: int, W: int, sms: int) -> tuple[int, int, int]:
-    """(NT, EPT, C) of ``lane_cumsum_loop``: the block form's NT and EPT,
+    """(NT, EPT, C) of ``lane_cumsum_loop``: ``_cumsum_split``'s NT and EPT,
     and C blocks a row, a cluster: C doubles, up to 8, while it divides
     NT / 32 and S * C stays within the card's ``sms``, and further while a
     block would hold more than 256 threads of two or more elements each
@@ -220,8 +195,7 @@ def _warp_scan(v):
 
 
 def lane_cumsum_loop_order_plain(x, t: int):
-    """``lane_cumsum_loop`` in the kernels' order of f32 sums, which both
-    forms keep: each thread's EPT elements summed in order from 0, the
+    """``lane_cumsum_loop`` in the kernel's order of f32 sums: each thread's EPT elements summed in order from 0, the
     thread totals scanned across the warp, the warp totals (zero past the
     last warp) scanned across 32 lanes, the carry of warp g > 0 (warp g -
     1's inclusive total) added to the thread's exclusive offset, then the
@@ -299,22 +273,3 @@ def cumsum_clusters(x) -> int:
     if rc != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {rc} (C={C})")
     return n.value
-
-
-def lane_cumsum_loop_block(x, t: int):
-    """``lane_cumsum_loop`` in the form it replaced (one block a row, the
-    row read twice a step): the probe's baseline."""
-    _check_cumsum(x, t)
-    if x.device.type == "cpu":
-        return lane_cumsum_loop_plain(x, t)
-    S, W = x.shape
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _build.load().rs_lane_cumsum_loop_block(*_ptrs(x, out), S, W, t, _stream(x.device))
-    if rc != 0:
-        raise RuntimeError(f"rs_lane_cumsum_loop_block failed: CUDA error {rc}")
-    lane_cumsum_loop_block.launches += 1
-    return out
-
-
-lane_cumsum_loop_block.launches = 0

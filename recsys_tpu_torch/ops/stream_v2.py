@@ -3,12 +3,10 @@
 ``iters`` full GD steps on A (U, n * strip) with the R table packed strip
 by strip, Rp (n * K, strip).
 
-Two forms, the same bits.  ``stream_v2_train`` walks the rated cells alone:
-B3's sparse walk (``csrc/dense_stream.cu``, ``sparse_pass`` with R in the
-packed layout, ``rs_stream_v2_sparse_train``) over the tables of A^T
-(``v2_walk``, B3's ``walk_tables`` of ``A.T``).  ``stream_v2_train_dense``
-walks every cell (``csrc/stream_v2.cu``, B3's dense design on this layout),
-the form the sparse one replaced, kept as the probe's baseline.
+``stream_v2_train`` walks the rated cells alone: B3's walk
+(``csrc/dense_stream.cu``, ``sparse_pass`` with R in the packed layout,
+``rs_stream_v2_sparse_train``) over the tables of A^T (``v2_walk``, B3's
+``walk_tables`` of ``A.T``).
 
 The layout is the TPU kernel's own contract, A (U, n * strip) as its
 BlockSpec reads it (:90, :108), built by ``dense_tiled.device_dense_A``.
@@ -16,9 +14,9 @@ The script's drivers no longer fit that kernel (its docstring, :4-9:
 ``check_bitwise`` passes the stream kernel's A^T (I, U), ``time_shape``
 ``device_dense_AT``); the port follows the kernel.
 
-Both kernels keep B3's order of sums (``csrc/dense_stream.cu``), so from
-the same factors they give ``dense_stream.stream_train``'s result, packed,
-bit for bit.  Only ``precision="highest"`` (true f32, no TF32) exists, the
+It keeps B3's order of sums (``csrc/dense_stream.cu``), so from the same
+factors it gives ``dense_stream.stream_train``'s result, packed, bit for
+bit.  Only ``precision="highest"`` (true f32, no TF32) exists, the
 script's default and the only one its drivers use; others raise.  The twin
 ``stream_v2_train_plain`` walks the strips as ``_v2_kernel`` does.  The
 wrapper picks by the tensors' device: the twin for CPU tensors, the kernel
@@ -27,8 +25,6 @@ anything the kernel does not take.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -102,9 +98,9 @@ def stream_v2_train_plain(Lt, Rp, A, *, iters: int, alpha2: float, strip: int, p
 
 
 def v2_walk(A, K: int, sms: int | None = None) -> Walk:
-    """The sparse form's tables for A (U, I): B3's ``walk_tables`` of A^T
-    (a view, no copy) at ``stream_split``'s split for ``sms`` SMs (default:
-    A's card, or an H100's on the CPU), which both forms of P3 take."""
+    """The walk's tables for A (U, I): B3's ``walk_tables`` of A^T (a view,
+    no copy) at ``stream_split``'s split for ``sms`` SMs (default: A's
+    card, or an H100's on the CPU)."""
     U, I = A.shape
     if sms is None:
         sms = _sms(A.device) if A.device.type == "cuda" else H100_SMS
@@ -132,9 +128,8 @@ def stream_v2_train(Lt, Rp, A, *, iters: int, alpha2: float, strip: int, precisi
                     walk: Walk | None = None):
     """``iters`` stable-snapshot GD steps on Lt (K, U) f32, the packed Rp
     (n*K, strip) f32 and A (U, n*strip) int8 (2x the rating), bf16 or f32,
-    the rated cells alone walked on the card (bit for bit
-    ``stream_v2_train_dense``).  On a card U is a multiple of 128, K of 8 up
-    to ``dense_fused.MAX_K``, and n*strip of 32.  ``walk`` is ``v2_walk(A,
+    the rated cells alone walked on the card.  On a card U is a multiple of
+    128, K of 8 up to ``dense_fused.MAX_K``, and n*strip of 32.  ``walk`` is ``v2_walk(A,
     K)`` built ahead (outside a timed window), else the call builds it; a
     walk of another split raises.  Returns (Lt', Rp')."""
     K, U, I = _check(Lt, Rp, A, strip, precision)
@@ -156,25 +151,4 @@ def stream_v2_train(Lt, Rp, A, *, iters: int, alpha2: float, strip: int, precisi
     return outs[0], outs[1]
 
 
-def stream_v2_train_dense(Lt, Rp, A, *, iters: int, alpha2: float, strip: int, precision: str = "highest"):
-    """``stream_v2_train`` in its dense form (``csrc/stream_v2.cu``): every
-    cell of each A tile walked, the form the sparse walk replaced, kept as
-    the probe's baseline.  Same inputs; returns (Lt', Rp')."""
-    K, U, I = _check(Lt, Rp, A, strip, precision)
-    if Lt.device.type == "cpu":
-        return stream_v2_train_plain(Lt, Rp, A, iters=iters, alpha2=alpha2, strip=strip)
-    dev, (G, C, chunk, S) = _kernel_shape(Lt, K, U, I)
-    outs, parts = _buffers(K, U, Rp, G, C, S, dev)
-    with torch.cuda.device(dev):
-        rc = _build.load().rs_stream_v2_train(
-            ctypes.c_void_p(A.data_ptr()), _A_KIND[A.dtype], *_ptrs(Lt, Rp, *outs, *parts),
-            K, U, I, strip, G, C, iters, float(alpha2), chunk, S, _stream(dev),
-        )
-    if rc != 0:
-        raise RuntimeError(f"rs_stream_v2_train failed: CUDA error {rc}")
-    stream_v2_train_dense.launches += 1
-    return outs[0], outs[1]
-
-
 stream_v2_train.launches = 0
-stream_v2_train_dense.launches = 0

@@ -4,16 +4,16 @@ row, the substrate a resident sparse kernel would be built on.
 
     python -m recsys_tpu_torch.probes.gather
 
-Run from the root of a checkout on a machine with a CUDA card.  Each kernel
-has two forms (``FORMS``): the one ``lane_gather_loop`` /
-``lane_cumsum_loop`` launch, and the one it replaced, the baseline.  First
-the script's correctness checks for every form: T = 2 steps of the gather
-at (8, 512) with full-width indices, then with one index row broadcast over
-the rows, each expecting 1.5 * g and equal to the twin bit for bit; and the
-scan against its twin within ``testing.LANE_CUMSUM_RTOL``, with its control
-rejected.  Then the bits at every probe shape (``bits``).  Then each
-kernel's forms at the script's shapes with T = 512 steps, in turns in one
-profile (``interleaved_ms``), each read as a median: its device time by
+Run from the root of a checkout on a machine with a CUDA card.  The
+kernels (``KERNELS``) are the ones ``lane_gather_loop`` and
+``lane_cumsum_loop`` launch.  First the script's correctness checks: T = 2
+steps of the gather at (8, 512) with full-width indices, then with one
+index row broadcast over the rows, each expecting 1.5 * g and equal to the
+twin bit for bit; and the scan against its twin within
+``testing.LANE_CUMSUM_RTOL``, with its control rejected.  Then the bits at
+every probe shape (``bits``).  Then each kernel at the script's shapes
+with T = 512 steps, at its step counts in turns in one profile
+(``interleaved_ms``), each read as a median: its device time by
 ``torch.profiler`` beside the time of its twin and of the library loop (the
 same T steps around ``torch.gather(tab, 1, idx)`` or ``torch.cumsum(x, 1)``)
 by CUDA events, in G elem/s of S * W * T, and its time at T = 128 and at
@@ -46,13 +46,11 @@ GATHER_SHAPES = ((8, 2048), (8, 8192), (24, 8192), (8, 32768))
 CUMSUM_SHAPES = ((8, 8192), (24, 8192), (8, 32768))
 CHECK_SHAPE = (8, 512)
 
-# Each kernel's forms: the wrapper's name (the kernels line's), the wrapper
-# and the name of its CUDA kernel; the first is the form the probe serves.
-FORMS = {
-    "gather": (("lane_gather", lane.lane_gather_loop, "gather_banked"),
-               ("lane_gather_direct", lane.lane_gather_loop_direct, "gather_loop")),
-    "cumsum": (("lane_cumsum", lane.lane_cumsum_loop, "cumsum_cluster"),
-               ("lane_cumsum_block", lane.lane_cumsum_loop_block, "cumsum_loop")),
+# Each kernel: the wrapper's name (the kernels line's), the wrapper and the
+# name of its CUDA kernel.
+KERNELS = {
+    "gather": ("lane_gather", lane.lane_gather_loop, "gather_banked"),
+    "cumsum": ("lane_cumsum", lane.lane_cumsum_loop, "cumsum_cluster"),
 }
 
 
@@ -64,82 +62,75 @@ def gather_inputs(S: int, W: int, device, rng):
 
 
 def check(device, rng=None) -> dict:
-    """The script's correctness checks for each form, the gather against its
-    twin bit for bit, and the scan within its limit with the control
-    rejected; returns each form's max abs error against its twin.  Raises on
-    a failure."""
+    """The script's correctness checks, the gather against its twin bit for
+    bit, and the scan within its limit with the control rejected; returns
+    each kernel's max abs error against its twin.  Raises on a failure."""
     rng = rng or np.random.default_rng(0)
     tab, idx = gather_inputs(*CHECK_SHAPE, device, rng)
-    errs = {}
-    for form, fn, _ in FORMS["gather"]:
-        errs[form] = 0.0
-        for name, ix in (("full-width idx", idx), ("broadcast idx", idx[:1].expand_as(idx).contiguous())):
-            out = fn(tab, ix, 2)
-            twin = lane.lane_gather_loop_plain(tab, ix, 2)
-            expect = 1.5 * torch.take_along_dim(tab, ix.long(), dim=1)
-            ok = bool(torch.allclose(out, expect, rtol=1e-6)) and torch.equal(out, twin)
-            errs[form] = max(errs[form], float((out - twin).abs().max()))
-            print(f"[probe] P1 {form} correctness ({name}, W={CHECK_SHAPE[1]}): 1.5*g {ok}", flush=True)
-            if not ok:
-                raise AssertionError(f"{form} {name}: not 1.5*g or not its twin bit for bit")
+    name, fn, _ = KERNELS["gather"]
+    errs = {name: 0.0}
+    for kind, ix in (("full-width idx", idx), ("broadcast idx", idx[:1].expand_as(idx).contiguous())):
+        out = fn(tab, ix, 2)
+        twin = lane.lane_gather_loop_plain(tab, ix, 2)
+        expect = 1.5 * torch.take_along_dim(tab, ix.long(), dim=1)
+        ok = bool(torch.allclose(out, expect, rtol=1e-6)) and torch.equal(out, twin)
+        errs[name] = max(errs[name], float((out - twin).abs().max()))
+        print(f"[probe] P1 {name} correctness ({kind}, W={CHECK_SHAPE[1]}): 1.5*g {ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} {kind}: not 1.5*g or not its twin bit for bit")
     x = torch.from_numpy(rng.standard_normal(CHECK_SHAPE).astype(np.float32)).to(device)
-    for form, fn, _ in FORMS["cumsum"]:
-        errs[form] = scan_reading(x, 2, fn)[0]
+    errs[KERNELS["cumsum"][0]] = scan_reading(x, 2)[0]
     return errs
 
 
-def scan_reading(x, t: int, fn=lane.lane_cumsum_loop) -> tuple[float, float, float]:
-    """(max abs error, rel, control rel) of the scan form ``fn`` against its
-    twin after ``t`` steps; raises if rel exceeds ``LANE_CUMSUM_RTOL`` or the
-    control does not."""
-    out = fn(x, t)
+def scan_reading(x, t: int) -> tuple[float, float, float]:
+    """(max abs error, rel, control rel) of the scan against its twin after
+    ``t`` steps; raises if rel exceeds ``LANE_CUMSUM_RTOL`` or the control
+    does not."""
+    out = lane.lane_cumsum_loop(x, t)
     twin = lane.lane_cumsum_loop_plain(x, t)
     scale = float(twin.abs().max())
     err = float((out - twin).abs().max())
     rel = err / scale
     ctrl = float((checks.lane_cumsum_dropped(x) - twin).abs().max()) / scale
-    print(f"[probe] P1 {fn.__name__} {tuple(x.shape)} t={t}: max_abs_err={err!r} rel={rel!r} "
+    print(f"[probe] P1 lane_cumsum_loop {tuple(x.shape)} t={t}: max_abs_err={err!r} rel={rel!r} "
           f"(limit {checks.LANE_CUMSUM_RTOL}); control (one element left out) rel={ctrl!r}", flush=True)
     if not rel <= checks.LANE_CUMSUM_RTOL or not ctrl > checks.LANE_CUMSUM_RTOL:
-        raise AssertionError(f"{fn.__name__} {tuple(x.shape)}: rel {rel}, control {ctrl}")
+        raise AssertionError(f"lane_cumsum_loop {tuple(x.shape)}: rel {rel}, control {ctrl}")
     return err, rel, ctrl
 
 
 def bits(device, rng=None) -> dict:
-    """Each form at every probe shape: the gather's forms equal to the twin
-    bit for bit with full-width and broadcast indices at T steps; the scan's
-    forms equal to each other and to ``lane_cumsum_loop_order_plain`` in raw
-    bits at 2, 5 and T steps, and within their limit of the twin at T.
-    Returns each form's max abs error against its twin; raises after every
-    check if one failed."""
+    """Each kernel at every probe shape: the gather equal to its twin bit for
+    bit with full-width and broadcast indices at T steps; the scan equal to
+    ``lane_cumsum_loop_order_plain`` in raw bits at 2, 5 and T steps, and
+    within its limit of the twin at T.  Returns each kernel's max abs error
+    against its twin; raises after every check if one failed."""
     rng = rng or np.random.default_rng(1)
-    errs, failed = {}, []
+    gname, cname = KERNELS["gather"][0], KERNELS["cumsum"][0]
+    errs, failed = {gname: 0.0, cname: 0.0}, []
     for S, W in GATHER_SHAPES:
         tab, idx = gather_inputs(S, W, device, rng)
         for name, ix in (("full-width", idx), ("broadcast", idx[:1].expand_as(idx).contiguous())):
             twin = lane.lane_gather_loop_plain(tab, ix, T)
-            for form, fn, _ in FORMS["gather"]:
-                out = fn(tab, ix, T)
-                same = checks.same_bits(out, twin)
-                errs[form] = max(errs.get(form, 0.0), float((out - twin).abs().max()))
-                print(f"[kernel] {form} ({S}, {W}) {name} idx T={T}: = twin bit for bit {same}", flush=True)
-                if not same:
-                    failed.append(f"{form} ({S}, {W}) {name}")
+            out = lane.lane_gather_loop(tab, ix, T)
+            same = checks.same_bits(out, twin)
+            errs[gname] = max(errs[gname], float((out - twin).abs().max()))
+            print(f"[kernel] {gname} ({S}, {W}) {name} idx T={T}: = twin bit for bit {same}", flush=True)
+            if not same:
+                failed.append(f"{gname} ({S}, {W}) {name}")
     for S, W in CUMSUM_SHAPES:
         x = torch.from_numpy(rng.standard_normal((S, W)).astype(np.float32)).to(device)
         for t in (2, 5, T):
-            got = {form: fn(x, t) for form, fn, _ in FORMS["cumsum"]}
-            order = lane.lane_cumsum_loop_order_plain(x, t)
-            same = all(checks.same_bits(out, order) for out in got.values())
-            print(f"[kernel] lane_cumsum ({S}, {W}) t={t}: = lane_cumsum_block = the kernels' order "
-                  f"(lane_cumsum_loop_order_plain) in raw bits {same}", flush=True)
+            same = checks.same_bits(lane.lane_cumsum_loop(x, t), lane.lane_cumsum_loop_order_plain(x, t))
+            print(f"[kernel] {cname} ({S}, {W}) t={t}: = the kernel's order (lane_cumsum_loop_order_plain) in "
+                  f"raw bits {same}", flush=True)
             if not same:
-                failed.append(f"lane_cumsum ({S}, {W}) t={t}")
-        for form, fn, _ in FORMS["cumsum"]:
-            try:
-                errs[form] = max(errs.get(form, 0.0), scan_reading(x, T, fn)[0])
-            except AssertionError as e:
-                failed.append(str(e))
+                failed.append(f"{cname} ({S}, {W}) t={t}")
+        try:
+            errs[cname] = max(errs[cname], scan_reading(x, T)[0])
+        except AssertionError as e:
+            failed.append(str(e))
     if failed:
         raise AssertionError(f"P1 bits: {failed}")
     return errs
@@ -209,10 +200,11 @@ def interleaved_ms(calls: dict, rounds: int = 30, warm_ms: float = 20.0, attempt
 
 
 def time_kernels(device) -> list[dict]:
-    """Each kernel's forms at the script's shapes, in turns in one profile
-    a shape (``interleaved_ms``): device ms at T, T_SHORT and 0 steps, and
-    at T_LONG at the widest shape; then the twin and the library loop at T
-    (CUDA events, one call), and G elem/s.  One row a form and shape."""
+    """Each kernel at the script's shapes, its step counts in turns in one
+    profile a shape (``interleaved_ms``): device ms at T, T_SHORT and 0
+    steps, and at T_LONG at the widest shape; then the twin and the library
+    loop at T (CUDA events, one call), and G elem/s.  One row a kernel and
+    shape."""
     rng = np.random.default_rng(0)
     rows = []
     for kind, shapes in (("gather", GATHER_SHAPES), ("cumsum", CUMSUM_SHAPES)):
@@ -229,34 +221,31 @@ def time_kernels(device) -> list[dict]:
                       f"{EPT} elements a thread; cudaOccupancyMaxActiveClusters {lane.cumsum_clusters(*args)} "
                       f"(the launch takes {S})", flush=True)
             steps = (T, T_SHORT, 0) + ((T_LONG,) if W == widest else ())
-            calls = {(form, t): ((lambda fn=fn, t=t: fn(*args, t)), kname)
-                     for form, fn, kname in FORMS[kind] for t in steps}
-            got = interleaved_ms(calls)
+            name, fn, kname = KERNELS[kind]
+            got = interleaved_ms({t: ((lambda t=t: fn(*args, t)), kname) for t in steps})
             plain_ms = cuda_event_ms(lambda: twin(*args, T))
             library_ms = cuda_event_ms(lambda: lib(*args, T))
-            for form, _, _ in FORMS[kind]:
-                ms, ms_short, ms_zero = got[form, T], got[form, T_SHORT], got[form, 0]
-                ms_long = got.get((form, T_LONG))
-                row = {"kind": kind, "form": form, "S": S, "W": W, "widest": W == widest, "ms": ms,
-                       "ms_short": ms_short, "ms_zero": ms_zero, "ms_long": ms_long, "scaling": ms / ms_short,
-                       "scaling_net": (ms - ms_zero) / (ms_short - ms_zero),
-                       "scaling_long": ms_long / ms if ms_long is not None else None,
-                       "plain_ms": plain_ms, "library_ms": library_ms, "gelem_s": S * W * T / (ms * 1e-3) / 1e9}
-                long = f"; T={T_LONG}: {ms_long!r} ms (x{row['scaling_long']!r} of T={T})" if ms_long else ""
-                print(f"[probe] P1 {form} (S={S}, W={W}): {ms!r} ms for {T} steps -> {row['gelem_s']!r} G elem/s; "
-                      f"T={T_SHORT}: {ms_short!r} ms (x{row['scaling']!r}); T=0: {ms_zero!r} ms (net of it "
-                      f"x{row['scaling_net']!r}){long}; twin {plain_ms!r} ms, library loop {library_ms!r} ms",
-                      flush=True)
-                rows.append(row)
+            ms, ms_short, ms_zero, ms_long = got[T], got[T_SHORT], got[0], got.get(T_LONG)
+            row = {"kind": kind, "name": name, "S": S, "W": W, "widest": W == widest, "ms": ms,
+                   "ms_short": ms_short, "ms_zero": ms_zero, "ms_long": ms_long, "scaling": ms / ms_short,
+                   "scaling_net": (ms - ms_zero) / (ms_short - ms_zero),
+                   "scaling_long": ms_long / ms if ms_long is not None else None,
+                   "plain_ms": plain_ms, "library_ms": library_ms, "gelem_s": S * W * T / (ms * 1e-3) / 1e9}
+            long = f"; T={T_LONG}: {ms_long!r} ms (x{row['scaling_long']!r} of T={T})" if ms_long else ""
+            print(f"[probe] P1 {name} (S={S}, W={W}): {ms!r} ms for {T} steps -> {row['gelem_s']!r} G elem/s; "
+                  f"T={T_SHORT}: {ms_short!r} ms (x{row['scaling']!r}); T=0: {ms_zero!r} ms (net of it "
+                  f"x{row['scaling_net']!r}){long}; twin {plain_ms!r} ms, library loop {library_ms!r} ms",
+                  flush=True)
+            rows.append(row)
     return rows
 
 
 def run(device) -> tuple[dict, list[dict]]:
     """The checks, the bits at every shape, then the timings; returns
-    ({form: max abs error against its twin}, the timing rows)."""
+    ({kernel: max abs error against its twin}, the timing rows)."""
     errs = check(device)
-    for form, err in bits(device).items():
-        errs[form] = max(errs[form], err)
+    for name, err in bits(device).items():
+        errs[name] = max(errs[name], err)
     return errs, time_kernels(device)
 
 

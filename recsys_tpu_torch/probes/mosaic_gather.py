@@ -15,17 +15,14 @@ gather's column sum, so no step can be skipped or hoisted.  Variants:
   XLA ``take`` baseline);
 * ``p1``, ``p2``, ``p3``: ``ops/gather.py::gather_rows`` (the three TPU
   lowerings compute one function; here one kernel);
-* ``p4``: ``ops/gather.py::gather_err_grad``, the fused kernel in its
-  grouped form (two slots a warp);
-* ``p4_direct``: ``gather_err_grad_direct``, its first form (a warp a
-  slot), the baseline of the grouped one.
+* ``p4``: ``ops/gather.py::gather_err_grad``, the fused kernel (two slots
+  a warp).
 
-Each kernel is first held against its twin on the probe's inputs, and the
-two forms of ``p4`` against each other in raw bits.  Each variant prints
-its milliseconds per gather (the best of three loops of INNER, by CUDA
-events, over INNER) and GB/s of gathered rows.  Then ``forms_ms`` times
-the two forms of ``p4`` alone, one call each from CUDA graph replays in
-turns.
+Each kernel is first held against its twin on the probe's inputs, and
+``p4`` against itself over two runs in raw bits.  Each variant prints its
+milliseconds per gather (the best of three loops of INNER, by CUDA
+events, over INNER) and GB/s of gathered rows.  Then ``err_grad_ms``
+times ``p4`` alone, a call from CUDA graph replays.
 """
 
 from __future__ import annotations
@@ -44,9 +41,9 @@ N, K = 5001, 128
 S = 176_128
 BLK = 1024
 INNER = 50
-VARIANTS = ("xla", "p1", "p2", "p3", "p4", "p4_direct")
-# Calls a graph replays in ``forms_ms``: a 40-60 us kernel is shorter than
-# its wrapper's host work.
+VARIANTS = ("xla", "p1", "p2", "p3", "p4")
+# Calls a graph replays in ``err_grad_ms``: a 40-60 us kernel is shorter
+# than its wrapper's host work.
 GRAPH_CALLS = 20
 
 
@@ -66,7 +63,6 @@ def steps(idx, vals, blk: int = BLK) -> dict:
         "xla": lambda tab: tab.index_select(0, idx_long).sum(dim=0),
         **{p: (lambda tab: gather.gather_rows(tab, idx).sum(dim=0)) for p in ("p1", "p2", "p3")},
         "p4": lambda tab: gather.gather_err_grad(tab, idx, vals, blk).sum(dim=0),
-        "p4_direct": lambda tab: gather.gather_err_grad_direct(tab, idx, vals, blk).sum(dim=0),
     }
 
 
@@ -84,26 +80,24 @@ def check_kernels(table, idx, vals, blk: int = BLK) -> dict:
     """Each kernel against its twin on the same inputs; returns each one's
     max abs error, and raises if ``gather_rows`` differs in any bit,
     ``gather_err_grad`` by more than ``testing.GATHER_ERR_GRAD_RTOL``, or
-    its two forms in any bit."""
+    two runs of it in any bit."""
     rows = gather.gather_rows(table, idx)
     rows_twin = gather.gather_rows_plain(table, idx)
     fused = gather.gather_err_grad(table, idx, vals, blk)
-    direct = gather.gather_err_grad_direct(table, idx, vals, blk)
+    again = gather.gather_err_grad(table, idx, vals, blk)
     fused_twin = gather.gather_err_grad_plain(table, idx, vals, blk)
     errs = {"gather_rows": float((rows - rows_twin).abs().max()),
-            "gather_err_grad": float((fused - fused_twin).abs().max()),
-            "gather_err_grad_direct": float((direct - fused_twin).abs().max())}
+            "gather_err_grad": float((fused - fused_twin).abs().max())}
     rel = errs["gather_err_grad"] / float(fused_twin.abs().max())
     if not torch.equal(rows, rows_twin) or not torch.equal(rows, table.index_select(0, idx.long())):
         raise AssertionError("gather_rows differs from its twin or from index_select")
     if not rel <= checks.GATHER_ERR_GRAD_RTOL:
         raise AssertionError(f"gather_err_grad vs twin: rel {rel} > {checks.GATHER_ERR_GRAD_RTOL}")
-    if not checks.same_bits(fused, direct):
-        raise AssertionError("gather_err_grad's grouped form differs from its direct form in raw bits")
+    if not checks.same_bits(fused, again):
+        raise AssertionError("two runs of gather_err_grad differ in raw bits")
     print(f"[probe] gather_rows == twin == index_select bit for bit; gather_err_grad max_abs_err "
-          f"{errs['gather_err_grad']!r} rel {rel!r} (limit {checks.GATHER_ERR_GRAD_RTOL}), grouped form == direct "
-          f"form in raw bits (K={table.shape[1]}, S={idx.shape[0]})",
-          flush=True)
+          f"{errs['gather_err_grad']!r} rel {rel!r} (limit {checks.GATHER_ERR_GRAD_RTOL}), two runs the same raw "
+          f"bits (K={table.shape[1]}, S={idx.shape[0]})", flush=True)
     return errs
 
 
@@ -126,29 +120,26 @@ def timeit(name, step, table, inner: int = INNER) -> float:
     return per
 
 
-def forms_ms(table, idx, vals, blk: int = BLK, rounds: int = 7) -> dict:
-    """Milliseconds a call of ``gather_err_grad``'s two forms, "grouped"
-    and "direct", from CUDA graph replays of ``GRAPH_CALLS`` calls, in
-    turns in one window.  A replay launches without calling the wrappers,
-    so it adds to no launch count."""
-    fns = {"grouped": graphed(lambda: gather.gather_err_grad(table, idx, vals, blk), GRAPH_CALLS),
-           "direct": graphed(lambda: gather.gather_err_grad_direct(table, idx, vals, blk), GRAPH_CALLS)}
-    ms = {k: v / GRAPH_CALLS for k, v in alternating_ms(fns, rounds).items()}
-    print(f"[probe] gather_err_grad forms, ms a call (graph replays in turns): {ms}; grouped / direct "
-          f"{ms['grouped'] / ms['direct']!r}", flush=True)
+def err_grad_ms(table, idx, vals, blk: int = BLK, rounds: int = 7) -> float:
+    """Milliseconds a call of ``gather_err_grad``, the median of ``rounds``
+    CUDA graph replays of ``GRAPH_CALLS`` calls.  A replay launches without
+    calling the wrapper, so it adds to no launch count."""
+    fn = graphed(lambda: gather.gather_err_grad(table, idx, vals, blk), GRAPH_CALLS)
+    ms = alternating_ms({"p4": fn}, rounds)["p4"] / GRAPH_CALLS
+    print(f"[probe] gather_err_grad: {ms!r} ms a call (graph replays)", flush=True)
     return ms
 
 
-def run(device, names=VARIANTS, forms: bool = True) -> tuple[dict, dict]:
-    """Check the kernels, then time ``names`` and, with ``forms``,
-    ``gather_err_grad``'s forms; returns ({kernel: max abs error against
-    its twin}, {variant: ms per gather, and "forms": ``forms_ms``})."""
+def run(device, names=VARIANTS, graphs: bool = True) -> tuple[dict, dict]:
+    """Check the kernels, then time ``names`` and, with ``graphs``,
+    ``gather_err_grad`` alone; returns ({kernel: max abs error against its
+    twin}, {variant: ms per gather, and "p4 call": ``err_grad_ms``})."""
     table, idx, vals = inputs(device)
     errs = check_kernels(table, idx, vals)
     fns = steps(idx, vals)
     per = {name: timeit(name, fns[name], table) for name in names}
-    if forms:
-        per["forms"] = forms_ms(table, idx, vals)
+    if graphs:
+        per["p4 call"] = err_grad_ms(table, idx, vals)
     return errs, per
 
 

@@ -1,5 +1,5 @@
-"""Where a step of B1's and B2's sparse form goes: phase clocks of one loop-form
-step at instML100k's shape.
+"""Where a step of B1's and B2's walk goes: phase clocks of one step at
+instML100k's shape.
 
     python -m recsys_tpu_torch.probes.resident_clocks
 
@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.  It
 copies ``csrc/dense_fused.cu``, marks each phase of ``grad_unit`` with
 ``clock64()`` (and the unit's start and end with the global timer) by text
 substitution, builds the copy with the port's nvcc flags into
-``build/recsys_tpu_torch/resident_clocks.so`` and runs three loop-form steps
+``build/recsys_tpu_torch/resident_clocks.so`` and runs three steps
 through the ordinary wrapper with that library in place of the built one.
 The marks of the last step give, per unit, the cycles of: staging its own
 columns (a round trip), staging the sub-strip's rows and cells (a round
@@ -15,10 +15,9 @@ trip), phase A, phase B and the partial's write.  It does this with the
 blocks an SM the kernel's shared memory allows and again with one and two
 blocks an SM (shared memory padded), so contention for the SM and the
 latency of one round trip can be told apart.  Then, with the built
-library, one step by kernel (``torch.profiler``) in the dense and loop forms
-and the loop and persistent forms' slopes in turns (``step_split``).  The
-sparse form's own kernels are not changed; nothing of this runs in the
-engine.
+library, one step by kernel (``torch.profiler``) beside the slope
+(``step_split``).  The kernels themselves are not changed; nothing of this
+runs in the engine.
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ import torch
 
 from recsys_tpu_torch.ops import _build
 from recsys_tpu_torch.ops import dense_fused as df
-from recsys_tpu_torch.probes import resident_sparse
+from recsys_tpu_torch.probes import plan_line
 
 PHASES = ("own columns", "rows + cells", "phase A", "phase B", "write")
 # Shared memory a block asks for, to hold the blocks an SM at 1 and 2.
@@ -98,7 +97,7 @@ def build() -> ctypes.CDLL:
 
 
 def unit_cells(walk: df.Walk) -> np.ndarray:
-    """Cells of each unit in the order the loop form launches them."""
+    """Cells of each unit in the order a step launches them."""
     G, chunk_l, _, chunk_r, _ = walk.split
     BC = df.UNIT_COLS // G
     per_side = []
@@ -114,12 +113,12 @@ def run(device) -> dict:
     lib = build()
     prev, _build._lib = _build._lib, lib  # the wrappers call the instrumented library
     try:
-        spec = resident_sparse.ml100k_spec()
-        Lt, Rt, At = resident_sparse.inputs(spec, device)
+        spec = plan_line.ml100k_spec()
+        Lt, Rt, At = plan_line.inputs(spec, device)
         walk = df.resident_walk(At, Lt.shape[0])
         cells = unit_cells(walk)
         n = walk.units.numel()
-        kw = dict(iters=3, alpha2=2.0 * spec.alpha, precision="highest", walk=walk, form="loop")
+        kw = dict(iters=3, alpha2=2.0 * spec.alpha, precision="highest", walk=walk)
         out = {}
         for label, floor in FORCED.items():
             lib.rs_smem_floor(floor)
@@ -169,34 +168,28 @@ def _kernel_us(fn, n: int, name: str, reps: int = 3) -> float:
 def step_split(device, n: int = 200) -> dict:
     """One step at instML100k's shape in `highest` by kernel, from
     ``torch.profiler``'s device time over ``n`` steps (the built library,
-    one launch of each kernel a step):
-    the dense form's ``grad_pass`` and ``apply_update``, the loop form's
-    ``sparse_grad`` and ``sparse_update``; then the loop and persistent
-    forms' slopes in turns (n and 3n steps).  The persistent form's step
-    less the loop form's two kernels is what its two grid barriers and its
-    dealing of units cost beyond the loop form's kernels."""
+    one launch of each kernel a step): ``sparse_grad`` and
+    ``sparse_update``; then the step's slope (n and 3n steps, CUDA events).
+    The slope less the two kernels is what the launches between them
+    cost."""
     from recsys_tpu_torch.utils.timing import alternating_ms
 
-    spec = resident_sparse.ml100k_spec()
-    Lt, Rt, At = resident_sparse.inputs(spec, device)
+    spec = plan_line.ml100k_spec()
+    Lt, Rt, At = plan_line.inputs(spec, device)
     walk = df.resident_walk(At, Lt.shape[0])
-    kw = dict(alpha2=2.0 * spec.alpha, precision="highest")
+
+    def fn(m):
+        return df.resident_train(Lt, Rt, At, iters=m, walk=walk, alpha2=2.0 * spec.alpha, precision="highest")
+
     out = {}
-    for form, fn, names in (
-            ("dense", lambda m: df.resident_train_dense(Lt, Rt, At, iters=m, **kw), ("grad_pass", "apply_update")),
-            ("loop", lambda m: df.resident_train(Lt, Rt, At, iters=m, walk=walk, form="loop", **kw),
-             ("sparse_grad", "sparse_update"))):
-        for name in names:
-            out[name] = _kernel_us(lambda: fn(n), n, name)
-            print(f"[clocks] {form} form, {name}: {out[name]!r} us of device time a step", flush=True)
-    forms = {f: (lambda m, f=f: df.resident_train(Lt, Rt, At, iters=m, walk=walk, form=f, **kw))
-             for f in ("loop", "persistent")}
-    ms = alternating_ms({(f, m): (lambda fn=fn, m=m: fn(m)) for f, fn in forms.items() for m in (3 * n, n)})
-    for f in forms:
-        out[f] = (ms[f, 3 * n] - ms[f, n]) / (2 * n) * 1e3
+    for name in ("sparse_grad", "sparse_update"):
+        out[name] = _kernel_us(lambda: fn(n), n, name)
+        print(f"[clocks] {name}: {out[name]!r} us of device time a step", flush=True)
+    ms = alternating_ms({m: (lambda m=m: fn(m)) for m in (3 * n, n)})
+    out["step"] = (ms[3 * n] - ms[n]) / (2 * n) * 1e3
     kernels = out["sparse_grad"] + out["sparse_update"]
-    print(f"[clocks] slopes in turns: loop {out['loop']!r} us a step (its kernels {kernels!r}), persistent "
-          f"{out['persistent']!r} (beyond the loop form's kernels: {out['persistent'] - kernels!r})", flush=True)
+    print(f"[clocks] slope: {out['step']!r} us a step, its kernels {kernels!r} (beyond them: "
+          f"{out['step'] - kernels!r})", flush=True)
     return out
 
 

@@ -4,19 +4,17 @@ does a strip-packed R table change the streamed GD step's time?
     python -m recsys_tpu_torch.probes.stream_v2 [iters]     # default 300
 
 Run from the root of a checkout on a machine with a CUDA card.  It holds
-P3's sparse form (``ops/stream_v2.py::stream_v2_train``, B3's sparse walk on
-the packed layout) against its twin within ``testing.STREAM_V2_RTOL``, with
-the `default` control rejected, and in raw bits against itself (two runs),
-its dense form (``stream_v2_train_dense``) and B3 in both forms
-(``dense_stream.stream_train`` and ``stream_train_dense``) on the same
-factors, ``testing.FACTOR_ITERS`` steps: at the script's small spec
+P3 (``ops/stream_v2.py::stream_v2_train``, B3's walk on the packed layout)
+against its twin within ``testing.STREAM_V2_RTOL``, with the `default`
+control rejected, and in raw bits against itself (two runs) and B3
+(``dense_stream.stream_train``) on the same factors,
+``testing.FACTOR_ITERS`` steps: at the script's small spec
 (``check_bitwise``, :143) in every A storage and at k = 40, and at the two
 shapes of its ``time_shape`` (:181-193): gen-instML1M (U 6144, I 4096 in 8
 strips of 512, K 32) and inst200-10000-50-100-300 (U 256, I 10240 in 20
-strips, K 56), int8 A.  Then it times four forms by slope, in turns in one
-window (CUDA events, medians; each walk built before the window): B3 dense
-("v1 dense", on A^T), B3 sparse ("v1 sparse"), P3 dense ("v2 dense", on A)
-and P3 sparse ("v2 sparse"), the time of ``iters`` steps minus that of
+strips, K 56), int8 A.  Then it times both by slope, in turns in one
+window (CUDA events, medians; each walk built before the window): B3 ("v1",
+on A^T) and P3 ("v2", on A), the time of ``iters`` steps minus that of
 ``iters // 3`` over the difference.
 """
 
@@ -66,55 +64,44 @@ def inputs(spec, strip: int, device, a_dtype=torch.int8):
 
 
 def check(name, spec, strip: int, device, iters: int = checks.FACTOR_ITERS, a_dtype=torch.int8) -> dict:
-    """P3's sparse form against its twin (within the limit, control
-    rejected), itself (two runs), its dense form and B3's two forms in raw
-    bits, ``iters`` steps; returns the readings.  Raises on a failure."""
+    """P3 against its twin (within the limit, control rejected), itself (two
+    runs) and B3 in raw bits, ``iters`` steps; returns the readings.  Raises
+    on a failure."""
     Lt, Rt, Rp, A, At = inputs(spec, strip, device, a_dtype)
     K = Lt.shape[0]
     kw = dict(iters=iters, alpha2=2.0 * spec.alpha, strip=strip)
     walk = stream_v2.v2_walk(A, K)
     got = stream_v2.stream_v2_train(Lt, Rp, A, walk=walk, **kw)
     again = stream_v2.stream_v2_train(Lt, Rp, A, walk=walk, **kw)
-    dense = stream_v2.stream_v2_train_dense(Lt, Rp, A, **kw)
     twin = stream_v2.stream_v2_train_plain(Lt, Rp, A, **kw)
     ctrl = checks.factor_rel(checks.stream_v2_default(Lt, Rp, A, **kw), twin)
     b3 = dense_stream.stream_train(Lt, Rt, At, iters=iters, alpha2=kw["alpha2"])
-    b3d = dense_stream.stream_train_dense(Lt, Rt, At, iters=iters, alpha2=kw["alpha2"])
     torch.cuda.synchronize()
-    packed = (lambda f: (f[0], stream_v2.pack_R(f[1], strip)))
     r = {"rel": checks.factor_rel(got, twin), "control": ctrl,
          "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, twin)),
-         "dense_max_abs_err": max(float((d - w).abs().max()) for d, w in zip(dense, twin)),
          "two runs same": checks.same_bits(got, again),
-         "= dense": checks.same_bits(got, dense),
-         "= B3": checks.same_bits(got, packed(b3)) and checks.same_bits(got, packed(b3d)),
+         "= B3": checks.same_bits(got, (b3[0], stream_v2.pack_R(b3[1], strip))),
          "finite": all(bool(torch.isfinite(g).all()) for g in got)}
-    ok = (r["rel"] <= checks.STREAM_V2_RTOL < r["control"] and r["two runs same"] and r["= dense"] and r["= B3"]
-          and r["finite"])
+    ok = r["rel"] <= checks.STREAM_V2_RTOL < r["control"] and r["two runs same"] and r["= B3"] and r["finite"]
     print(f"[probe] P3 {name} ({Lt.shape[1]}x{A.shape[1]} K={K}, {A.shape[1] // strip} strips of {strip}, "
           f"A {str(a_dtype).split('.')[-1]}, {iters} steps): max_abs_err={r['max_abs_err']!r} "
-          f"(dense form {r['dense_max_abs_err']!r}) "
           f"factor_rel={r['rel']!r} (limit {checks.STREAM_V2_RTOL}) control (default) {ctrl!r} | raw bits: two runs "
-          f"{r['two runs same']} = dense form {r['= dense']} = B3 (sparse, dense) {r['= B3']} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"{r['two runs same']} = B3 {r['= B3']} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"P3 {name}: {r}")
     return r
 
 
 def slope(name, spec, iters: int, device, strip: int = STRIP, rounds: int = 5) -> dict:
-    """ms per step of B3 on A^T ("v1 dense", "v1 sparse") and P3 on A ("v2
-    dense", "v2 sparse") by slope between ``iters`` and ``iters // 3``
-    steps, all in turns in one window by CUDA events; the walks are built
-    before it."""
+    """ms per step of B3 on A^T ("v1") and P3 on A ("v2") by slope between
+    ``iters`` and ``iters // 3`` steps, in turns in one window by CUDA
+    events; the walks are built before it."""
     Lt, Rt, Rp, A, At = inputs(spec, strip, device)
     a2, lo = 2.0 * spec.alpha, iters // 3
     v1_walk, v2_walk = dense_stream.stream_walk(At, Lt.shape[0]), stream_v2.v2_walk(A, Lt.shape[0])
     forms = {
-        "v1 dense": lambda n: dense_stream.stream_train_dense(Lt, Rt, At, iters=n, alpha2=a2),
-        "v1 sparse": lambda n: dense_stream.stream_train(Lt, Rt, At, iters=n, alpha2=a2, walk=v1_walk),
-        "v2 dense": lambda n: stream_v2.stream_v2_train_dense(Lt, Rp, A, iters=n, alpha2=a2, strip=strip),
-        "v2 sparse": lambda n: stream_v2.stream_v2_train(Lt, Rp, A, iters=n, alpha2=a2, strip=strip, walk=v2_walk),
+        "v1": lambda n: dense_stream.stream_train(Lt, Rt, At, iters=n, alpha2=a2, walk=v1_walk),
+        "v2": lambda n: stream_v2.stream_v2_train(Lt, Rp, A, iters=n, alpha2=a2, strip=strip, walk=v2_walk),
     }
     ms = alternating_ms({(f, n): (lambda f=f, n=n: forms[f](n)) for f in forms for n in (iters, lo)}, rounds)
     out = {}

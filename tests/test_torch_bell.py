@@ -454,10 +454,9 @@ def test_p2_probe_loop_on_the_cpu():
 
 
 def test_gather_err_grad_forms_on_the_cpu():
-    # Both forms take the twin on the CPU, uncounted.
+    # The kernel's wrapper takes the twin on the CPU, uncounted.
     table, idx, vals = mosaic_gather.inputs("cpu", P2_N, P2_K, P2_S)
-    before = gather.gather_err_grad.launches, gather.gather_err_grad_direct.launches
+    before = gather.gather_err_grad.launches
     want = gather.gather_err_grad_plain(table, idx, vals, P2_BLK)
     assert torch.equal(gather.gather_err_grad(table, idx, vals, P2_BLK), want)
-    assert torch.equal(gather.gather_err_grad_direct(table, idx, vals, P2_BLK), want)
-    assert (gather.gather_err_grad.launches, gather.gather_err_grad_direct.launches) == before
+    assert gather.gather_err_grad.launches == before

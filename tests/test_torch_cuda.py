@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: held against their plain torch
-twins and against each other, and the main paths through them against
-the golden output.
+twins, against each other and against digests of their raw output, and
+the main paths through them against the golden output.
 
 These tests need an NVIDIA card and skip without one.  The machine with
 the card has no jax, and tests/conftest.py imports it, so run them there
@@ -29,6 +29,12 @@ def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def _check_digest(key, *tensors):
+    """The raw bits of ``tensors`` against ``DIGESTS[key]`` (the table's
+    comment says where the digests come from)."""
+    assert checks.factor_digest(tensors) == DIGESTS[key], key
 
 
 @pytest.mark.cuda
@@ -76,6 +82,18 @@ def test_run_instml100k_matches_golden():
     out, _ = trainer.run(spec, RunConfig(dtype="float32"), "cuda")
     assert dense_fused.resident_train_top1.launches == before + 1
     assert out == (FIXTURES / "instML100k.out").read_text()
+
+
+def _name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _small(k, a_dtype, dev):
+    """(spec, Lt, Rt, A^T) of the small spec at ``k`` factors on ``dev``."""
+    spec = generate_instance(200, 300, k, 2, 30, iters=checks.FACTOR_ITERS, alpha=0.001, seed=5)
+    Lt, Rt, (U, I, K) = dense_fused.pad_factors_for_pallas(spec)
+    A = dense_fused.device_dense_AT(spec, U, I, a_dtype, dev)
+    return spec, torch.from_numpy(Lt).to(dev), torch.from_numpy(Rt).to(dev), A
 
 
 def _small_inputs(dev, a_dtype=torch.int8):
@@ -438,22 +456,23 @@ def test_p2_kernels_match_twins():
 @pytest.mark.parametrize("K", [30, 100, 128, 700])
 @pytest.mark.parametrize("S", [176_128, 1001])
 def test_gather_err_grad_grouped_keeps_the_direct_bits(K, S):
-    # The grouped form against the direct form it replaced, in raw bits:
-    # two slots a warp through K = 512, one at K = 700; an S that is no
-    # multiple of the group leaves a ragged last group.
+    # Two slots a warp through K = 512, one at K = 700; an S that is no
+    # multiple of the group leaves a ragged last group.  The digests are the
+    # form it replaced (a warp a slot)'s bits.
     from recsys_tpu_torch.ops import gather
     from recsys_tpu_torch.probes import mosaic_gather
 
     dev = _cuda()
     table, idx, vals = mosaic_gather.inputs(dev, mosaic_gather.N, K, S)
-    before = gather.gather_err_grad.launches, gather.gather_err_grad_direct.launches
-    direct = gather.gather_err_grad_direct(table, idx, vals, mosaic_gather.BLK)
-    twin = gather.gather_err_grad_plain(table, idx, vals, mosaic_gather.BLK)
+    before = gather.gather_err_grad.launches
     got = gather.gather_err_grad(table, idx, vals, mosaic_gather.BLK)
+    again = gather.gather_err_grad(table, idx, vals, mosaic_gather.BLK)
+    twin = gather.gather_err_grad_plain(table, idx, vals, mosaic_gather.BLK)
     torch.cuda.synchronize()
-    assert checks.same_bits(got, direct)
+    assert checks.same_bits(got, again)
+    _check_digest(f"gather_err_grad K{K} S{S}", got)
     assert float((got - twin).abs().max()) <= checks.GATHER_ERR_GRAD_RTOL * float(twin.abs().max())
-    assert (gather.gather_err_grad.launches, gather.gather_err_grad_direct.launches) == (before[0] + 1, before[1] + 1)
+    assert gather.gather_err_grad.launches == before + 2
     with pytest.raises(ValueError, match="K="):
         gather.gather_err_grad(torch.zeros((8, gather.MAX_K + 4), device=dev), idx[:4].remainder(8), vals[:4], 4)
 
@@ -469,16 +488,14 @@ def test_lane_gather_equals_twin_bit_for_bit(shape):
     assert shape[1] <= lane.GATHER_MAX_W
     dev = _cuda()
     tab, idx = probe.gather_inputs(*shape, dev, np.random.default_rng(0))
-    before = lane.lane_gather_loop.launches, lane.lane_gather_loop_direct.launches
+    before = lane.lane_gather_loop.launches
     # Full-width and broadcast indices; all in one bank, and all one address
     # (the schedule's overflow: a bucket past its rounds).
     for ix in (idx, idx[:1].expand_as(idx).contiguous(), idx // 32 * 32, torch.zeros_like(idx)):
         got = lane.lane_gather_loop(tab, ix, 7)
-        direct = lane.lane_gather_loop_direct(tab, ix, 7)
         torch.cuda.synchronize()
-        twin = lane.lane_gather_loop_plain(tab, ix, 7)
-        assert checks.same_bits(got, twin) and checks.same_bits(direct, twin)
-    assert (lane.lane_gather_loop.launches, lane.lane_gather_loop_direct.launches) == (before[0] + 4, before[1] + 4)
+        assert checks.same_bits(got, lane.lane_gather_loop_plain(tab, ix, 7))
+    assert lane.lane_gather_loop.launches == before + 4
 
 
 @pytest.mark.cuda
@@ -490,15 +507,14 @@ def test_lane_cumsum_within_limit_and_control_rejected(shape):
 
     dev = _cuda()
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(shape).astype(np.float32)).to(dev)
-    before = lane.lane_cumsum_loop.launches, lane.lane_cumsum_loop_block.launches
+    before = lane.lane_cumsum_loop.launches
     got = lane.lane_cumsum_loop(x, 5)
-    block = lane.lane_cumsum_loop_block(x, 5)
     twin = lane.lane_cumsum_loop_plain(x, 5)
     torch.cuda.synchronize()
-    assert (lane.lane_cumsum_loop.launches, lane.lane_cumsum_loop_block.launches) == (before[0] + 1, before[1] + 1)
-    # Both forms sum in the kernels' order: equal to it and to each other in
-    # raw bits, and within the limit of torch's order.
-    assert checks.same_bits(got, block) and checks.same_bits(got, lane.lane_cumsum_loop_order_plain(x, 5))
+    assert lane.lane_cumsum_loop.launches == before + 1
+    # The kernel sums in its own order: equal to it in raw bits, and within
+    # the limit of torch's order.
+    assert checks.same_bits(got, lane.lane_cumsum_loop_order_plain(x, 5))
     scale = float(twin.abs().max())
     assert float((got - twin).abs().max()) <= checks.LANE_CUMSUM_RTOL * scale
     assert float((checks.lane_cumsum_dropped(x) - twin).abs().max()) > checks.LANE_CUMSUM_RTOL * scale
@@ -520,7 +536,7 @@ def test_lane_cumsum_every_cluster_size_keeps_the_bits():
     for S, W in ((4, 96), (2, 64), (24, 8192), (8, 32768)):
         x = torch.from_numpy(rng.standard_normal((S, W)).astype(np.float32)).to(dev)
         sizes.add(lane.cumsum_cluster_plan(S, W, _sms(dev))[2])
-        assert checks.same_bits(lane.lane_cumsum_loop(x, 3), lane.lane_cumsum_loop_block(x, 3))
+        assert checks.same_bits(lane.lane_cumsum_loop(x, 3), lane.lane_cumsum_loop_order_plain(x, 3))
     assert sizes == {1, 2, 4, 8}
     # The entry refuses a cluster it does not take: 16 blocks (past the
     # portable size), or blocks of 512 threads of 32 elements; nothing runs.
@@ -645,23 +661,20 @@ def test_run_coo_f64_matches_golden_on_card():
 @pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
 @pytest.mark.parametrize("k", [30, 40])
 def test_sparse_stream_equals_dense_bit_for_bit(k, precision, a_dtype):
-    # B3's sparse form walks the rated cells alone in the dense form's order
-    # of sums: the same bits, at k = 30 (G = 1) and k = 40 (G = 2).
+    # B3's walk of the rated cells keeps the dense pass's order of sums: the
+    # digests are the dense pass's bits, at k = 30 (G = 1) and k = 40 (G = 2).
     dev = _cuda()
-    spec = generate_instance(200, 300, k, 2, 30, iters=checks.FACTOR_ITERS, alpha=0.001, seed=5)
-    Lt, Rt, (U, I, K) = dense_fused.pad_factors_for_pallas(spec)
-    A = dense_fused.device_dense_AT(spec, U, I, a_dtype, dev)
-    Lt, Rt = torch.from_numpy(Lt).to(dev), torch.from_numpy(Rt).to(dev)
+    spec, Lt, Rt, A = _small(k, a_dtype, dev)
     kw = dict(iters=spec.iters, alpha2=2 * spec.alpha, precision=precision)
-    before = dense_stream.stream_train.launches, dense_stream.stream_train_dense.launches
-    sparse = dense_stream.stream_train(Lt, Rt, A, **kw)
-    dense = dense_stream.stream_train_dense(Lt, Rt, A, **kw)
+    before = dense_stream.stream_train.launches
+    got = dense_stream.stream_train(Lt, Rt, A, **kw)
+    again = dense_stream.stream_train(Lt, Rt, A, **kw)
     twin = dense_stream.stream_train_plain(Lt, Rt, A, **kw)
     torch.cuda.synchronize()
-    assert (dense_stream.stream_train.launches, dense_stream.stream_train_dense.launches) == (before[0] + 1,
-                                                                                            before[1] + 1)
-    assert checks.same_bits(sparse, dense)
-    assert checks.factor_rel(sparse, twin) <= checks.FACTOR_RTOL[precision]
+    assert dense_stream.stream_train.launches == before + 2
+    assert checks.same_bits(got, again)
+    _check_digest(f"stream k{k} {precision} {_name(a_dtype)}", *got)
+    assert checks.factor_rel(got, twin) <= checks.FACTOR_RTOL[precision]
 
 
 @pytest.mark.cuda
@@ -708,25 +721,24 @@ def test_sparse_stream_with_empty_last_segments(precision):
     Lt, Rt = (0.1 * torch.rand((32, n), generator=g) for n in (256, 384))
     At, Lt, Rt = At.to(dev), Lt.to(dev), Rt.to(dev)
     kw = dict(iters=4, alpha2=0.002, precision=precision)
-    sparse = dense_stream.stream_train(Lt, Rt, At, **kw)
-    dense = dense_stream.stream_train_dense(Lt, Rt, At, **kw)
+    got = dense_stream.stream_train(Lt, Rt, At, **kw)
+    again = dense_stream.stream_train(Lt, Rt, At, **kw)
     torch.cuda.synchronize()
-    assert checks.same_bits(sparse, dense)
+    assert checks.same_bits(got, again)
+    _check_digest(f"stream empty segments {precision}", *got)
+    assert checks.factor_rel(got, dense_stream.stream_train_plain(Lt, Rt, At, **kw)) <= checks.FACTOR_RTOL[precision]
 
 
-def _resident_forms(Lt, Rt, A, kw, items_true, split=None):
-    """B1 in its three forms and B2 in the engine's, one walk between them:
-    {form: (Lt', Rt', top1)} and B2's (Lt', Rt')."""
+def _resident(Lt, Rt, A, kw, items_true, split=None):
+    """B1 twice and B2 once, one walk between them: (B1's (Lt', Rt', top1),
+    the second run's, B2's (Lt', Rt'))."""
     walk = dense_fused.resident_walk(A, Lt.shape[0], split)
     top = dict(items_true=items_true, split=split)
-    forms = {
-        "persistent": dense_fused.resident_train_top1(Lt, Rt, A, **kw, **top, walk=walk, form="persistent"),
-        "loop": dense_fused.resident_train_top1(Lt, Rt, A, **kw, **top, walk=walk, form="loop"),
-        "dense": dense_fused.resident_train_top1_dense(Lt, Rt, A, **kw, **top),
-    }
+    b1 = dense_fused.resident_train_top1(Lt, Rt, A, **kw, **top, walk=walk)
+    again = dense_fused.resident_train_top1(Lt, Rt, A, **kw, **top, walk=walk)
     b2 = dense_fused.resident_train(Lt, Rt, A, **kw, walk=walk, split=split)
     torch.cuda.synchronize()
-    return forms, b2
+    return b1, again, b2
 
 
 @pytest.mark.cuda
@@ -734,29 +746,24 @@ def _resident_forms(Lt, Rt, A, kw, items_true, split=None):
 @pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
 @pytest.mark.parametrize("k", [10, 40, 64])
 def test_sparse_resident_equals_dense_bit_for_bit(k, precision, a_dtype):
-    # B1's and B2's sparse form walks the rated cells alone in the dense
-    # form's order of sums: the same raw bits at k = 10 (G = 1) and k = 40
-    # and 64 (G = 2), in the persistent kernel and in the loop form.
+    # B1's and B2's walk of the rated cells keeps the dense walk's order of
+    # sums: the digests are the dense walk's raw bits, at k = 10 (G = 1) and
+    # k = 40 and 64 (G = 2).
     dev = _cuda()
-    spec = generate_instance(200, 300, k, 2, 30, iters=checks.FACTOR_ITERS, alpha=0.001, seed=5)
-    Lt, Rt, (U, I, K) = dense_fused.pad_factors_for_pallas(spec)
-    A = dense_fused.device_dense_AT(spec, U, I, a_dtype, dev)
-    Lt, Rt = torch.from_numpy(Lt).to(dev), torch.from_numpy(Rt).to(dev)
+    spec, Lt, Rt, A = _small(k, a_dtype, dev)
     kw = dict(iters=spec.iters, alpha2=2 * spec.alpha, precision=precision)
-    wrappers = (dense_fused.resident_train_top1, dense_fused.resident_train_top1_dense, dense_fused.resident_train)
+    wrappers = (dense_fused.resident_train_top1, dense_fused.resident_train)
     before = [f.launches for f in wrappers]
-    forms, b2 = _resident_forms(Lt, Rt, A, kw, spec.items)
-    # Each wrapper counts one a call: two sparse B1 calls, one dense, one B2.
-    assert [f.launches for f in wrappers] == [before[0] + 2, before[1] + 1, before[2] + 1]
-    dense = forms["dense"]
-    for form in ("persistent", "loop"):
-        assert checks.same_bits(forms[form][:2], dense[:2]) and torch.equal(forms[form][2], dense[2]), form
-    assert checks.same_bits(b2, dense[:2])  # B2 = B1's factors
+    b1, again, b2 = _resident(Lt, Rt, A, kw, spec.items)
+    # Each wrapper counts one a call: two B1 calls, one B2.
+    assert [f.launches for f in wrappers] == [before[0] + 2, before[1] + 1]
+    assert checks.same_bits(b1, again)
+    _check_digest(f"resident k{k} {precision} {_name(a_dtype)}", *b1)
+    assert checks.same_bits(b2, b1[:2])  # B2 = B1's factors
     # B4 on B1's factors is B1's top-1.
-    b4 = dense_stream.stream_top1(*forms["persistent"][:2], A, precision=precision, items_true=spec.items)
-    assert torch.equal(b4, forms["persistent"][2])
+    assert torch.equal(dense_stream.stream_top1(*b1[:2], A, precision=precision, items_true=spec.items), b1[2])
     twin = dense_fused.resident_train_plain(Lt, Rt, A, **kw)
-    assert checks.factor_rel(forms["persistent"][:2], twin) <= checks.FACTOR_RTOL[precision]
+    assert checks.factor_rel(b1[:2], twin) <= checks.FACTOR_RTOL[precision]
 
 
 @pytest.mark.cuda
@@ -768,11 +775,11 @@ def test_sparse_resident_equals_dense_at_instml100k_shape(precision):
     A = dense_fused.device_dense_AT(spec, U, I, torch.int8, dev)
     Lt, Rt = torch.from_numpy(Lt).to(dev), torch.from_numpy(Rt).to(dev)
     kw = dict(iters=checks.FACTOR_ITERS, alpha2=2 * spec.alpha, precision=precision)
-    forms, b2 = _resident_forms(Lt, Rt, A, kw, spec.items)
-    dense = forms["dense"]
-    for form in ("persistent", "loop"):
-        assert checks.same_bits(forms[form][:2], dense[:2]) and torch.equal(forms[form][2], dense[2]), form
-    assert checks.same_bits(b2, dense[:2])
+    b1, again, b2 = _resident(Lt, Rt, A, kw, spec.items)
+    assert checks.same_bits(b1, again)
+    _check_digest(f"resident instML100k {precision}", *b1)
+    assert checks.same_bits(b2, b1[:2])
+    assert checks.factor_rel(b1[:2], dense_fused.resident_train_plain(Lt, Rt, A, **kw)) <= checks.FACTOR_RTOL[precision]
 
 
 @pytest.mark.cuda
@@ -791,12 +798,22 @@ def test_sparse_resident_with_empty_columns_chunks_and_last_segments(precision):
     Lt, Rt = (0.1 * torch.rand((32, n), generator=g) for n in (256, 384))
     At, Lt, Rt = At.to(dev), Lt.to(dev), Rt.to(dev)
     kw = dict(iters=4, alpha2=0.002, precision=precision)
-    forms, b2 = _resident_forms(Lt, Rt, At, kw, 284, split=(64, 6, 64, 4))
-    dense = forms["dense"]
-    for form in ("persistent", "loop"):
-        assert checks.same_bits(forms[form][:2], dense[:2]) and torch.equal(forms[form][2], dense[2]), form
-    assert checks.same_bits(b2, dense[:2])
+    b1, again, b2 = _resident(Lt, Rt, At, kw, 284, split=(64, 6, 64, 4))
+    assert checks.same_bits(b1, again)
+    _check_digest(f"resident empty columns {precision}", *b1)
+    assert checks.same_bits(b2, b1[:2])
     assert torch.equal(b2[0][:, 5], Lt[:, 5]) and torch.equal(b2[1][:, 64:128], Rt[:, 64:128])
+
+
+def _trained(spec, dev, precision, a_dtype):
+    """(Lt, Rt, At): the padded glibc factors after ``FACTOR_ITERS`` steps
+    of B3 in ``precision``, and A^T in ``a_dtype``."""
+    Lt, Rt, (U, I, _) = dense_fused.pad_factors_for_pallas(spec)
+    At = dense_fused.device_dense_AT(spec, U, I, a_dtype, dev)
+    Lt, Rt = torch.from_numpy(Lt).to(dev), torch.from_numpy(Rt).to(dev)
+    Lt, Rt = dense_stream.stream_train(Lt, Rt, At, iters=checks.FACTOR_ITERS, alpha2=2.0 * spec.alpha,
+                                       precision=precision)
+    return Lt, Rt, At
 
 
 @pytest.mark.cuda
@@ -804,32 +821,30 @@ def test_sparse_resident_with_empty_columns_chunks_and_last_segments(precision):
 @pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
 @pytest.mark.parametrize("k", [10, 40, 256])
 def test_tiled_top1_equals_dense_bit_for_bit(k, precision, a_dtype):
-    # B4's tiled form keeps the dense form's scores: each user's index and
-    # best score in raw bits, at G = 1, 2 and 8 lanes' worth of K.
-    from recsys_tpu_torch.probes import top1_tiled
-
+    # B4 keeps the scores of the form it replaced (a thread a user): the
+    # digests are that form's raw bits of each user's index and best score,
+    # at G = 1, 2 and 8 lanes' worth of K.
     dev = _cuda()
     spec = generate_instance(200, 300, k, 2, 30, iters=checks.FACTOR_ITERS, alpha=0.001, seed=5)
-    Lt, Rt, At = top1_tiled.trained(spec, dev, precision, a_dtype)
-    before = dense_stream.stream_top1.launches, dense_stream.stream_top1_dense.launches
+    Lt, Rt, At = _trained(spec, dev, precision, a_dtype)
+    before = dense_stream.stream_top1.launches
     kw = dict(precision=precision, items_true=spec.items)
-    tiled = dense_stream.stream_top1_scores(Lt, Rt, At, **kw)
-    dense = dense_stream.stream_top1_scores(Lt, Rt, At, form="dense", **kw)
+    got = dense_stream.stream_top1_scores(Lt, Rt, At, **kw)
+    again = dense_stream.stream_top1_scores(Lt, Rt, At, **kw)
     torch.cuda.synchronize()
-    assert (dense_stream.stream_top1.launches, dense_stream.stream_top1_dense.launches) == (before[0] + 1,
-                                                                                          before[1] + 1)
-    assert torch.equal(tiled[0], dense[0]) and checks.same_bits(tiled[1], dense[1])
-    assert torch.equal(dense_stream.stream_top1(Lt, Rt, At, **kw), dense[0])
-    assert torch.equal(dense[0], dense_stream.stream_top1_plain(Lt, Rt, At, **kw))
+    assert dense_stream.stream_top1.launches == before + 2
+    assert torch.equal(got[0], again[0]) and checks.same_bits(got[1], again[1])
+    _check_digest(f"top1 k{k} {precision} {_name(a_dtype)}", *got)
+    assert torch.equal(dense_stream.stream_top1(Lt, Rt, At, **kw), got[0])
+    assert torch.equal(got[0], dense_stream.stream_top1_plain(Lt, Rt, At, **kw))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["tiled", "dense"])
-def test_top1_forms_on_ties_padding_and_rated_bests(form):
+def test_top1_forms_on_ties_padding_and_rated_bests():
     dev = _cuda()
     K, U = 8, 128
     ones, zeros = torch.ones((K, U), device=dev), torch.zeros((U, U), device=dev)
-    top, best = dense_stream.stream_top1_scores(ones, ones, zeros, items_true=U, form=form)
+    top, best = dense_stream.stream_top1_scores(ones, ones, zeros, items_true=U)
     assert bool((top == 0).all()) and bool((best == K).all())
     g = torch.Generator().manual_seed(4)
     Lt, Rt = torch.rand((40, 256), generator=g).to(dev), torch.rand((40, 384), generator=g).to(dev)
@@ -837,7 +852,7 @@ def test_top1_forms_on_ties_padding_and_rated_bests(form):
     At = torch.zeros((384, 256), dtype=torch.int8, device=dev)
     first = dense_stream.stream_top1_plain(Lt, Rt, At, items_true=300)[0].long()
     At[first, torch.arange(256, device=dev)] = 6  # each user's best unrated cell becomes rated
-    top, _ = dense_stream.stream_top1_scores(Lt, Rt, At, items_true=300, form=form)
+    top, _ = dense_stream.stream_top1_scores(Lt, Rt, At, items_true=300)
     torch.cuda.synchronize()
     assert int(top.max()) < 300 and not bool((top[0].long() == first).any())
     assert torch.equal(top, dense_stream.stream_top1_plain(Lt, Rt, At, items_true=300))
@@ -847,7 +862,8 @@ def test_top1_forms_on_ties_padding_and_rated_bests(form):
 @pytest.mark.parametrize("a_dtype", [torch.int8, torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k", [8, 40])
 def test_stream_v2_sparse_equals_dense_and_b3_dense(a_dtype, k):
-    # P3's sparse walk keeps its dense form's bits, and B3's.
+    # P3 keeps B3's bits (a cross-kernel identity in raw bits) and the dense
+    # form's it replaced (the digests).
     from recsys_tpu_torch.ops import stream_v2
     from recsys_tpu_torch.probes import stream_v2 as probe
 
@@ -855,16 +871,16 @@ def test_stream_v2_sparse_equals_dense_and_b3_dense(a_dtype, k):
     spec = generate_instance(40, 700, k, 2, 8, iters=checks.FACTOR_ITERS, alpha=0.01, seed=7)
     Lt, Rt, Rp, A, At = probe.inputs(spec, probe.SMALL_STRIP, dev, a_dtype)
     kw = dict(iters=spec.iters, alpha2=2 * spec.alpha, strip=probe.SMALL_STRIP)
-    before = stream_v2.stream_v2_train.launches, stream_v2.stream_v2_train_dense.launches
+    before = stream_v2.stream_v2_train.launches
     walk = stream_v2.v2_walk(A, Lt.shape[0])
-    sparse = stream_v2.stream_v2_train(Lt, Rp, A, walk=walk, **kw)
-    dense = stream_v2.stream_v2_train_dense(Lt, Rp, A, **kw)
-    b3 = dense_stream.stream_train_dense(Lt, Rt, At, iters=spec.iters, alpha2=2 * spec.alpha)
+    got = stream_v2.stream_v2_train(Lt, Rp, A, walk=walk, **kw)
+    again = stream_v2.stream_v2_train(Lt, Rp, A, walk=walk, **kw)
+    b3 = dense_stream.stream_train(Lt, Rt, At, iters=spec.iters, alpha2=2 * spec.alpha)
     torch.cuda.synchronize()
-    assert (stream_v2.stream_v2_train.launches, stream_v2.stream_v2_train_dense.launches) == (before[0] + 1,
-                                                                                            before[1] + 1)
-    assert checks.same_bits(sparse, dense)
-    assert checks.same_bits(sparse, (b3[0], stream_v2.pack_R(b3[1], probe.SMALL_STRIP)))
+    assert stream_v2.stream_v2_train.launches == before + 2
+    assert checks.same_bits(got, again)
+    _check_digest(f"stream_v2 k{k} {_name(a_dtype)}", *got)
+    assert checks.same_bits(got, (b3[0], stream_v2.pack_R(b3[1], probe.SMALL_STRIP)))
     other = stream_v2.v2_walk(A, Lt.shape[0], sms=1)
     if other.split != walk.split:
         with pytest.raises(ValueError, match="split"):
@@ -959,3 +975,107 @@ def test_two_ranks_over_gloo_on_one_card_keep_the_bits():
         want, _ = par.factorize_sharded(spec, launch.case_config(case), device=dev)
         got = {x["factors_sha256"] for rank in lines for x in rank if x["case"] == case["name"]}
         assert got == {checks.factor_digest(want)}
+
+
+# checks.factor_digest of each engine form's raw output in the tests above
+# (the case's key), read on an NVIDIA H100 80GB HBM3 from kernels that were
+# shown equal in raw bits to the forms they replaced, which the repository
+# no longer holds (PERF.md section 6): the dense walks of B1, B2 and B3, B4's
+# thread-a-user form, P3's dense form and P2's warp-a-slot form.
+DIGESTS = {
+    "gather_err_grad K100 S1001": "e372e3cdb0b4edfa6e879e0229ae9a3079d56626705e151e3671ddf36977ceb2",
+    "gather_err_grad K100 S176128": "da56163d296824c2d3ec8db99fbea8898b3e6e69eb429770016126f769114c91",
+    "gather_err_grad K128 S1001": "634c28b4d50a7004f8db3de3a29bb643e796f9e33753500495eb55d3627b662c",
+    "gather_err_grad K128 S176128": "3faea478b419f982bfca5f07ade5b635dc7155c8ace0ed0c84325636502f1900",
+    "gather_err_grad K30 S1001": "d0c945741be3798457b2598548252f90445614f67062f443c0912e72211620ff",
+    "gather_err_grad K30 S176128": "42590cf005af1bff9320741358acb4c31401f3a3584160b2a57e0e3a5ce27d0a",
+    "gather_err_grad K700 S1001": "ce2e679ce36039247e5bd7aaba696a3fcdd20bb654c1d99457ac9a3a7cd89958",
+    "gather_err_grad K700 S176128": "4bd453ecbdeead9833c18cb2ac746ca0ae1cd5a6ec4a33ccab7e9366ed87d3bb",
+    "resident empty columns bf16x3": "cf7be2f491a3d0dc98d855549c41e112ed3d7e4303fc801a3122658f6195abc9",
+    "resident empty columns default": "ed7e00d9f85b001909201d9a12d629471f05a33600003ae3e6daabce2dbad025",
+    "resident empty columns highest": "51a75c555dc6baeaa8550c84c96ba5d84c4fdd5c81b5b79aa37a311daa4bf7e1",
+    "resident instML100k bf16x3": "c47848061844d8921fb0a55c699d56d86da98391f8670018f2986e22faf80aaf",
+    "resident instML100k default": "66ed7c02b7a8b664afe83290050e3b2c0b98006c0ca679d5b0d1ff180a485595",
+    "resident instML100k highest": "71dfc4b1039cef604d75e4f7deb318177deaa70fccb7ea89fa6f0b0d0f92385e",
+    "resident k10 bf16x3 bfloat16": "38ad1a4a0eed35a62fc4e947b249a5dda76bc866055b45daf2a5d3c63dba727f",
+    "resident k10 bf16x3 float32": "38ad1a4a0eed35a62fc4e947b249a5dda76bc866055b45daf2a5d3c63dba727f",
+    "resident k10 bf16x3 int8": "38ad1a4a0eed35a62fc4e947b249a5dda76bc866055b45daf2a5d3c63dba727f",
+    "resident k10 default bfloat16": "93cf06f21a91128d53d5295098fb4f99b05515ec592799004eaa5a302d9211f5",
+    "resident k10 default float32": "93cf06f21a91128d53d5295098fb4f99b05515ec592799004eaa5a302d9211f5",
+    "resident k10 default int8": "93cf06f21a91128d53d5295098fb4f99b05515ec592799004eaa5a302d9211f5",
+    "resident k10 highest bfloat16": "754c585ff04bf6611981bad23060ae0bb9ccc314c9a5855a925d77dd008a32ad",
+    "resident k10 highest float32": "754c585ff04bf6611981bad23060ae0bb9ccc314c9a5855a925d77dd008a32ad",
+    "resident k10 highest int8": "754c585ff04bf6611981bad23060ae0bb9ccc314c9a5855a925d77dd008a32ad",
+    "resident k40 bf16x3 bfloat16": "dec1b8304424980d2f175832f65aeca0c747bed1788bca0555418e35bb6a36ea",
+    "resident k40 bf16x3 float32": "dec1b8304424980d2f175832f65aeca0c747bed1788bca0555418e35bb6a36ea",
+    "resident k40 bf16x3 int8": "dec1b8304424980d2f175832f65aeca0c747bed1788bca0555418e35bb6a36ea",
+    "resident k40 default bfloat16": "a10fdc88a08f9397367317fdd54601c26c614dcac92eb03bc3e50ea7afa9665f",
+    "resident k40 default float32": "a10fdc88a08f9397367317fdd54601c26c614dcac92eb03bc3e50ea7afa9665f",
+    "resident k40 default int8": "a10fdc88a08f9397367317fdd54601c26c614dcac92eb03bc3e50ea7afa9665f",
+    "resident k40 highest bfloat16": "476b598315ff3b5cad783009d6046b602647836bc6dce64a0153123f44b33557",
+    "resident k40 highest float32": "476b598315ff3b5cad783009d6046b602647836bc6dce64a0153123f44b33557",
+    "resident k40 highest int8": "476b598315ff3b5cad783009d6046b602647836bc6dce64a0153123f44b33557",
+    "resident k64 bf16x3 bfloat16": "6f96a7b5c6d663c9e7b3d8e19f688b50128833ded249d5586de182025bfe595e",
+    "resident k64 bf16x3 float32": "6f96a7b5c6d663c9e7b3d8e19f688b50128833ded249d5586de182025bfe595e",
+    "resident k64 bf16x3 int8": "6f96a7b5c6d663c9e7b3d8e19f688b50128833ded249d5586de182025bfe595e",
+    "resident k64 default bfloat16": "8c2f8f36c0400e5e79692176fb214dea01810c8b71953c3f7e1aec130c0c3641",
+    "resident k64 default float32": "8c2f8f36c0400e5e79692176fb214dea01810c8b71953c3f7e1aec130c0c3641",
+    "resident k64 default int8": "8c2f8f36c0400e5e79692176fb214dea01810c8b71953c3f7e1aec130c0c3641",
+    "resident k64 highest bfloat16": "a66ff220c9120d7ff5eec088fbce21da2706ed77463a98bc413cd2427c7e1510",
+    "resident k64 highest float32": "a66ff220c9120d7ff5eec088fbce21da2706ed77463a98bc413cd2427c7e1510",
+    "resident k64 highest int8": "a66ff220c9120d7ff5eec088fbce21da2706ed77463a98bc413cd2427c7e1510",
+    "stream empty segments bf16x3": "58210de17f80efd17145c91f71a2c471597d8d6b5245b0ae2fa91afe5b73764d",
+    "stream empty segments default": "b24e28f4ab4da88cfd895a4d327f2439b0363c051cbacc53d7879c0cc1a19ee6",
+    "stream empty segments highest": "d899b6bab4ff4b2b5966c45d78d855c3ab7e73603c374e2f403549b662eeafd0",
+    "stream k30 bf16x3 bfloat16": "6117a07d916cc41fcdb182a58746e9163c5e3d2bd1da63085f52003504c96d20",
+    "stream k30 bf16x3 float32": "6117a07d916cc41fcdb182a58746e9163c5e3d2bd1da63085f52003504c96d20",
+    "stream k30 bf16x3 int8": "6117a07d916cc41fcdb182a58746e9163c5e3d2bd1da63085f52003504c96d20",
+    "stream k30 default bfloat16": "300395dd82f928a47e7a3fc7fedbd1f9f522c7ec509d5630e3fbc476d079f4cc",
+    "stream k30 default float32": "300395dd82f928a47e7a3fc7fedbd1f9f522c7ec509d5630e3fbc476d079f4cc",
+    "stream k30 default int8": "300395dd82f928a47e7a3fc7fedbd1f9f522c7ec509d5630e3fbc476d079f4cc",
+    "stream k30 highest bfloat16": "c88399c8aa5c6bc60df6c97e25e08d94eee1b3ce4e88c0ced676c996ca761790",
+    "stream k30 highest float32": "c88399c8aa5c6bc60df6c97e25e08d94eee1b3ce4e88c0ced676c996ca761790",
+    "stream k30 highest int8": "c88399c8aa5c6bc60df6c97e25e08d94eee1b3ce4e88c0ced676c996ca761790",
+    "stream k40 bf16x3 bfloat16": "c0ff625f8db47108bb6ae36b849d1139dbb961cce29b5c3dba889f7a6b0a28e2",
+    "stream k40 bf16x3 float32": "c0ff625f8db47108bb6ae36b849d1139dbb961cce29b5c3dba889f7a6b0a28e2",
+    "stream k40 bf16x3 int8": "c0ff625f8db47108bb6ae36b849d1139dbb961cce29b5c3dba889f7a6b0a28e2",
+    "stream k40 default bfloat16": "157c5a79e0bd4cb5fb1ce0dc1e78414f65d1c817513908b421b654a7048c31b7",
+    "stream k40 default float32": "157c5a79e0bd4cb5fb1ce0dc1e78414f65d1c817513908b421b654a7048c31b7",
+    "stream k40 default int8": "157c5a79e0bd4cb5fb1ce0dc1e78414f65d1c817513908b421b654a7048c31b7",
+    "stream k40 highest bfloat16": "9818dca9edc767c741a15652ca32d5295fa1f6ef4f0f444935d66b554497ecf8",
+    "stream k40 highest float32": "9818dca9edc767c741a15652ca32d5295fa1f6ef4f0f444935d66b554497ecf8",
+    "stream k40 highest int8": "9818dca9edc767c741a15652ca32d5295fa1f6ef4f0f444935d66b554497ecf8",
+    "stream_v2 k40 bfloat16": "37e9969b3c080dfb3484056496a27bd0a2ccf746c604405fc05a8e4070de94fb",
+    "stream_v2 k40 float32": "37e9969b3c080dfb3484056496a27bd0a2ccf746c604405fc05a8e4070de94fb",
+    "stream_v2 k40 int8": "37e9969b3c080dfb3484056496a27bd0a2ccf746c604405fc05a8e4070de94fb",
+    "stream_v2 k8 bfloat16": "31cc85ece9ab212804ba3446dd8bb900941eba724300276a98c78758af87959e",
+    "stream_v2 k8 float32": "31cc85ece9ab212804ba3446dd8bb900941eba724300276a98c78758af87959e",
+    "stream_v2 k8 int8": "31cc85ece9ab212804ba3446dd8bb900941eba724300276a98c78758af87959e",
+    "top1 k10 bf16x3 bfloat16": "99a5223987ffad3352167f01c826f2b8a9a92a55b421647114afcef7f7b4a47c",
+    "top1 k10 bf16x3 float32": "99a5223987ffad3352167f01c826f2b8a9a92a55b421647114afcef7f7b4a47c",
+    "top1 k10 bf16x3 int8": "99a5223987ffad3352167f01c826f2b8a9a92a55b421647114afcef7f7b4a47c",
+    "top1 k10 default bfloat16": "d2a6ccccb8ba0c235d8e3c4075197a798a12b2711b106a1cfa144cd9378337ff",
+    "top1 k10 default float32": "d2a6ccccb8ba0c235d8e3c4075197a798a12b2711b106a1cfa144cd9378337ff",
+    "top1 k10 default int8": "d2a6ccccb8ba0c235d8e3c4075197a798a12b2711b106a1cfa144cd9378337ff",
+    "top1 k10 highest bfloat16": "84b866917768366f17b62a230e0e6b062e283f23c5218186b33d72f30d4d07f5",
+    "top1 k10 highest float32": "84b866917768366f17b62a230e0e6b062e283f23c5218186b33d72f30d4d07f5",
+    "top1 k10 highest int8": "84b866917768366f17b62a230e0e6b062e283f23c5218186b33d72f30d4d07f5",
+    "top1 k256 bf16x3 bfloat16": "c887a8e20bce3303525aa92a8cc6167cadd9e469a3e71e5af557a59770e1abaf",
+    "top1 k256 bf16x3 float32": "c887a8e20bce3303525aa92a8cc6167cadd9e469a3e71e5af557a59770e1abaf",
+    "top1 k256 bf16x3 int8": "c887a8e20bce3303525aa92a8cc6167cadd9e469a3e71e5af557a59770e1abaf",
+    "top1 k256 default bfloat16": "1276ef9962e181e194e00f3a1dc71a7ad554f32af7986c608bae72056cc8235b",
+    "top1 k256 default float32": "1276ef9962e181e194e00f3a1dc71a7ad554f32af7986c608bae72056cc8235b",
+    "top1 k256 default int8": "1276ef9962e181e194e00f3a1dc71a7ad554f32af7986c608bae72056cc8235b",
+    "top1 k256 highest bfloat16": "fc018669950752e3d424684ed45583276c2d19fc1550247c3b42f76de8ba1bb6",
+    "top1 k256 highest float32": "fc018669950752e3d424684ed45583276c2d19fc1550247c3b42f76de8ba1bb6",
+    "top1 k256 highest int8": "fc018669950752e3d424684ed45583276c2d19fc1550247c3b42f76de8ba1bb6",
+    "top1 k40 bf16x3 bfloat16": "b5d458c6236d5f3c8d15b57e9441834dfddab1ddbbef4347bdacb0ac0c311d06",
+    "top1 k40 bf16x3 float32": "b5d458c6236d5f3c8d15b57e9441834dfddab1ddbbef4347bdacb0ac0c311d06",
+    "top1 k40 bf16x3 int8": "b5d458c6236d5f3c8d15b57e9441834dfddab1ddbbef4347bdacb0ac0c311d06",
+    "top1 k40 default bfloat16": "6e0f0dfcfe030fc5ad2aee1b9fb0e49190dd4efc2456a06c670d70f7b957dc69",
+    "top1 k40 default float32": "6e0f0dfcfe030fc5ad2aee1b9fb0e49190dd4efc2456a06c670d70f7b957dc69",
+    "top1 k40 default int8": "6e0f0dfcfe030fc5ad2aee1b9fb0e49190dd4efc2456a06c670d70f7b957dc69",
+    "top1 k40 highest bfloat16": "342d6ec9de06b0422d63d32a2bfadf4b0ac4a521d49c9cdeadc909691f7f2e14",
+    "top1 k40 highest float32": "342d6ec9de06b0422d63d32a2bfadf4b0ac4a521d49c9cdeadc909691f7f2e14",
+    "top1 k40 highest int8": "342d6ec9de06b0422d63d32a2bfadf4b0ac4a521d49c9cdeadc909691f7f2e14",
+}

@@ -77,8 +77,8 @@ def test_cumsum_twin_matches_jax_body(shape):
 
 def test_probe_checks_on_the_cpu():
     errs = probe.check("cpu")
-    # Every form takes its twin on the CPU.
-    assert errs == {"lane_gather": 0.0, "lane_gather_direct": 0.0, "lane_cumsum": 0.0, "lane_cumsum_block": 0.0}
+    # Every kernel's wrapper takes its twin on the CPU.
+    assert errs == {"lane_gather": 0.0, "lane_cumsum": 0.0}
 
 
 def test_wrappers_refuse_what_no_kernel_takes():
@@ -88,19 +88,15 @@ def test_wrappers_refuse_what_no_kernel_takes():
     with pytest.raises(ValueError, match="float32"):
         lane.lane_cumsum_loop(tab.double(), 1)
     meta = [x.to("meta") for x in (tab, idx)]
-    for fn in (lane.lane_gather_loop, lane.lane_gather_loop_direct):
-        with pytest.raises(ValueError, match="no kernel"):
-            fn(*meta, 1)
-    for fn in (lane.lane_cumsum_loop, lane.lane_cumsum_loop_block):
-        with pytest.raises(ValueError, match="no kernel"):
-            fn(meta[0], 1)
-    forms = (lane.lane_gather_loop, lane.lane_gather_loop_direct, lane.lane_cumsum_loop, lane.lane_cumsum_loop_block)
-    before = [fn.launches for fn in forms]
-    for fn in forms[:2]:
-        assert torch.equal(fn(tab, idx, 2), lane.lane_gather_loop_plain(tab, idx, 2))
-    for fn in forms[2:]:
-        assert torch.equal(fn(tab, 2), lane.lane_cumsum_loop_plain(tab, 2))
-    assert [fn.launches for fn in forms] == before  # twins: no launch
+    with pytest.raises(ValueError, match="no kernel"):
+        lane.lane_gather_loop(*meta, 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        lane.lane_cumsum_loop(meta[0], 1)
+    wrappers = (lane.lane_gather_loop, lane.lane_cumsum_loop)
+    before = [fn.launches for fn in wrappers]
+    assert torch.equal(lane.lane_gather_loop(tab, idx, 2), lane.lane_gather_loop_plain(tab, idx, 2))
+    assert torch.equal(lane.lane_cumsum_loop(tab, 2), lane.lane_cumsum_loop_plain(tab, 2))
+    assert [fn.launches for fn in wrappers] == before  # twins: no launch
 
 
 # The probe's scan shapes and the card tests' (tests/test_torch_cuda.py).

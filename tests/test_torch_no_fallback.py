@@ -24,7 +24,7 @@ import contextlib, io, os, sys, tempfile
 import chip_smoke
 import recsys_tpu_torch, recsys_tpu_torch.cli, recsys_tpu_torch.convert, recsys_tpu_torch.probes.mosaic_gather
 import recsys_tpu_torch.probes.gather, recsys_tpu_torch.probes.stream_v2
-import recsys_tpu_torch.probes.tiled_fused, recsys_tpu_torch.probes.tiled_clocks
+import recsys_tpu_torch.probes.tiled_fused, recsys_tpu_torch.probes.tiled_clocks, recsys_tpu_torch.probes.plan_line
 from recsys_tpu_torch.ops import coo, device_rng, lane, stream_v2
 import recsys_tpu_torch.parallel.engine, recsys_tpu_torch.parallel.mesh, recsys_tpu_torch.parallel.sharding
 import recsys_tpu_torch.parallel.step, recsys_tpu_torch.parallel.multihost, recsys_tpu_torch.parallel.launch
@@ -53,7 +53,6 @@ assert out == open(sys.argv[2]).read()
 recsys_tpu_torch.parallel.engine.dryrun(4, device="cpu")
 device_rng.device_init_factors(5, 4, 3)
 lane.lane_cumsum_loop(lane.lane_gather_loop(*recsys_tpu_torch.probes.gather.gather_inputs(2, 64, "cpu", __import__("numpy").random.default_rng(0)), 2), 2)
-lane.lane_cumsum_loop_block(lane.lane_gather_loop_direct(*recsys_tpu_torch.probes.gather.gather_inputs(2, 64, "cpu", __import__("numpy").random.default_rng(0)), 2), 2)
 with tempfile.TemporaryDirectory() as tmp:
     save_problem(spec, os.path.join(tmp, "s.in"))
     buf = io.StringIO()

@@ -1,12 +1,12 @@
-"""B1's and B2's sparse form on the CPU: the walk's tables (``walk_tables``)
+"""B1's and B2's walk on the CPU: the walk's tables (``walk_tables``)
 against a numpy reference, and a plain torch step over them
 (``walk_train_plain``) against ``resident_train_plain`` and the JAX
 ``pallas_dense.resident_train`` / ``resident_train_top1`` (interpret mode,
 as tests/test_torch_dense_fused.py runs them).
 
-The CUDA kernels that walk these tables (the persistent kernel and the loop
-form) are held against the dense form bit for bit in tests/test_torch_cuda.py,
-probes/resident_sparse.py and chip_smoke.py.
+The CUDA kernels that walk these tables are held against their twin and to
+digests of their raw output in tests/test_torch_cuda.py, and against their
+twin in chip_smoke.py.
 """
 
 import numpy as np
@@ -217,8 +217,6 @@ def test_wrappers_refuse_a_walk_of_another_split_or_shape():
         dense_fused._walk_for(w, wider, 32, EDGE_SPLIT)
     with pytest.raises(ValueError, match="does not cut"):
         dense_fused.resident_train(Lt, Rt, At, split=(64, 5, 64, 4), **kw)
-    with pytest.raises(ValueError, match="unknown form"):
-        dense_fused.resident_train(Lt, Rt, At, form="graph", **kw)
 
 
 def test_resident_split_is_the_dense_forms():

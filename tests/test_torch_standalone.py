@@ -146,6 +146,25 @@ def test_native_library_builds_inside_the_port():
     assert theirs.split(b"*/", 1)[1] == ours.split(b"*/", 1)[1]  # same code below the header
 
 
+def test_every_cuda_entry_has_one_signature():
+    # ctypes calls each C entry of csrc/*.cu with the arguments that
+    # ops/_build.SIGNATURES declares.  Nothing builds on the CPU, so an entry
+    # the sources lost, or a signature whose arguments went stale, would
+    # first show on a card.
+    import re
+
+    from recsys_tpu_torch.ops import _build
+
+    entries = {}
+    for src in _build.sources():
+        with open(src) as f:
+            for name, params in re.findall(r'extern "C" int (rs_\w+)\(([^)]*)\)\s*\{', f.read()):
+                entries.setdefault(name, []).append(len(params.split(",")))
+    assert {name: len(n) for name, n in entries.items() if len(n) != 1} == {}
+    assert sorted(entries) == sorted(_build.SIGNATURES)
+    assert {name: n[0] for name, n in entries.items()} == {name: len(a) for name, a in _build.SIGNATURES.items()}
+
+
 def test_hostmem_buffers():
     a = hostmem.hugepage_zeros((1024, 2048), np.float32)  # pooled THP path (8 MB)
     assert a.shape == (1024, 2048) and not a.any()

@@ -72,13 +72,12 @@ def test_a_walk_of_another_split_is_refused_and_cpu_never_launches():
     assert other.split != dense_stream.stream_split(8, *A.shape)
     with pytest.raises(ValueError, match="split"):
         stream_v2.stream_v2_train(Lt, Rp, A, walk=other, **kw)
-    before = stream_v2.stream_v2_train.launches, stream_v2.stream_v2_train_dense.launches
+    before = stream_v2.stream_v2_train.launches
     twin = stream_v2.stream_v2_train_plain(Lt, Rp, A, **kw)
-    for fn in (stream_v2.stream_v2_train, stream_v2.stream_v2_train_dense):
-        assert checks.same_bits(fn(Lt, Rp, A, **kw), twin)
+    assert checks.same_bits(stream_v2.stream_v2_train(Lt, Rp, A, **kw), twin)
     assert checks.same_bits(stream_v2.stream_v2_train(Lt, Rp, A, walk=stream_v2.v2_walk(A, 8), **kw), twin)
-    assert (stream_v2.stream_v2_train.launches, stream_v2.stream_v2_train_dense.launches) == before
+    assert stream_v2.stream_v2_train.launches == before
     with pytest.raises(ValueError, match="highest"):
-        stream_v2.stream_v2_train_dense(Lt, Rp, A, precision="bf16x3", **kw)
+        stream_v2.stream_v2_train(Lt, Rp, A, precision="bf16x3", **kw)
     with pytest.raises(ValueError, match="no kernel"):
-        stream_v2.stream_v2_train_dense(Lt.to("meta"), Rp.to("meta"), A.to("meta"), **kw)
+        stream_v2.stream_v2_train(Lt.to("meta"), Rp.to("meta"), A.to("meta"), **kw)

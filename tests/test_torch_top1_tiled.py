@@ -7,9 +7,9 @@ chunks by a strictly-greater merge in ascending order -- against
 ``dense_fused.plain_top1`` and the JAX ``pallas_dense.stream_top1``
 (interpret mode, as tests/test_pallas.py runs it); the wrapper's checks.
 
-The CUDA kernel is held against the dense form it replaced in raw bits of
-each user's index and best score in tests/test_torch_cuda.py and
-chip_smoke.py.
+On the card, tests/test_torch_cuda.py holds the CUDA kernel's index and
+best score of each user to its twin's index and to digests of their raw
+bits.
 """
 
 import numpy as np
@@ -151,22 +151,17 @@ def test_wrapper_checks_and_no_launch_on_cpu():
     spec, Lt, Rt, A = _inputs(10)
     args = (_t(Lt), _t(Rt), _t(A))
     kw = dict(items_true=spec.items)
-    with pytest.raises(ValueError, match="unknown top-1 form"):
-        dense_stream.stream_top1_scores(*args, form="warp", **kw)
     with pytest.raises(ValueError, match="unknown precision"):
-        dense_stream.stream_top1_dense(*args, precision="tf32", **kw)
+        dense_stream.stream_top1(*args, precision="tf32", **kw)
     meta = [x.to("meta") for x in args]
-    for call in (lambda a: dense_stream.stream_top1(*a, **kw), lambda a: dense_stream.stream_top1_dense(*a, **kw),
-                 lambda a: dense_stream.stream_top1_scores(*a, form="dense", **kw)):
+    for call in (lambda a: dense_stream.stream_top1(*a, **kw), lambda a: dense_stream.stream_top1_scores(*a, **kw)):
         with pytest.raises(ValueError, match="no kernel for device"):
             call(meta)
-    before = dense_stream.stream_top1.launches, dense_stream.stream_top1_dense.launches
+    before = dense_stream.stream_top1.launches
     want = dense_fused.plain_top1(*args, "highest", spec.items)
     assert torch.equal(dense_stream.stream_top1(*args, **kw), want)
-    assert torch.equal(dense_stream.stream_top1_dense(*args, **kw), want)
-    for form in ("tiled", "dense"):
-        assert torch.equal(dense_stream.stream_top1_scores(*args, form=form, **kw)[0], want)
-    assert (dense_stream.stream_top1.launches, dense_stream.stream_top1_dense.launches) == before
+    assert torch.equal(dense_stream.stream_top1_scores(*args, **kw)[0], want)
+    assert dense_stream.stream_top1.launches == before
 
 
 def _nbytes(*tensors):
