@@ -1,13 +1,17 @@
 """ctypes loader for the native host-ingest library: a copy of
 ``recsys_tpu/io/_native.py``, kept in the port so that it imports nothing
-of the JAX package.
+of the JAX package, plus the port's own printed-list entry.
 
-It builds ``recsys_tpu_torch/csrc/recsys_native.c`` (a copy of
-``native/recsys_native.c``) with ``cc`` on first use, with the same flags
-as the JAX package, into ``build/recsys_tpu_torch/`` at the repository
-root.  Every entry point degrades to the numpy implementation when the
+It builds two sources with ``cc`` on first use, with the same flags as
+the JAX package, into one ``build/recsys_tpu_torch/librecsys_native.so``
+at the repository root: ``recsys_tpu_torch/csrc/recsys_native.c`` (a
+copy of ``native/recsys_native.c``) and the port-only
+``recsys_tpu_torch/csrc/recsys_format.c`` (``rs_format_top1``, the
+printed top-1 list).  A cached library older than either source is
+rebuilt.  Every entry point degrades to the numpy implementation when the
 toolchain or the build is missing, so the package never hard-depends on
-a compiler at runtime.
+a compiler at runtime; a library without ``rs_format_top1`` leaves only
+``format_top1`` to its numpy twin.
 """
 
 from __future__ import annotations
@@ -21,11 +25,14 @@ import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "recsys_native.c")
+_FORMAT_SRC = os.path.join(_PKG, "csrc", "recsys_format.c")
 _SO = os.path.join(os.path.dirname(_PKG), "build", "recsys_tpu_torch", "librecsys_native.so")
 _HOSTSIG = _SO + ".host"
 _lock = threading.Lock()
 _lib = None
 _failed = False
+_format = None  # rs_format_top1, where the loaded library has it
+_INT32 = np.iinfo(np.int32)
 
 
 def _host_signature() -> str:
@@ -62,7 +69,7 @@ def _build() -> bool:
         for cc in ("cc", "gcc", "clang"):
             try:
                 r = subprocess.run(
-                    [cc, *flags, "-shared", "-fPIC", "-o", tmp, _SRC, "-lm"],
+                    [cc, *flags, "-shared", "-fPIC", "-o", tmp, _SRC, _FORMAT_SRC, "-lm"],
                     capture_output=True,
                     timeout=120,
                 )
@@ -79,14 +86,15 @@ def _build() -> bool:
 
 
 def _load():
-    global _lib, _failed
+    global _lib, _failed, _format
     if _lib is not None or _failed:
         return _lib
     with _lock:
         if _lib is not None or _failed:
             return _lib
         try:
-            stale = not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC)
+            stale = not os.path.exists(_SO) or os.path.getmtime(_SO) < max(
+                os.path.getmtime(_SRC), os.path.getmtime(_FORMAT_SRC))
             if not stale:
                 try:
                     with open(_HOSTSIG) as f:
@@ -135,6 +143,15 @@ def _load():
                 ctypes.c_int,                  # vals_f64
                 *([ctypes.c_void_p] * 2),      # slot_next, bkt_of
             ]
+            try:
+                fmt = lib.rs_format_top1
+            except AttributeError:
+                fmt = None  # a library built without recsys_format.c
+            else:
+                fmt.restype = ctypes.c_long
+                fmt.argtypes = [ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+                                ctypes.c_void_p]
+            _format = fmt
             _lib = lib
         except Exception:
             _failed = True
@@ -320,3 +337,24 @@ def format_entries(rows, cols, vals) -> bytes | None:
         nnz, rows.ctypes.data, cols.ctypes.data, vals.ctypes.data, buf
     )
     return buf.raw[:n]
+
+
+def format_top1(top1: np.ndarray, rated_counts: np.ndarray, items: int) -> str | None:
+    """The printed top-1 list (``rs_format_top1``); None to fall back: no
+    library, or an item that int32 does not hold.  The engine's int32
+    arrays go to C as they are: a fresh copy of a 1M-user array costs more
+    in first-touch page faults than the pass itself (``utils/hostmem.py``)."""
+    if _load() is None or _format is None or not 0 <= items <= _INT32.max:
+        return None
+    n = len(top1)
+    lo, hi = (int(top1.min()), int(top1.max())) if n else (0, 0)
+    if lo < _INT32.min or hi > _INT32.max:
+        return None
+    top1 = np.ascontiguousarray(top1, np.int32)
+    if rated_counts.dtype != np.int32:
+        rated_counts, items = (rated_counts >= items).astype(np.int32), 1
+    rated_counts = np.ascontiguousarray(rated_counts)
+    width = len(str(max(-lo, hi))) + (lo < 0) + 1  # digits, sign, newline
+    out = np.empty(n * width + 8, np.uint8)  # + the last word store's slack
+    wrote = _format(n, top1.ctypes.data, rated_counts.ctypes.data, int(items), out.ctypes.data)
+    return str(out.data[:wrote], "ascii")

@@ -117,7 +117,8 @@ def test_h2d_bytes_are_the_plans_a_and_factor_tables():
     rec = timing.record_of(out)
     assert rec.counts["h2d_bytes"] == want
     assert sum(s.counts["h2d_bytes"] for s in _spans(rec, "h2d")) == want
-    assert all(s.counts is None for s in rec.spans if s.name != "h2d")
+    assert all(s.counts is None for s in rec.spans if s.name not in ("h2d", "format"))
+    assert [s.counts for s in _spans(rec, "format")] == [{"format_native": 1}]
 
 
 def test_record_of_is_by_identity_and_the_log_is_bounded():
