@@ -500,7 +500,10 @@ def recommend(state: MFState, spec: ProblemSpec, cfg: RunConfig = RunConfig(), d
     ``device`` (trainer.py:645) from host factors or from tensors, which
     stay on the device (:661-668), with the JAX engine's block and cap rule
     (:658-660): the rated-items table masks unless some user rated most of
-    the item space."""
+    the item space.  The ``rated`` span holds the table or the mask blocks
+    and their copy; the ``scan`` span R's padding, the item-block loop
+    (its blocks counted as ``scan_blocks``) and the result's copy to the
+    host, which waits for the device."""
     device = _check_device(device)
     block = _top1_block(spec, cfg.block_items)
     items_pad = -(-spec.items // block) * block
@@ -509,15 +512,20 @@ def recommend(state: MFState, spec: ProblemSpec, cfg: RunConfig = RunConfig(), d
         # factorize() hands these routes' bf16 factors back as float32
         # arrays: score in bf16, as run() and the JAX engine do (exact cast).
         L, R = L.to(torch.bfloat16), R.to(torch.bfloat16)
-    R_pad = torch.nn.functional.pad(R, (0, 0, 0, items_pad - spec.items))
-    max_rated = int(np.bincount(spec.rows, minlength=spec.users).max()) if spec.nnz else 0
-    if max_rated <= max(spec.items // 8, 128):
-        rated = h2d(topk.make_rated_table(spec), device)
-        top1 = topk.top1_rated_blocked(L, R_pad, rated, block, spec.items)
-    else:
-        mask_blocks = h2d(topk.make_mask_blocks(spec, block), device)
-        top1 = topk.top1_blocked(L, R_pad, mask_blocks, block)
-    return top1.cpu().numpy()
+    with span("rated"):
+        max_rated = int(np.bincount(spec.rows, minlength=spec.users).max()) if spec.nnz else 0
+        if max_rated <= max(spec.items // 8, 128):
+            rated, mask_blocks = h2d(topk.make_rated_table(spec), device), None
+        else:
+            rated, mask_blocks = None, h2d(topk.make_mask_blocks(spec, block), device)
+    with span("scan"):
+        count("scan_blocks", items_pad // block)
+        R_pad = torch.nn.functional.pad(R, (0, 0, 0, items_pad - spec.items))
+        if mask_blocks is None:
+            top1 = topk.top1_rated_blocked(L, R_pad, rated, block, spec.items)
+        else:
+            top1 = topk.top1_blocked(L, R_pad, mask_blocks, block)
+        return top1.cpu().numpy()
 
 
 def run(spec: ProblemSpec, cfg: RunConfig, device, *, a_max_bytes: int = RESIDENT_A_MAX_BYTES,
